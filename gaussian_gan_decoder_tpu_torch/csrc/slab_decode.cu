@@ -26,103 +26,30 @@
 //
 // Bound on the H100: the chain's ~1e5 FMA-heavy FLOPs per point on the CUDA
 // cores (tensor-core MMA on the bf16 operands is the next step).
-#include "common.cuh"
+#include "chain.cuh"
 
 namespace {
 
+using ggd::kInitCol;
+using ggd::kLds;
+using ggd::kOutW;
+using ggd::kStage;
+
 constexpr int kPts = 64;          // points per block
 constexpr int kThreads = 256;
-constexpr int kStage = 128;       // staging width
-constexpr int kLds = 132;         // padded row stride of X/A/B (bank spread)
-constexpr int kOutW = 16;
 constexpr int kC = 32;
 constexpr int kNRows = 32;
-constexpr int kInitCol = 120;
 constexpr int kValidCol = 123;
 
 // row indices of the projection block
 constexpr int kPx = 16, kPy = 17, kCa = 18, kCb = 19, kCc = 20, kOp = 21, kCol = 22,
               kDepth = 25, kRad = 26, kVis = 27;
 
-__constant__ float kPoly[10] = {2.83848659e-05f, 3.98631713e-01f, -6.59243150e-02f,
-                                9.56686907e-03f, -1.03506464e-03f, 8.13021533e-05f,
-                                -4.45819445e-06f, 1.60138706e-07f, -3.35935034e-09f,
-                                3.10310371e-11f};
-__constant__ float kPoly6[7] = {1.78927555e-03f, 3.88399878e-01f, -5.61855200e-02f,
-                                5.99722169e-03f, -3.76970754e-04f, 1.25452394e-05f,
-                                -1.69796236e-07f};
-
-__device__ __forceinline__ float sgn(float x) { return (float)((x > 0.f) - (x < 0.f)); }
-
-__device__ __forceinline__ float horner_gelu(float x, const float* c, int n) {
-  const float u = x * x;
-  float acc = c[n - 1];
-  for (int i = n - 2; i >= 0; --i) acc = acc * u + c[i];
-  const float y = 0.5f * x + acc;
-  return x > 4.5f ? x : (x < -4.5f ? 0.f : y);
-}
-
-__device__ __forceinline__ float gelu(float x, int kind) {
-  switch (kind) {
-    case 0: {  // exact: x/2 (1 + erf(x/sqrt2)), A&S 7.1.26 erf
-      const float e = x * 0.70710678118654752f;
-      const float a = fabsf(e);
-      const float t = 1.f / (1.f + 0.3275911f * a);
-      const float poly = t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f +
-                         t * (-1.453152027f + t * 1.061405429f))));
-      return x * 0.5f * (1.f + sgn(e) * (1.f - poly * expf(-a * a)));
-    }
-    case 1: {  // tanh approximation
-      const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-      const float e = expf(-2.f * fabsf(u));
-      const float t = (1.f - e) / (1.f + e);
-      return 0.5f * x * (1.f + sgn(u) * t);
-    }
-    case 2: return horner_gelu(x, kPoly, 10);
-    case 3: return horner_gelu(x, kPoly6, 7);
-    default: return x;
-  }
-}
-
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
 // sW (K x N, f32) <- w (K x N, bf16) ; sBias <- bias (N)
 __device__ __forceinline__ void load_layer(float* sW, float* sBias, const __nv_bfloat16* w,
                                            const float* bias, int K, int N) {
   for (int i = threadIdx.x; i < K * N; i += kThreads) sW[i] = ggd::bf16f(w[i]);
   for (int i = threadIdx.x; i < N; i += kThreads) sBias[i] = bias[i];
-}
-
-// out = bf16(gelu(in @ W + b)) for a 64 x 128 x 128 layer; thread tile 4 x 8
-__device__ __forceinline__ void hidden_layer(const float* in, float* out, const float* sW,
-                                             const float* sBias, int gelu_kind) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < kStage; ++k) {
-    float a[4], b[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = in[(ty * 4 + i) * kLds + k];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) b[j] = sW[k * kStage + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = tx + 16 * j;
-      out[(ty * 4 + i) * kLds + n] = ggd::bf16r(gelu(acc[i][j] + sBias[n], gelu_kind));
-    }
 }
 
 __global__ void __launch_bounds__(kThreads) slab_decode_kernel(
@@ -225,15 +152,15 @@ __global__ void __launch_bounds__(kThreads) slab_decode_kernel(
   for (int h = 0; h < n_heads; ++h) {
     load_layer(sW, sBias, w1 + (size_t)h * kStage * kStage, b1 + h * kStage, kStage, kStage);
     __syncthreads();
-    hidden_layer(X, A, sW, sBias, gk);
+    ggd::hidden_layer<true>(X, A, sW, sBias, gk);
     __syncthreads();
     load_layer(sW, sBias, w2 + (size_t)h * kStage * kStage, b2 + h * kStage, kStage, kStage);
     __syncthreads();
-    hidden_layer(A, B, sW, sBias, gk);
+    ggd::hidden_layer<true>(A, B, sW, sBias, gk);
     __syncthreads();
     load_layer(sW, sBias, w3 + (size_t)h * kStage * kStage, b3 + h * kStage, kStage, kStage);
     __syncthreads();
-    hidden_layer(B, A, sW, sBias, gk);
+    ggd::hidden_layer<true>(B, A, sW, sBias, gk);
     __syncthreads();
     load_layer(sW, sBias, w4 + (size_t)h * kStage * kOutW, b4 + h * kOutW, kStage, kOutW);
     __syncthreads();
@@ -253,7 +180,7 @@ __global__ void __launch_bounds__(kThreads) slab_decode_kernel(
         const int col = cb + 4 * j;
         if (col < out_dim) {
           float o = acc[j] + sBias[col];
-          if (kind == 1) o = -softplus(o + 5.f) + scale_offset;
+          if (kind == 1) o = -ggd::softplus(o + 5.f) + scale_offset;
           else if (kind == 2) o = o * 0.01f + (col < 3 ? X[r * kLds + kInitCol + col] : 0.f);
           O16[r * kOutW + out_col + col] = o;
           X[r * kLds + stage_col + col] = ggd::bf16r(o);

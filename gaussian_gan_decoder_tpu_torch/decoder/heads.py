@@ -1,5 +1,5 @@
-"""Gaussian-attribute decoder heads — port of decoder/heads.py (the slab
-decode route of the inference frame).
+"""Gaussian-attribute decoder heads — port of decoder/heads.py: the slab
+decode route of the inference frame and the training side.
 
 GaussianDecoder is an nn.Module holding the five heads
 (`{color,opacity,rotation,scale,xyz}_decoder.backbone`, Linear layers at
@@ -11,6 +11,11 @@ The frame runs: synthesize_planes (mapping kernel K1 + StyleGAN2
 synthesis) -> decode_project (int8 slab volume + the fused decode kernel
 K2). make_slab_context packs the static template once on the host (same
 packing and npz disk cache as the JAX package).
+
+The training side (apply = synthesize_planes_train + decode_from_planes)
+keeps the autograd graph: the f32 mapping and synthesis of the trainable G
+copy, the float tri-grid sample at the surface points, and the f32 head
+chain (kernels K6 / K7, decoder/pallas_heads_vjp.py).
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import hashlib
 import os
 import sys
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,8 +31,9 @@ from torch import nn
 
 from ..models.pallas_mapping import FoldedMapping, fold_mapping, mapping_forward
 from ..models.triplane import TriPlaneGenerator
-from ..neuralfield.renderer import build_slab_volume
+from ..neuralfield.renderer import build_slab_volume, sample_from_planes
 from .pallas_heads import ChainWeights, build_staging, decode_project_slab, pack_chain
+from .pallas_heads_vjp import decode_heads_pallas_diff
 from .point_blocks import PointBlocks, build_point_blocks, compact_indices
 
 # the reference default ('sequential_reversed'): head order, output widths;
@@ -49,9 +55,11 @@ class DecoderHead(nn.Module):
         for i, (din, dout) in enumerate(dims):
             lin = nn.Linear(din, dout, device=device)
             bound = 1.0 / din ** 0.5
+            gdev = generator.device if generator is not None else device
             with torch.no_grad():
-                lin.weight.uniform_(-bound, bound, generator=generator)
-                lin.bias.uniform_(-bound, bound, generator=generator)
+                for p in (lin.weight, lin.bias):
+                    p.copy_(torch.empty(p.shape, device=gdev).uniform_(
+                        -bound, bound, generator=generator))
             layers.append(lin)
             if i < 3:
                 layers.append(nn.GELU())
@@ -99,14 +107,49 @@ class GaussianDecoder(nn.Module):
                                                          device=device))
             cond += out_dim
 
+    def heads(self) -> Dict[str, DecoderHead]:
+        return {name: getattr(self, f"{name}_decoder") for name, _ in CHAIN}
+
+    # -- training (autograd) ------------------------------------------------
+
+    def synthesize_planes_train(self, z, gan_camera_params, truncation_psi=1.0):
+        """The trainable G copy: f32 mapping on the zeroed camera +
+        synthesis -> feature planes (N, 3, 32*D, H, W), with gradient."""
+        g = self.G
+        ws = g.mapping(z.float(), torch.zeros_like(gan_camera_params, dtype=torch.float32),
+                       truncation_psi)
+        return g.synthesis_planes(ws, noise_mode="const")
+
+    def decode_from_planes(self, planes, init_position) -> Dict[str, torch.Tensor]:
+        """planes (1, 3, C*D, H, W), init_position (M, 3) -> the five head
+        outputs {color, opacity, rotation, scale, xyz}, each (M, dim), scale
+        activated and xyz offset applied (the JAX package's
+        pallas_heads_train route)."""
+        g = self.G
+        feats = sample_from_planes(g.plane_axes, planes, init_position[None],
+                                   float(g.rk["box_warp"]), g.triplane_depth)[0]
+        packed = decode_heads_pallas_diff(self.heads(), CHAIN, feats.mean(0).float(),
+                                          init_position, init_position, SCALE_OFFSET,
+                                          gelu=self.gelu)
+        out, col = {}, 0
+        for name, dim in CHAIN:
+            out[name] = packed[:, col:col + dim]
+            col += dim
+        return out
+
+    def apply(self, z, gan_camera_params, init_position, truncation_psi=1.0):
+        planes = self.synthesize_planes_train(z, gan_camera_params, truncation_psi)
+        return self.decode_from_planes(planes, init_position)
+
+    # -- inference ------------------------------------------------------------
+
     @torch.no_grad()
     def fold(self) -> InferenceWeights:
         """bf16 kernel weights for the mapping (lr_mult folded) and the packed
         head chain. Call once per weight set, not per frame."""
-        heads = {name: getattr(self, f"{name}_decoder") for name, _ in CHAIN}
         return InferenceWeights(
             mapping=fold_mapping(self.G.backbone.mapping),
-            chain=pack_chain(heads, CHAIN, self.position_dim, SCALE_OFFSET, self.gelu))
+            chain=pack_chain(self.heads(), CHAIN, self.position_dim, SCALE_OFFSET, self.gelu))
 
     # -- per frame -----------------------------------------------------------
 
@@ -146,8 +189,11 @@ class GaussianDecoder(nn.Module):
         """One-time packing of a static (M, 3) template for the slab decode.
         cache_dir persists the host products (perm, positions, origins,
         valid, idx16) as npz keyed on the template bytes, plane axes, grid
-        dims and block geometry."""
+        dims and block geometry. The context lands on `device`, by default
+        the decoder's own."""
         g = self.G
+        if device is None:
+            device = next(self.parameters()).device
         if g.triplane_depth < 2:
             raise NotImplementedError("the bilinear (depth-1, EG3D) slab variant is not ported")
         sizes = (g.triplane_depth, int(g.rk["triplane_size"]), int(g.rk["triplane_size"]))

@@ -36,6 +36,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import kernel_lib
 from ..splat.projection import project_channels
@@ -133,32 +134,29 @@ class ChainWeights(NamedTuple):
     gelu: str
 
 
-@torch.no_grad()
-def pack_chain(heads: Dict[str, torch.nn.Module], chain_spec: Sequence[Tuple[str, int]],
-               P: int, scale_offset: float, gelu: str) -> ChainWeights:
+def pack_chain_f32(heads: Dict[str, torch.nn.Module], chain_spec: Sequence[Tuple[str, int]],
+                   P: int, scale_offset: float, gelu: str) -> ChainWeights:
     """Head modules (name -> DecoderHead with backbone Linear layers at
-    0, 2, 4, 6) -> ChainWeights. Call once per weight set, not per frame."""
+    0, 2, 4, 6) -> f32 ChainWeights (the JAX package's _pack_chain with
+    compute_dtype f32), built with differentiable ops: gradients of the
+    packed tensors flow back to the heads' parameters."""
     n_heads = len(chain_spec)
-    assert n_heads <= 5, "the kernel's chain description holds 5 heads"
+    assert n_heads <= 5, "the kernels' chain description holds 5 heads"
     assert 32 + P + sum(d for _, d in chain_spec) <= INIT_COL
-    dev = next(iter(heads.values())).backbone[0].weight.device
-    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
-    w1, w2, w3, w4 = z(n_heads, STAGE, STAGE), z(n_heads, STAGE, STAGE), \
-        z(n_heads, STAGE, STAGE), z(n_heads, STAGE, OUT_W)
-    b1, b2, b3, b4 = z(n_heads, STAGE), z(n_heads, STAGE), z(n_heads, STAGE), z(n_heads, OUT_W)
+    ws = {k: [] for k in ("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4")}
     chain, layout = [], {}
     stage_col, out_col = 32 + P, 0
-    for h, (name, out_dim) in enumerate(chain_spec):
+    for name, out_dim in chain_spec:
         seq = heads[name].backbone
         n_in = seq[0].weight.shape[1]
-        w1[h, :n_in] = seq[0].weight.t()
-        b1[h] = seq[0].bias
-        w2[h] = seq[2].weight.t()
-        b2[h] = seq[2].bias
-        w3[h] = seq[4].weight.t()
-        b3[h] = seq[4].bias
-        w4[h, :, :out_dim] = seq[6].weight.t()
-        b4[h, :out_dim] = seq[6].bias
+        ws["w1"].append(F.pad(seq[0].weight.t(), (0, 0, 0, STAGE - n_in)))
+        ws["w2"].append(seq[2].weight.t())
+        ws["w3"].append(seq[4].weight.t())
+        ws["w4"].append(F.pad(seq[6].weight.t(), (0, OUT_W - out_dim)))
+        ws["b1"].append(seq[0].bias)
+        ws["b2"].append(seq[2].bias)
+        ws["b3"].append(seq[4].bias)
+        ws["b4"].append(F.pad(seq[6].bias, (0, OUT_W - out_dim)))
         chain.append((name, out_dim, stage_col, out_col))
         layout[name] = (out_col, out_dim)
         stage_col += out_dim
@@ -168,12 +166,25 @@ def pack_chain(heads: Dict[str, torch.nn.Module], chain_spec: Sequence[Tuple[str
     for h, (name, out_dim, sc, oc) in enumerate(chain):
         meta[1 + h], meta[6 + h], meta[11 + h] = out_dim, sc, oc
         meta[16 + h] = _KINDS.get(name, 0)
-    meta[21:26] = [layout[n][0] for n in ("xyz", "rotation", "scale", "color", "opacity")]
+    if all(n in layout for n in ("xyz", "rotation", "scale", "color", "opacity")):
+        meta[21:26] = [layout[n][0] for n in ("xyz", "rotation", "scale", "color", "opacity")]
     meta[26] = _GELU_IDS[gelu]
-    bf = lambda w: w.to(torch.bfloat16).contiguous()  # noqa: E731
-    return ChainWeights(bf(w1), b1, bf(w2), b2, bf(w3), b3, bf(w4), b4, tuple(chain),
-                        layout, torch.tensor(meta, dtype=torch.int32, device=dev),
+    dev = ws["w1"][0].device
+    st = {k: torch.stack(v).float().contiguous() for k, v in ws.items()}
+    return ChainWeights(st["w1"], st["b1"], st["w2"], st["b2"], st["w3"], st["b3"],
+                        st["w4"], st["b4"], tuple(chain), layout,
+                        torch.tensor(meta, dtype=torch.int32, device=dev),
                         float(scale_offset), gelu)
+
+
+@torch.no_grad()
+def pack_chain(heads: Dict[str, torch.nn.Module], chain_spec: Sequence[Tuple[str, int]],
+               P: int, scale_offset: float, gelu: str) -> ChainWeights:
+    """Head modules -> ChainWeights for K2: pack_chain_f32 with the weight
+    matrices in bf16. Call once per weight set, not per frame."""
+    cw = pack_chain_f32(heads, chain_spec, P, scale_offset, gelu)
+    bf = lambda w: w.to(torch.bfloat16).contiguous()  # noqa: E731
+    return cw._replace(w1=bf(cw.w1), w2=bf(cw.w2), w3=bf(cw.w3), w4=bf(cw.w4))
 
 
 def build_staging(cond0, init_position, valid):
@@ -348,3 +359,98 @@ def decode_project_slab(cw: ChainWeights, vol: torch.Tensor, scales: torch.Tenso
 
 
 decode_project_slab.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# training chain, f32: K6 forward (csrc/heads_train.cu)
+# ---------------------------------------------------------------------------
+# Kernel K6, csrc/heads_train.cu::heads_fwd_kernel, replaces the TPU kernel
+# decoder/pallas_heads.py::decode_heads_pallas (_heads_kernel) in f32. What
+# bounds it on the H100: operations, ~5.1e5 FLOPs per point on the CUDA
+# cores. Its design: K2's chain code (csrc/chain.cuh) without the slab
+# gather, the projection and the bf16 rounding: one block per 64 points,
+# the staging and hidden activations and the current layer's f32 weights
+# in shared memory.
+
+FWD_POINTS_PER_BLOCK = 64   # K6 block; K7 walks 32-point tiles
+
+
+def build_staging_f32(feats_mean, cond0, init_position):
+    """(M, 128) f32 staging of the training chain (the JAX package's
+    _build_staging): features [0:32), conditioning [32:32+P), zeros for the
+    chain columns, init_position at [120:123). Differentiable."""
+    M, P = cond0.shape
+    dev = feats_mean.device
+    return torch.cat([
+        feats_mean.float(), cond0.float(),
+        torch.zeros((M, INIT_COL - 32 - P), dtype=torch.float32, device=dev),
+        init_position.float(),
+        torch.zeros((M, STAGE - INIT_COL - 3), dtype=torch.float32, device=dev),
+    ], dim=1)
+
+
+def _transform(o, name, cw: ChainWeights, init):
+    if name == "scale":
+        return -softplus(o + 5.0) + cw.scale_offset
+    if name == "xyz":
+        return o * 0.01 + init
+    return o
+
+
+def decode_heads_plain(staging, cw: ChainWeights):
+    """Plain PyTorch version of K6: the f32 chain over a (M, 128) staging ->
+    (M, 16) packed transformed head outputs. Written without in-place
+    updates, so torch autograd differentiates it too."""
+    x = staging
+    cols = [None] * OUT_W
+    init = staging[:, INIT_COL:INIT_COL + 3]
+    gelu = GELUS[cw.gelu]
+    for h, (name, od, sc, oc) in enumerate(cw.chain):
+        a = gelu(x @ cw.w1[h] + cw.b1[h])
+        a = gelu(a @ cw.w2[h] + cw.b2[h])
+        a = gelu(a @ cw.w3[h] + cw.b3[h])
+        o = _transform((a @ cw.w4[h] + cw.b4[h])[:, :od], name, cw, init[:, :od])
+        if sc + od <= STAGE:
+            x = torch.cat([x[:, :sc], o, x[:, sc + od:]], dim=1)
+        for j in range(od):
+            cols[oc + j] = o[:, j]
+    zero = torch.zeros_like(staging[:, 0])
+    return torch.stack([zero if c is None else c for c in cols], dim=1)
+
+
+def check_chain_f32(cw: ChainWeights):
+    H_ = cw.w1.shape[0]
+    chk = kernel_lib.check
+    for name in ("w1", "w2", "w3"):
+        chk(getattr(cw, name), name, torch.float32, (H_, STAGE, STAGE))
+    chk(cw.w4, "w4", torch.float32, (H_, STAGE, OUT_W))
+    for name in ("b1", "b2", "b3"):
+        chk(getattr(cw, name), name, torch.float32, (H_, STAGE))
+    chk(cw.b4, "b4", torch.float32, (H_, OUT_W))
+    chk(cw.meta, "meta", torch.int32, (32,))
+
+
+def decode_heads(staging: torch.Tensor, cw: ChainWeights) -> torch.Tensor:
+    """The f32 training chain -> (Mpad, 16) packed transformed outputs.
+    staging (Mpad, 128) f32 with Mpad a multiple of 64; cw from
+    pack_chain_f32. CPU tensors take the plain version, CUDA tensors
+    kernel K6."""
+    if not kernel_lib.use_kernel(staging, cw.w1):
+        return decode_heads_plain(staging, cw)
+    lib = kernel_lib.library()
+    Mpad = staging.shape[0]
+    if Mpad % FWD_POINTS_PER_BLOCK:
+        raise ValueError(f"Mpad {Mpad} is not a multiple of {FWD_POINTS_PER_BLOCK}")
+    kernel_lib.check(staging, "staging", torch.float32, (Mpad, STAGE))
+    check_chain_f32(cw)
+    out = torch.empty((Mpad, OUT_W), dtype=torch.float32, device=staging.device)
+    code = lib.ggd_heads_fwd(
+        staging.data_ptr(), *[getattr(cw, n).data_ptr() for n in
+                              ("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4")],
+        cw.meta.data_ptr(), out.data_ptr(), Mpad, cw.scale_offset, kernel_lib.stream())
+    kernel_lib.raise_on_error(code, "heads_fwd_kernel")
+    decode_heads.launches += 1
+    return out
+
+
+decode_heads.launches = 0

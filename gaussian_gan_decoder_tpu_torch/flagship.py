@@ -3,7 +3,9 @@
 
 The flagship is the PanoHead easy-khair deployment: tri-grid of depth 3 at
 256^2, 500k template Gaussians, a 512^2 frame. Weights are seeded random
-unless a JAX export is loaded (port/from_jax.py).
+unless a JAX export is loaded (port/from_jax.py). The builders here, like
+every entry point of the port, build on the card unless the caller asks
+for the CPU (device="cpu"); without a card they raise.
 """
 from __future__ import annotations
 
@@ -22,27 +24,41 @@ from .splat.rasterize import RasterizeConfig
 DEFAULT_BG = (0.55717, 0.52256, 0.51045)
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """The device of an entry point: the card unless the caller names the
+    CPU. Raises, rather than falling back, when a CUDA device is asked for
+    and none is present."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: gaussian_gan_decoder_tpu_torch runs on an NVIDIA "
+                           "GPU; pass device='cpu' to run the plain versions on the CPU")
+    return dev
+
+
 def flagship_generator(variant: str = "panohead", img_resolution: int = 512,
-                       rng: Optional[torch.Generator] = None, device=None) -> TriPlaneGenerator:
-    # bf16 blocks at the top 4 resolutions, as the reference deployment
+                       rng: Optional[torch.Generator] = None,
+                       device="cuda") -> TriPlaneGenerator:
+    # bf16 blocks at the top 4 resolutions and in the SR stack, as the
+    # reference deployment
     return TriPlaneGenerator(z_dim=512, c_dim=25, w_dim=512, img_resolution=img_resolution,
                              img_channels=3, variant=variant, num_fp16_res=4,
-                             generator=rng, device=device)
+                             sr_num_fp16_res=4, generator=rng, device=resolve_device(device))
 
 
 def flagship_decoder(gen: Optional[TriPlaneGenerator] = None,
-                     rng: Optional[torch.Generator] = None, device=None) -> GaussianDecoder:
+                     rng: Optional[torch.Generator] = None, device="cuda") -> GaussianDecoder:
     """The slab route's decoder: sequential_reversed heads (hidden 128), the
     fused mapping, poly6 GELU, bf16 chain, absmax int8 volume."""
-    return GaussianDecoder(gen or flagship_generator(rng=rng, device=device),
-                           gelu="poly6", rng=rng, device=device)
+    dev = resolve_device(device)
+    return GaussianDecoder(gen or flagship_generator(rng=rng, device=dev),
+                           gelu="poly6", rng=rng, device=dev)
 
 
 def flagship_raster_config() -> RasterizeConfig:
     return RasterizeConfig(tile_size=16, tile_capacity=640)
 
 
-def default_camera_params(fov_deg: float = 13.0, device=None):
+def default_camera_params(fov_deg: float = 13.0, device="cuda"):
     """Frontal orbit camera -> (camera_params (1, 25) f32, cam2world (4, 4) f32)."""
     cam2world = np.eye(4, dtype=np.float32)
     cam2world[:3, :3] = np.diag([-1.0, 1.0, -1.0])
@@ -50,6 +66,7 @@ def default_camera_params(fov_deg: float = 13.0, device=None):
     focal = 1.0 / (2.0 * np.tan(np.deg2rad(fov_deg) / 2))
     intr = np.array([[focal, 0, 0.5], [0, focal, 0.5], [0, 0, 1]], np.float32)
     cp = np.concatenate([cam2world.reshape(-1), intr.reshape(-1)])[None]
+    device = resolve_device(device)
     return (torch.tensor(cp, dtype=torch.float32, device=device),
             torch.tensor(cam2world, device=device))
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
 
-The kernels have a plain C interface (raw pointers, ints, the stream) and
-are compiled by nvcc into a single .so that ctypes loads; nothing includes
-PyTorch's headers, so a cold build takes seconds. The library is built at
+The kernels have a plain C interface (raw pointers, ints, the stream).
+Each source is compiled by its own nvcc process, all started together, and
+the objects are linked into a single .so that ctypes loads; nothing
+includes PyTorch's headers, so a cold build takes seconds. The library is built at
 first use, never at import, into `_build/` next to this file, under a name
 keyed by a hash of the sources and the flags — an edited source never loads
 a stale binary.
@@ -29,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +44,12 @@ _SIGNATURES = {
     "ggd_slab_decode": [_P] * 17 + [_I] * 7 + [_F, _F, _P],
     # blend.cu
     "ggd_blend_tiles": [_P, _P, _P] + [_I] * 5 + [_P],
+    # blend_train.cu
+    "ggd_blend_train_fwd": [_P, _P, _P] + [_I] * 5 + [_P],
+    "ggd_blend_train_bwd": [_P] * 5 + [_I] * 5 + [_P],
+    # heads_train.cu
+    "ggd_heads_fwd": [_P] * 11 + [_I, _F, _P],
+    "ggd_heads_bwd": [_P] * 15 + [_I, _I, _F, _P],
 }
 
 
@@ -75,22 +82,43 @@ def _source_hash() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into _build/libggd_kernels_<hash>.so (cached) and
-    return its path. Prints the build seconds and ptxas' register/shared
-    memory report when it compiles."""
+    return its path: one nvcc per source, run in parallel, then one link.
+    Prints the build seconds and ptxas' register/shared memory report when
+    it compiles."""
     so = BUILD_DIR / f"libggd_kernels_{_source_hash()}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
+    tag = f"{so.stem}.tmp{os.getpid()}"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for obj, proc in jobs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{obj.name} ({proc.returncode}):\n{err}")
+    objs = [obj for obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = BUILD_DIR / f"{tag}.so"
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s -> {so.name}", file=sys.stderr)
-    print(res.stderr, file=sys.stderr)
+    print("".join(logs), file=sys.stderr)
     return so
 
 

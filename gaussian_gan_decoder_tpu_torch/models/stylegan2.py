@@ -28,7 +28,11 @@ def normalize_2nd_moment(x, dim=-1, eps=1e-8):
 
 
 def _randn(shape, generator, device):
-    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    """Normal draws from the generator on its own device, then moved: a
+    seeded CPU generator gives the same weights on any device."""
+    gdev = generator.device if generator is not None else device
+    return torch.randn(shape, generator=generator, device=gdev,
+                       dtype=torch.float32).to(device)
 
 
 class FullyConnectedLayer(nn.Module):
@@ -154,14 +158,16 @@ class ToRGBLayer(nn.Module):
 
 
 class SynthesisBlock(nn.Module):
-    """'skip' architecture block (the reference generator's default)."""
+    """'skip' architecture block (the reference generator's default); up=1
+    is the super-resolution stack's SynthesisBlockNoUp."""
 
     def __init__(self, in_channels, out_channels, w_dim, resolution, img_channels,
                  is_last, resample_filter=(1, 3, 3, 1), conv_clamp=None,
-                 use_fp16=False, generator=None, device=None):
+                 use_fp16=False, up=2, generator=None, device=None):
         super().__init__()
         self.in_channels = in_channels
         self.resolution = resolution
+        self.up = up
         self.use_fp16 = use_fp16
         self.num_conv = (1 if in_channels != 0 else 0) + 1
         self.num_torgb = 1
@@ -173,7 +179,7 @@ class SynthesisBlock(nn.Module):
                                              generator, device))
         else:
             self.conv0 = SynthesisLayer(in_channels, out_channels, w_dim, resolution,
-                                        up=2, resample_filter=resample_filter,
+                                        up=up, resample_filter=resample_filter,
                                         conv_clamp=conv_clamp, generator=generator,
                                         device=device)
         self.conv1 = SynthesisLayer(out_channels, out_channels, w_dim, resolution,
@@ -192,7 +198,7 @@ class SynthesisBlock(nn.Module):
             x = self.conv0(x.to(dtype), ws[:, 0], noise_mode=noise_mode)
             x = self.conv1(x, ws[:, 1], noise_mode=noise_mode)
             w_rgb = ws[:, 2]
-        if img is not None:
+        if img is not None and self.up == 2:
             img = upsample2d(img, self.resample_filter)
         y = self.torgb(x, w_rgb).float()
         img = img + y if img is not None else y

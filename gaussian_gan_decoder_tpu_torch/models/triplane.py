@@ -1,38 +1,76 @@
-"""Tri-grid (PanoHead) / tri-plane (EG3D) generator backbone — port of the
-plane-synthesis part of models/triplane.py.
+"""Tri-grid (PanoHead) generator — port of models/triplane.py.
 
-Only what the decode-and-render frame needs: the config (`rk`,
-`triplane_depth`), the StyleGAN2 `backbone`, `mapping`, `synthesis_planes`
-and the renderer's `plane_axes`. Super-resolution, the OSG decoder, the
-raw ToRGB, t_mapping and the background synthesis are not ported; their
-weights are dropped on import (port/from_jax.py DROPPED_PREFIXES).
+The config (`rk`, `triplane_depth`), the StyleGAN2 `backbone`, the OSG
+decoder (`decoder.net.{0,2}`), the raw ToRGB (`torgb`), the super-resolution
+stack (`superresolution`, unless without_sr), `mapping`, `synthesis_planes`
+and `render_planes` (volume render + raw ToRGB + SR from precomputed
+planes). t_mapping and the background synthesis are not ported: the
+reference's target render never evaluates them (it forces the background
+to -1, triplane.py:252); their weights are dropped on import
+(port/from_jax.py DROPPED_PREFIXES).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..neuralfield.renderer import generate_planes
-from .stylegan2 import Generator as StyleGAN2Backbone
+from ..neuralfield.ray_sampler import sample_rays
+from ..neuralfield.renderer import ImportanceRenderer, RenderDraws, generate_planes
+from .stylegan2 import FullyConnectedLayer, Generator as StyleGAN2Backbone, ToRGBLayer
+from .superresolution import make_superresolution
 
 
 def default_rendering_kwargs(variant: str = "panohead") -> Dict[str, Any]:
-    """The rendering-kwargs entries the frame reads (reference launcher
-    presets, as in the JAX package)."""
+    """The rendering kwargs the port reads (reference launcher presets, as
+    in the JAX package)."""
     base = dict(c_gen_conditioning_zero=False, c_scale=1.0, box_warp=1.0,
-                triplane_size=256)
-    base["triplane_depth"] = 3 if variant == "panohead" else 1
+                triplane_size=256, depth_resolution=48, depth_resolution_importance=48,
+                decoder_lr_mul=1.0, sr_antialias=True,
+                superresolution_module="training.superresolution.SuperresolutionHybrid8XDC")
+    if variant == "panohead":
+        base.update(triplane_depth=3, ray_start="auto", ray_end="auto",
+                    decoder_activation="lrelu", use_torgb_raw=True, use_background=True)
+    else:
+        base.update(triplane_depth=1, ray_start=2.25, ray_end=3.3,
+                    decoder_activation="sigmoid", use_torgb_raw=False, use_background=False)
     return base
+
+
+class OSGDecoder(nn.Module):
+    """Plane-mean feature -> {rgb (N, M, 32), sigma (N, M, 1)}: FC 32->64,
+    softplus, FC 64->33 (`net.0`, `net.2`, the reference's Sequential)."""
+
+    def __init__(self, n_features=32, hidden_dim=64, output_dim=32, lr_multiplier=1.0,
+                 activation="lrelu", generator=None, device=None):
+        super().__init__()
+        self.activation = activation
+        self.net = nn.Sequential(
+            FullyConnectedLayer(n_features, hidden_dim, lr_multiplier=lr_multiplier,
+                                generator=generator, device=device),
+            nn.Softplus(),
+            FullyConnectedLayer(hidden_dim, 1 + output_dim, lr_multiplier=lr_multiplier,
+                                generator=generator, device=device))
+
+    def forward(self, sampled_features):
+        x = self.net(sampled_features.mean(dim=1))
+        rgb, sigma = x[..., 1:], x[..., 0:1]
+        if self.activation == "sigmoid":
+            rgb = torch.sigmoid(rgb) * (1 + 2 * 0.001) - 0.001
+        else:
+            rgb = F.leaky_relu(rgb, 0.2) * math.sqrt(2.0)
+        return {"rgb": rgb, "sigma": sigma}
 
 
 class TriPlaneGenerator(nn.Module):
     def __init__(self, z_dim=512, c_dim=25, w_dim=512, img_resolution=512,
                  img_channels=3, variant="panohead", channel_base=32768,
-                 channel_max=512, num_fp16_res=0, conv_clamp=None,
-                 mapping_kwargs: Optional[dict] = None,
+                 channel_max=512, num_fp16_res=0, sr_num_fp16_res=0, without_sr=False,
+                 conv_clamp=None, mapping_kwargs: Optional[dict] = None,
                  rendering_kwargs: Optional[dict] = None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
@@ -42,13 +80,24 @@ class TriPlaneGenerator(nn.Module):
         self.variant = variant
         self.rk = default_rendering_kwargs(variant)
         self.rk.update(rendering_kwargs or {})
-        self.triplane_depth = int(self.rk["triplane_depth"]) if variant == "panohead" else 1
+        rk = self.rk
+        self.triplane_depth = int(rk["triplane_depth"]) if variant == "panohead" else 1
         self.backbone = StyleGAN2Backbone(
-            z_dim, c_dim, w_dim, img_resolution=int(self.rk["triplane_size"]),
+            z_dim, c_dim, w_dim, img_resolution=int(rk["triplane_size"]),
             img_channels=32 * 3 * self.triplane_depth, channel_base=channel_base,
             channel_max=channel_max, num_fp16_res=num_fp16_res, conv_clamp=conv_clamp,
             mapping_kwargs=mapping_kwargs, generator=generator, device=device)
         self.num_ws = self.backbone.num_ws
+        self.decoder = OSGDecoder(
+            lr_multiplier=rk["decoder_lr_mul"],
+            activation=rk["decoder_activation"] if variant == "panohead" else "sigmoid",
+            generator=generator, device=device)
+        self.torgb = (ToRGBLayer(32, 3, w_dim, generator=generator, device=device)
+                      if variant == "panohead" and rk["use_torgb_raw"] else None)
+        self.superresolution = None if without_sr else make_superresolution(
+            rk["superresolution_module"], channels=32, sr_num_fp16_res=sr_num_fp16_res,
+            sr_antialias=rk["sr_antialias"], generator=generator, device=device)
+        self.renderer = ImportanceRenderer(plane_variant=variant)
 
     @property
     def plane_axes(self) -> np.ndarray:
@@ -66,3 +115,39 @@ class TriPlaneGenerator(nn.Module):
         N = planes.shape[0]
         return planes.reshape(N, 3, 32 * self.triplane_depth,
                               planes.shape[-2], planes.shape[-1])
+
+    def render_planes(self, planes, ws, c, draws: RenderDraws,
+                      neural_rendering_resolution: int = 64) -> Dict[str, torch.Tensor]:
+        """Volume render + raw ToRGB + SR from precomputed planes (the JAX
+        package's render_planes, noise_mode 'const'). draws: the renderer's
+        stratified and importance draws. -> {image_raw, image_depth,
+        image_mask, feature_planes[, image]}."""
+        if self.variant != "panohead":
+            raise NotImplementedError("render_planes: the EG3D tri-plane variant is not ported")
+        rk = self.rk
+        cam2world = c[:, :16].reshape(-1, 4, 4)
+        intrinsics = c[:, 16:25].reshape(-1, 3, 3)
+        N, res = c.shape[0], neural_rendering_resolution
+        ray_origins, ray_directions = sample_rays(cam2world, intrinsics, res)
+        feats, depth, weights = self.renderer(draws, planes, self.decoder, ray_origins,
+                                              ray_directions, rk)
+        feature_image = feats.permute(0, 2, 1).reshape(N, feats.shape[-1], res, res)
+        depth_image = depth.permute(0, 2, 1).reshape(N, 1, res, res)
+        weights_image = weights.permute(0, 2, 1).reshape(N, 1, res, res)
+        if rk["use_background"]:
+            # the reference blends a background forced to -1 (triplane.py:183-191)
+            feature_image = feature_image + (1 - weights_image) * (-1.0)
+        if self.torgb is not None:
+            rgb_image = self.torgb(feature_image, ws[:, -1]).float()
+        else:
+            rgb_image = feature_image[:, :3]
+        out = {"image_raw": rgb_image, "image_depth": depth_image, "feature_planes": planes,
+               "image_mask": weights_image * (1 + 2 * 0.001) - 0.001}
+        if self.superresolution is None:
+            return out
+        image, raw_alias = self.superresolution(rgb_image, feature_image, ws,
+                                                noise_mode="const")
+        out["image"] = image
+        if raw_alias is not None:
+            out["image_raw"] = raw_alias.float()
+        return out

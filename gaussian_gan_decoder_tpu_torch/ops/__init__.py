@@ -1,6 +1,7 @@
 from .bias_act import activation_funcs, bias_act
 from .modulated_conv import conv2d_resample, modulated_conv2d
+from .resize import resize_bilinear
 from .upfirdn2d import setup_filter, upfirdn2d, upsample2d
 
 __all__ = ["activation_funcs", "bias_act", "conv2d_resample", "modulated_conv2d",
-           "setup_filter", "upfirdn2d", "upsample2d"]
+           "resize_bilinear", "setup_filter", "upfirdn2d", "upsample2d"]

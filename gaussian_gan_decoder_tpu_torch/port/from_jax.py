@@ -1,11 +1,13 @@
 """Load weights exported by the JAX package into the port.
 
 The JAX side writes a flat, reference-named dict of numpy arrays
-(gaussian_gan_decoder_tpu.port.torch_export.decoder_state_dict), or the
-same dict as a torch .pt file (save_torch_state_dict). The port's modules
-carry those names, so after dropping the generator parts the port does not
-run, the dict loads with load_state_dict(strict=True): any other missing
-or unexpected key raises. This module never imports jax.
+(gaussian_gan_decoder_tpu.port.torch_export.decoder_state_dict /
+generator_state_from_params), or the same dict as a torch .pt file
+(save_torch_state_dict). The port's modules carry those names, so after
+dropping the generator parts the port never evaluates, a dict loads with
+load_state_dict(strict=True): any other missing or unexpected key raises.
+The VGG16-LPIPS weights load under torchvision's names. This module never
+imports jax.
 """
 from __future__ import annotations
 
@@ -14,22 +16,46 @@ from typing import Mapping, Union
 import numpy as np
 import torch
 
-# generator sub-trees the decode-and-render frame does not use
+# generator sub-trees the port never evaluates (the reference's target
+# render forces its background to -1 and does not run t_mapping)
 DROPPED_PREFIXES = (
-    "G.superresolution.",
-    "G.decoder.",
-    "G.torgb.",
     "G.t_mapping.",
     "G.bcg_synthesis.",
 )
 
+State = Union[str, Mapping[str, np.ndarray]]
 
-def load_decoder_state(decoder: torch.nn.Module,
-                       state: Union[str, Mapping[str, np.ndarray]]) -> None:
-    """Load a reference-named decoder state dict (a mapping of arrays or the
-    path of a .pt file) into a GaussianDecoder, strictly."""
+
+def _read(state: State) -> Mapping[str, np.ndarray]:
     if isinstance(state, str):
-        state = torch.load(state, map_location="cpu", weights_only=True)
-    sd = {k: torch.tensor(np.array(v, dtype=np.float32))
-          for k, v in state.items() if not k.startswith(DROPPED_PREFIXES)}
-    decoder.load_state_dict(sd, strict=True)
+        if state.endswith(".npz"):
+            return dict(np.load(state))
+        return torch.load(state, map_location="cpu", weights_only=True)
+    return state
+
+
+def _tensors(state: Mapping, drop=(), prefix: str = ""):
+    return {k[len(prefix):]: torch.tensor(np.array(v, dtype=np.float32))
+            for k, v in state.items() if k.startswith(prefix) and not k.startswith(drop)}
+
+
+def load_decoder_state(decoder: torch.nn.Module, state: State) -> None:
+    """Load a reference-named decoder state dict (heads, `G.` + generator;
+    a mapping of arrays or the path of a .pt file) into a GaussianDecoder,
+    strictly."""
+    decoder.load_state_dict(_tensors(_read(state), DROPPED_PREFIXES), strict=True)
+
+
+def load_generator_state(generator: torch.nn.Module, state: State) -> None:
+    """Load a reference-named generator state dict (backbone, decoder,
+    torgb, superresolution, ... as generator_state_from_params writes it)
+    into a TriPlaneGenerator, strictly."""
+    drop = tuple(p.removeprefix("G.") for p in DROPPED_PREFIXES)
+    generator.load_state_dict(_tensors(_read(state), drop), strict=True)
+
+
+def load_vgg16_lpips_state(vgg: torch.nn.Module, state: State) -> None:
+    """Load torchvision-named VGG16 weights (`features.{idx}.weight/bias`,
+    the names VGG16LPIPS.load_torch_state_dict reads on the JAX side; an
+    .npz, a .pt or a mapping) into the port's VGG16LPIPS, strictly."""
+    vgg.load_state_dict(_tensors(_read(state)), strict=True)

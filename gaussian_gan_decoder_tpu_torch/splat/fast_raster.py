@@ -19,6 +19,13 @@ CUDA rasterizer does, in plain PyTorch:
 Every pair that exists is kept, so n_dropped is always 0. The blend
 (splat/pallas_blend.py::blend_tiles) then truncates each tile to
 tile_capacity pairs, like the JAX kernel.
+
+rasterize_fast is the training (differentiable) rasterizer: projection
+by autograd, binning as above on detached values, the payload gathered from
+the per-Gaussian fields by the sorted pair index (autograd of that gather
+routes each pair's gradient back to its Gaussian: the inverse permutation
+of the JAX package's _sort_pairs), and the training blend
+(pallas_blend.blend_tiles_diff: kernels K4 / K5).
 """
 from __future__ import annotations
 
@@ -28,7 +35,9 @@ import torch
 
 from ..decoder.pallas_heads import PROJ_ROWS
 from ..gaussians.cameras import Camera
-from .pallas_blend import blend_tiles
+from ..gaussians.sh import sh_to_color
+from .pallas_blend import blend_tiles, blend_tiles_diff
+from .projection import project_channels
 from .rasterize import RasterizeConfig
 
 _BLEND_FIELDS = ("px", "py", "conic_a", "conic_b", "conic_c", "opac",
@@ -50,37 +59,47 @@ def _tile_rects_ch(px, py, radius_f, grid_x, grid_y, tile_size):
     return x0, y0, torch.clamp(x1 - x0, min=0), torch.clamp(y1 - y0, min=0)
 
 
-def bin_pairs(rows: torch.Tensor, grid_x: int, grid_y: int, tile_size: int):
-    """decode rows (NROWS, Mpad) -> (tile_starts (T+1,) int32, attrs
-    (9, Ptot) f32 field-major in (tile, depth) order)."""
-    r = {k: rows[v] for k, v in PROJ_ROWS.items()}
+@torch.no_grad()
+def bin_indices(px, py, radius_f, depth, visible, grid_x: int, grid_y: int,
+                tile_size: int):
+    """Per-Gaussian channel vectors -> (tile_starts (T+1,) int32, pair_index
+    (Ptot,) int64): the Gaussian of every (tile, Gaussian) pair, in (tile,
+    depth) order."""
     T = grid_x * grid_y
-    x0, y0, rw, rh = _tile_rects_ch(r["px"], r["py"], r["radius_f"], grid_x, grid_y,
-                                    tile_size)
+    x0, y0, rw, rh = _tile_rects_ch(px, py, radius_f, grid_x, grid_y, tile_size)
     area = rw * rh
-    gid = torch.nonzero((r["visible"] > 0.5) & (area > 0)).squeeze(1)
+    gid = torch.nonzero(visible & (area > 0)).squeeze(1)
     counts = area[gid].long()
     offs = torch.cumsum(counts, 0) - counts
     total = int(counts.sum()) if counts.numel() else 0
     pair_g = torch.repeat_interleave(gid, counts, output_size=total)
-    k = torch.arange(total, device=rows.device) - torch.repeat_interleave(
+    k = torch.arange(total, device=px.device) - torch.repeat_interleave(
         offs, counts, output_size=total)
     rw_p = rw[pair_g].long()
     tile = (y0[pair_g].long() + k // rw_p) * grid_x + x0[pair_g].long() + k % rw_p
-    qdepth = torch.clamp(r["depth"], min=1e-6).contiguous().view(torch.int32)
+    qdepth = torch.clamp(depth, min=1e-6).contiguous().view(torch.int32)
     key = (tile << 32) | qdepth[pair_g].long()
     key_sorted, order = torch.sort(key, stable=True)
-    pair_sorted = pair_g[order]
-    attrs = torch.stack([r[f] for f in _BLEND_FIELDS])[:, pair_sorted].contiguous()
     tile_sorted = (key_sorted >> 32).contiguous()
     tile_starts = torch.searchsorted(
-        tile_sorted, torch.arange(T + 1, device=rows.device)).to(torch.int32)
+        tile_sorted, torch.arange(T + 1, device=px.device)).to(torch.int32)
+    return tile_starts, pair_g[order]
+
+
+def bin_pairs(rows: torch.Tensor, grid_x: int, grid_y: int, tile_size: int):
+    """decode rows (NROWS, Mpad) -> (tile_starts (T+1,) int32, attrs
+    (9, Ptot) f32 field-major in (tile, depth) order)."""
+    r = {k: rows[v] for k, v in PROJ_ROWS.items()}
+    tile_starts, pair = bin_indices(r["px"], r["py"], r["radius_f"], r["depth"],
+                                    r["visible"] > 0.5, grid_x, grid_y, tile_size)
+    attrs = torch.stack([r[f] for f in _BLEND_FIELDS])[:, pair].contiguous()
     return tile_starts, attrs
 
 
-def _blend_and_assemble(tile_starts, attrs, grid_x, grid_y, ts, bg, config):
-    accum, trans = blend_tiles(tile_starts, attrs, grid_x, grid_y, ts,
-                               max_k=config.tile_capacity)
+def _blend_and_assemble(tile_starts, attrs, grid_x, grid_y, ts, bg, config,
+                        differentiable=False):
+    blend = blend_tiles_diff if differentiable else blend_tiles
+    accum, trans = blend(tile_starts, attrs, grid_x, grid_y, ts, max_k=config.tile_capacity)
     H, W = grid_y * ts, grid_x * ts
     img = accum + trans[:, :, None] * bg[None, None, :]
     img = img.reshape(grid_y, grid_x, ts, ts, 3).permute(0, 2, 1, 3, 4).reshape(H, W, 3)
@@ -105,6 +124,41 @@ def render_rows(cam: Camera, rows: torch.Tensor, bg: torch.Tensor,
     return {
         "render": img.permute(2, 0, 1),
         "alpha": alpha[None],
+        "n_dropped": 0,
+        "n_pairs": attrs.shape[1],
+    }
+
+
+def rasterize_fast(cam: Camera, means3d: torch.Tensor, scales: torch.Tensor,
+                   rotations: torch.Tensor, opacities: torch.Tensor, shs: torch.Tensor,
+                   bg: torch.Tensor, config: RasterizeConfig = RasterizeConfig()
+                   ) -> Dict[str, torch.Tensor]:
+    """Differentiable tiled rasterizer of (N, ...) Gaussians with degree-0
+    SH colours (shs (N, 1, 3)) -> {render (3, H, W), alpha (1, H, W), radii,
+    visibility_filter, n_dropped, n_pairs}: the JAX package's
+    rasterize_fast(differentiable=True), blending with the training kernels
+    (K4 / K5). The frame path is render_rows."""
+    ts = config.tile_size
+    grid_x, grid_y = cam.image_width // ts, cam.image_height // ts
+    if opacities.ndim == 2:
+        opacities = opacities[:, 0]
+    ch = project_channels(
+        cam, means3d[:, 0], means3d[:, 1], means3d[:, 2],
+        tuple(rotations[:, k] for k in range(4)),
+        tuple(scales[:, k] for k in range(3)))
+    colors = sh_to_color(0, shs.transpose(1, 2))
+    tile_starts, pair = bin_indices(ch["px"], ch["py"], ch["radius_f"], ch["depth"],
+                                    ch["visible"], grid_x, grid_y, ts)
+    fields = torch.stack([ch["px"], ch["py"], ch["conic_a"], ch["conic_b"], ch["conic_c"],
+                          opacities, colors[:, 0], colors[:, 1], colors[:, 2]])
+    attrs = fields[:, pair]
+    img, alpha = _blend_and_assemble(tile_starts, attrs, grid_x, grid_y, ts, bg, config,
+                                     differentiable=True)
+    return {
+        "render": img.permute(2, 0, 1),
+        "alpha": alpha[None],
+        "radii": ch["radius_f"].detach().to(torch.int32),
+        "visibility_filter": ch["visible"],
         "n_dropped": 0,
         "n_pairs": attrs.shape[1],
     }

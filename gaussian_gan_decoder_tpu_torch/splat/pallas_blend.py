@@ -98,3 +98,213 @@ def blend_tiles(tile_starts: torch.Tensor, attrs: torch.Tensor, grid_x: int,
 
 
 blend_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# training blend: K4 forward, K5 backward (csrc/blend_train.cu)
+# ---------------------------------------------------------------------------
+# Kernels K4 and K5 replace the TPU kernels splat/pallas_blend.py::
+# _blend_train_fwd and _blend_train_bwd_call. What bounds them on the H100:
+# operations — an exp and ~20 FLOPs per (pair, pixel) forward, ~60 plus the
+# per-pair sums over the tile's pixels backward, serial per pixel through
+# the transmittance. Design (csrc/blend_train.cu): one block per tile, one
+# thread per pixel, the tile's pairs staged through shared memory in chunks
+# of 128; the forward exits once every pixel saturated; the backward replays
+# front to back with the forward's arithmetic and reduces each pair's
+# gradient over the tile's pixels with warp shuffles, no atomics.
+#
+# Training rule (kernels and plain versions): as the inference blend, but a
+# pair blends only while the transmittance T before it is >= 1e-4; after
+# that alpha is 0 and T stays (the TPU kernel's alpha mask, :228-244).
+# Backward: dalpha_i = T_i (c_i . dC) - S_i / (1 - a_i) - T_final dT / (1 - a_i)
+# with S_i = sum_{j > i} w_j (c_j . dC), zero where alpha was clamped
+# (op exp(power) >= 0.99), skipped or masked; S_i = accum . dC - prefix_i
+# from the forward's own accumulation.
+
+def _pairs_of_tiles(tile_starts, t0, t1, max_k, dev):
+    """-> (valid (nt, K), idx (nt, K)) of tiles [t0, t1): pair slots within
+    each tile's min(count, max_k), idx 0 where invalid; None if empty."""
+    starts = tile_starts[t0:t1].long()
+    cnt = torch.clamp(tile_starts[t0 + 1:t1 + 1].long() - starts, max=max_k)
+    K = int(cnt.max()) if cnt.numel() else 0
+    if K == 0:
+        return None
+    k = torch.arange(K, device=dev)
+    valid = k[None] < cnt[:, None]
+    return valid, torch.where(valid, starts[:, None] + k[None], 0)
+
+
+def _falloff_plain(attrs, idx, valid, tiles, grid_x, tile_size):
+    """(nt, P, K) dx, dy, exp(power), raw = op exp(power), alpha (0 where
+    skipped) and live; a the gathered (9, nt, K) pair fields."""
+    P = tile_size * tile_size
+    p = torch.arange(P, device=attrs.device)
+    pixx = ((tiles % grid_x) * tile_size)[:, None] + p % tile_size
+    pixy = ((tiles // grid_x) * tile_size)[:, None] + p // tile_size
+    a = attrs[:, idx]
+    gx, gy, ca, cb, cc, op = (a[i][:, None, :] for i in range(6))
+    dx = pixx[:, :, None].float() - gx
+    dy = pixy[:, :, None].float() - gy
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    e = torch.exp(power)
+    raw = op * e
+    alpha = torch.clamp(raw, max=0.99)
+    live = (power <= 0.0) & (alpha >= 1.0 / 255.0) & valid[:, None, :]
+    return a, dx, dy, e, raw, torch.where(live, alpha, torch.zeros_like(alpha)), live
+
+
+def _train_mask(alpha, live):
+    """Apply the T < 1e-4 stop: -> (alpha, live, T_i before each pair, T
+    after all)."""
+    cp0 = torch.cumprod(1.0 - alpha, dim=2)
+    t_before0 = torch.cat([torch.ones_like(cp0[..., :1]), cp0[..., :-1]], dim=2)
+    masked = t_before0 < 1e-4
+    alpha = torch.where(masked, torch.zeros_like(alpha), alpha)
+    live = live & ~masked
+    cp = torch.cumprod(1.0 - alpha, dim=2)
+    t_i = torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=2)
+    return alpha, live, t_i, cp[..., -1]
+
+
+def blend_train_plain(tile_starts, attrs, grid_x: int, grid_y: int,
+                      tile_size: int = 16, max_k: int = 1024):
+    """Plain PyTorch version of K4 -> (accum (T, P, 3), trans (T, P))."""
+    dev = attrs.device
+    T, P = grid_x * grid_y, tile_size * tile_size
+    accum = torch.zeros((T, P, 3), dtype=torch.float32, device=dev)
+    trans = torch.ones((T, P), dtype=torch.float32, device=dev)
+    for t0 in range(0, T, PLAIN_TILES_PER_CHUNK):
+        t1 = min(T, t0 + PLAIN_TILES_PER_CHUNK)
+        pairs = _pairs_of_tiles(tile_starts, t0, t1, max_k, dev)
+        if pairs is None:
+            continue
+        valid, idx = pairs
+        a, _, _, _, _, alpha, live = _falloff_plain(
+            attrs, idx, valid, torch.arange(t0, t1, device=dev), grid_x, tile_size)
+        alpha, _, t_i, t_end = _train_mask(alpha, live)
+        accum[t0:t1] = torch.einsum("tpk,ctk->tpc", alpha * t_i, a[6:9])
+        trans[t0:t1] = t_end
+    return accum, trans
+
+
+def blend_train_bwd_plain(tile_starts, attrs, accum, trans, daccum, dtrans,
+                          grid_x: int, grid_y: int, tile_size: int = 16,
+                          max_k: int = 1024):
+    """Plain PyTorch version of K5 -> dattrs (9, Ptot): the gradient of the
+    training blend w.r.t. the sorted pair fields, given the forward's
+    output (accum, trans) and its cotangents."""
+    dev = attrs.device
+    T = grid_x * grid_y
+    dattrs = torch.zeros_like(attrs)
+    for t0 in range(0, T, PLAIN_TILES_PER_CHUNK):
+        t1 = min(T, t0 + PLAIN_TILES_PER_CHUNK)
+        pairs = _pairs_of_tiles(tile_starts, t0, t1, max_k, dev)
+        if pairs is None:
+            continue
+        valid, idx = pairs
+        a, dx, dy, e, raw, alpha, live = _falloff_plain(
+            attrs, idx, valid, torch.arange(t0, t1, device=dev), grid_x, tile_size)
+        alpha, live, t_i, _ = _train_mask(alpha, live)
+        dC = daccum[t0:t1]                                        # (nt, P, 3)
+        cd = torch.einsum("ctk,tpc->tpk", a[6:9], dC)
+        w = alpha * t_i
+        prefix = torch.cumsum(w * cd, dim=2)
+        s_total = (accum[t0:t1] * dC).sum(-1, keepdim=True)
+        tdt = (trans[t0:t1] * dtrans[t0:t1])[..., None]
+        inv1m = 1.0 / (1.0 - alpha)
+        dalpha = t_i * cd - (s_total - prefix) * inv1m - tdt * inv1m
+        dalpha = torch.where(live & (raw < 0.99), dalpha, torch.zeros_like(dalpha))
+        dpow = dalpha * alpha
+        ca, cb, cc = (a[i][:, None, :] for i in (2, 3, 4))
+        g = torch.stack([
+            ((ca * dx + cb * dy) * dpow).sum(1), ((cc * dy + cb * dx) * dpow).sum(1),
+            (-0.5 * dx * dx * dpow).sum(1), (-dx * dy * dpow).sum(1),
+            (-0.5 * dy * dy * dpow).sum(1), (dalpha * e).sum(1),
+        ] + [torch.einsum("tpk,tp->tk", w, dC[..., c]) for c in range(3)])  # (9, nt, K)
+        dattrs[:, idx[valid]] = g[:, valid]
+    return dattrs
+
+
+def _check_blend(tile_starts, attrs, grid_x, grid_y, tile_size):
+    T = grid_x * grid_y
+    if tile_size * tile_size != 256:
+        raise ValueError(f"tile_size {tile_size}: the training kernels blend 16x16 tiles")
+    kernel_lib.check(tile_starts, "tile_starts", torch.int32, (T + 1,))
+    kernel_lib.check(attrs, "attrs", torch.float32)
+    if attrs.shape[0] != ROWS:
+        raise ValueError(f"attrs: expected {ROWS} field rows, got {attrs.shape[0]}")
+
+
+def blend_train(tile_starts: torch.Tensor, attrs: torch.Tensor, grid_x: int, grid_y: int,
+                tile_size: int = 16, max_k: int = 1024) -> torch.Tensor:
+    """Training blend forward -> out (T, P, 4) f32: accumulated rgb and the
+    final transmittance per pixel. CPU tensors take the plain version, CUDA
+    tensors kernel K4."""
+    if not kernel_lib.use_kernel(tile_starts, attrs):
+        accum, trans = blend_train_plain(tile_starts, attrs, grid_x, grid_y, tile_size, max_k)
+        return torch.cat([accum, trans[..., None]], dim=2)
+    lib = kernel_lib.library()
+    _check_blend(tile_starts, attrs, grid_x, grid_y, tile_size)
+    T = grid_x * grid_y
+    out = torch.empty((T, tile_size * tile_size, 4), dtype=torch.float32, device=attrs.device)
+    code = lib.ggd_blend_train_fwd(
+        tile_starts.data_ptr(), attrs.data_ptr(), out.data_ptr(), attrs.shape[1], grid_x,
+        T, tile_size, max_k, kernel_lib.stream())
+    kernel_lib.raise_on_error(code, "blend_train_fwd_kernel")
+    blend_train.launches += 1
+    return out
+
+
+def blend_train_bwd(tile_starts: torch.Tensor, attrs: torch.Tensor, out: torch.Tensor,
+                    dout: torch.Tensor, grid_x: int, grid_y: int, tile_size: int = 16,
+                    max_k: int = 1024) -> torch.Tensor:
+    """Training blend backward: out (T, P, 4) from blend_train and its
+    cotangent dout -> dattrs (9, Ptot). CPU tensors take the plain version,
+    CUDA tensors kernel K5."""
+    if not kernel_lib.use_kernel(tile_starts, attrs, out, dout):
+        return blend_train_bwd_plain(tile_starts, attrs, out[..., :3], out[..., 3],
+                                     dout[..., :3], dout[..., 3], grid_x, grid_y,
+                                     tile_size, max_k)
+    lib = kernel_lib.library()
+    _check_blend(tile_starts, attrs, grid_x, grid_y, tile_size)
+    T = grid_x * grid_y
+    shape = (T, tile_size * tile_size, 4)
+    kernel_lib.check(out, "out", torch.float32, shape)
+    kernel_lib.check(dout, "dout", torch.float32, shape)
+    dattrs = torch.zeros_like(attrs)
+    code = lib.ggd_blend_train_bwd(
+        tile_starts.data_ptr(), attrs.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        dattrs.data_ptr(), attrs.shape[1], grid_x, T, tile_size, max_k,
+        kernel_lib.stream())
+    kernel_lib.raise_on_error(code, "blend_train_bwd_kernel")
+    blend_train_bwd.launches += 1
+    return dattrs
+
+
+blend_train.launches = 0
+blend_train_bwd.launches = 0
+
+
+class _BlendTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, attrs, tile_starts, grid_x, grid_y, tile_size, max_k):
+        out = blend_train(tile_starts, attrs, grid_x, grid_y, tile_size, max_k)
+        ctx.save_for_backward(tile_starts, attrs, out)
+        ctx.geom = (grid_x, grid_y, tile_size, max_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        tile_starts, attrs, out = ctx.saved_tensors
+        dattrs = blend_train_bwd(tile_starts, attrs, out, dout.contiguous(), *ctx.geom)
+        return dattrs, None, None, None, None, None
+
+
+def blend_tiles_diff(tile_starts: torch.Tensor, attrs: torch.Tensor, grid_x: int,
+                     grid_y: int, tile_size: int = 16, max_k: int = 1024):
+    """Differentiable training blend -> (accum (T, P, 3), trans (T, P)):
+    forward K4, backward K5 (plain versions on the CPU). attrs (9, Ptot) f32
+    field-major in (tile, depth) order; its gradient flows back through
+    whatever gathered it."""
+    out = _BlendTrain.apply(attrs.contiguous(), tile_starts, grid_x, grid_y, tile_size, max_k)
+    return out[..., :3], out[..., 3]

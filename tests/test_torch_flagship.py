@@ -1,7 +1,9 @@
 """The port's decode-and-render frame end to end vs the JAX package, plus
 the port's packaging rules: it imports without jax, CPU tensors never reach
 a kernel, a CUDA-side wrapper without its kernel library raises (no
-fallback), and the JAX weight export loads strictly."""
+fallback) for every kernel of the frame (K1-K3) and of the train step
+(K4-K7), the builders need a card unless asked for the CPU, and the JAX
+weight export loads strictly."""
 import dataclasses
 import os
 import subprocess
@@ -21,8 +23,8 @@ from gaussian_gan_decoder_tpu.flagship import flagship_raster_config as jraster_
 from gaussian_gan_decoder_tpu.models.triplane import TriPlaneGenerator as JGen
 from gaussian_gan_decoder_tpu.port.torch_export import decoder_state_dict, save_torch_state_dict
 from gaussian_gan_decoder_tpu_torch import flagship, kernel_lib
-from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads
-from gaussian_gan_decoder_tpu_torch.decoder.heads import GaussianDecoder
+from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads, pallas_heads_vjp
+from gaussian_gan_decoder_tpu_torch.decoder.heads import CHAIN, GaussianDecoder
 from gaussian_gan_decoder_tpu_torch.gaussians.cameras import make_camera
 from gaussian_gan_decoder_tpu_torch.models import pallas_mapping
 from gaussian_gan_decoder_tpu_torch.models.triplane import TriPlaneGenerator
@@ -54,7 +56,8 @@ def models():
 
     params = jax.jit(init)()
     sd = decoder_state_dict(jd, params)
-    td = GaussianDecoder(TriPlaneGenerator(rendering_kwargs={"triplane_size": TS}, **GEN_KW))
+    td = GaussianDecoder(TriPlaneGenerator(rendering_kwargs={"triplane_size": TS},
+                                          without_sr=True, **GEN_KW))
     load_decoder_state(td, sd)
     return jd, params, td, sd
 
@@ -80,7 +83,7 @@ def test_decode_and_render_matches_jax(models):
 
     launches = (pallas_mapping.mapping_forward.launches,
                 pallas_heads.decode_project_slab.launches, pallas_blend.blend_tiles.launches)
-    tcp, tc2w = flagship.default_camera_params()
+    tcp, tc2w = flagship.default_camera_params(device="cpu")
     img, dec, aux = flagship.decode_and_render(
         td, td.fold(), torch.tensor(z), tcp, tc2w, td.make_slab_context(pos, block=BLOCK),
         FOV, image_size=IMG, bg=BG, return_aux=True)
@@ -131,21 +134,42 @@ def test_port_imports_without_jax():
     assert int(res.stdout.strip()) >= 20
 
 
+# every kernel wrapper, with the module attribute of its plain version
+WRAPPERS = ((pallas_mapping, "mapping_forward", "mapping_forward_plain"),
+            (pallas_heads, "decode_project_slab", "decode_project_slab_plain"),
+            (pallas_blend, "blend_tiles", "blend_tiles_plain"),
+            (pallas_blend, "blend_train", "blend_train_plain"),
+            (pallas_blend, "blend_train_bwd", "blend_train_bwd_plain"),
+            (pallas_heads, "decode_heads", "decode_heads_plain"),
+            (pallas_heads_vjp, "decode_heads_bwd", "decode_heads_bwd_plain"))
+
+
+def _launches():
+    return tuple(getattr(mod, fn).launches for mod, fn, _ in WRAPPERS)
+
+
 def _wrapper_calls():
     """One call of each kernel wrapper at tiny shapes, on the CPU."""
-    gen = TriPlaneGenerator(rendering_kwargs={"triplane_size": TS}, **GEN_KW)
+    gen = TriPlaneGenerator(rendering_kwargs={"triplane_size": TS}, without_sr=True, **GEN_KW)
     dec = GaussianDecoder(gen, rng=torch.Generator().manual_seed(0))
     w = dec.fold()
     ctx = dec.make_slab_context(((np.random.RandomState(1).rand(300, 3) - 0.5) * 0.4)
                                 .astype(np.float32), block=BLOCK)
-    cam = make_camera(IMG, FOV, flagship.default_camera_params()[1])
+    cam = make_camera(IMG, FOV, flagship.default_camera_params(device="cpu")[1])
     vol = torch.zeros((3, 5, 40, 36 * 32), dtype=torch.int8)
     starts = torch.zeros(17, dtype=torch.int32)
+    cw = pallas_heads.pack_chain_f32(dec.heads(), CHAIN, 3, -2.5, "exact")
+    stage, out16, img = torch.zeros(64, 128), torch.zeros(64, 16), torch.zeros(16, 256, 4)
     return [
         lambda: pallas_mapping.mapping_forward(torch.zeros(1, 32), torch.zeros(1, 25),
                                                w.mapping),
         lambda: pallas_heads.decode_project_slab(w.chain, vol, torch.ones(3, 32), ctx, cam),
         lambda: pallas_blend.blend_tiles(starts, torch.zeros(9, 0), 4, 4, 16, 640),
+        lambda: pallas_blend.blend_train(starts, torch.zeros(9, 0), 4, 4, 16, 1024),
+        lambda: pallas_blend.blend_train_bwd(starts, torch.zeros(9, 0), img, img, 4, 4, 16,
+                                             1024),
+        lambda: pallas_heads.decode_heads(stage, cw),
+        lambda: pallas_heads_vjp.decode_heads_bwd(stage, out16, out16, cw),
     ]
 
 
@@ -154,13 +178,12 @@ def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
         raise AssertionError("a CPU tensor reached a CUDA kernel")
 
     monkeypatch.setattr(kernel_lib, "library", no_library)
-    counts = (pallas_mapping.mapping_forward.launches,
-              pallas_heads.decode_project_slab.launches, pallas_blend.blend_tiles.launches)
-    for call in _wrapper_calls():
+    counts = _launches()
+    calls = _wrapper_calls()
+    assert len(calls) == len(WRAPPERS)
+    for call in calls:
         call()
-    assert counts == (pallas_mapping.mapping_forward.launches,
-                      pallas_heads.decode_project_slab.launches,
-                      pallas_blend.blend_tiles.launches)
+    assert counts == _launches()
 
 
 def test_cuda_wrapper_without_library_raises(monkeypatch, tmp_path):
@@ -177,9 +200,8 @@ def test_cuda_wrapper_without_library_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(kernel_lib, "use_kernel", lambda *t: True)
     monkeypatch.setattr(kernel_lib, "_nvcc", no_nvcc)
     monkeypatch.setattr(kernel_lib, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(pallas_mapping, "mapping_forward_plain", plain_called)
-    monkeypatch.setattr(pallas_heads, "decode_project_slab_plain", plain_called)
-    monkeypatch.setattr(pallas_blend, "blend_tiles_plain", plain_called)
+    for mod, _, plain in WRAPPERS:
+        monkeypatch.setattr(mod, plain, plain_called)
     kernel_lib.library.cache_clear()
     try:
         for call in calls:
@@ -187,6 +209,19 @@ def test_cuda_wrapper_without_library_raises(monkeypatch, tmp_path):
                 call()
     finally:
         kernel_lib.library.cache_clear()
+
+
+@pytest.mark.parametrize("builder", ["flagship_generator", "flagship_decoder",
+                                     "default_camera_params"])
+def test_builders_default_to_the_card(builder):
+    """Without a card a builder raises unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(flagship, builder)()
+    if builder == "default_camera_params":
+        cp, c2w = flagship.default_camera_params(device="cpu")
+        assert cp.device.type == "cpu" and tuple(cp.shape) == (1, 25)
 
 
 def test_from_jax_is_strict(models, tmp_path):

@@ -95,3 +95,82 @@ def test_blend_kernel(cuda):
         torch.cuda.synchronize()
         assert float((acc - acc_p).abs().max()) <= 1e-4
         assert float((tr - tr_p).abs().max()) <= 1e-4
+
+
+def _train_pairs(seed, grid=4, max_k=96):
+    """Depth-ordered per-tile pairs over a (16 grid)^2 image: one tile past
+    max_k, one of near-opaque pairs that saturate, peak alphas that clamp."""
+    rng = np.random.RandomState(seed)
+    T = grid * grid
+    counts = rng.randint(5, 300, size=T)
+    counts[1], counts[2] = max_k + 200, 0
+    cols = []
+    for t in range(T):
+        n = counts[t]
+        ox, oy = (t % grid) * 16, (t // grid) * 16
+        s = rng.uniform(1.5, 7.0, (2, n))
+        rho = rng.uniform(-0.6, 0.6, n)
+        det = (s[0] * s[1]) ** 2 * (1 - rho ** 2)
+        op = rng.uniform(0.05, 0.95, n)
+        op[rng.rand(n) < 0.15] = 0.999
+        if t == 5:
+            op[:] = 0.98
+        cols.append(np.stack([ox + rng.uniform(-4, 20, n), oy + rng.uniform(-4, 20, n),
+                              s[1] ** 2 / det, -rho * s[0] * s[1] / det, s[0] ** 2 / det, op,
+                              *rng.uniform(0, 1.2, (3, n))]))
+    attrs = np.concatenate(cols, axis=1).astype(np.float32)
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return starts, attrs
+
+
+@pytest.mark.parametrize("max_k", [96, 1024])
+def test_blend_train_kernels(cuda, max_k):
+    """K4 and K5 against blend_train_plain / blend_train_bwd_plain: outputs
+    within 1e-5, pair gradients within 1e-3 of each field's largest (the
+    plain version's cumulative products round in another order)."""
+    st, at = _train_pairs(0, max_k=max_k)
+    starts, attrs = torch.tensor(st, device=cuda), torch.tensor(at, device=cuda)
+    out = pallas_blend.blend_train(starts, attrs, 4, 4, 16, max_k)
+    acc_p, tr_p = pallas_blend.blend_train_plain(starts, attrs, 4, 4, 16, max_k)
+    torch.cuda.synchronize()
+    assert float((out[..., :3] - acc_p).abs().max()) <= 1e-5
+    assert float((out[..., 3] - tr_p).abs().max()) <= 1e-5
+    g = torch.Generator(device="cpu").manual_seed(1)
+    dout = torch.randn(out.shape, generator=g).to(cuda)
+    d_k = pallas_blend.blend_train_bwd(starts, attrs, out, dout, 4, 4, 16, max_k)
+    d_p = pallas_blend.blend_train_bwd_plain(starts, attrs, acc_p, tr_p, dout[..., :3],
+                                             dout[..., 3], 4, 4, 16, max_k)
+    torch.cuda.synchronize()
+    err = (d_k - d_p).abs().amax(dim=1) / d_p.abs().amax(dim=1).clamp(min=1e-12)
+    assert float(err.max()) <= 1e-3, err.tolist()
+    assert bool(torch.isfinite(d_k).all())
+
+
+def test_heads_train_kernels(cuda):
+    """K6 and K7 against decode_heads_plain / decode_heads_bwd_plain on the
+    exact-GELU sequential_reversed chain: outputs within 1e-5 and gradients
+    within 1e-4 of their max (f32, summation order only)."""
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads_vjp
+    from gaussian_gan_decoder_tpu_torch.decoder.heads import CHAIN, DecoderHead
+
+    g = torch.Generator().manual_seed(0)
+    heads, cond = {}, 3
+    for name, od in CHAIN:
+        heads[name] = DecoderHead(32 + cond, od, generator=g).to(cuda)
+        cond += od
+    M = 16384 + 64   # K7: more 32-point tiles than blocks
+    feats = (torch.randn(M, 32, generator=g) * 2).to(cuda)
+    pos = (torch.rand(M, 3, generator=g) - 0.5).to(cuda)
+    with torch.no_grad():
+        cw = pallas_heads.pack_chain_f32(heads, CHAIN, 3, -2.5, "exact")
+        st = pallas_heads.build_staging_f32(feats, pos, pos)
+        out = pallas_heads.decode_heads(st, cw)
+        ref = pallas_heads.decode_heads_plain(st, cw)
+        dout = torch.randn(M, 16, generator=g).to(cuda)
+        dst, grads = pallas_heads_vjp.decode_heads_bwd(st, out, dout, cw)
+        dst_p, grads_p = pallas_heads_vjp.decode_heads_bwd_plain(st, ref, dout, cw)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-5
+    assert float((dst - dst_p).abs().max() / dst_p.abs().max()) <= 1e-4
+    for a, b in zip(grads, grads_p):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4

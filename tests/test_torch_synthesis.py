@@ -1,9 +1,8 @@
 """Port parity: StyleGAN2 ops and the tri-grid plane synthesis of
 gaussian_gan_decoder_tpu_torch vs the JAX package, f32, on random inputs
-made with numpy. Tolerance: max|d| <= 1e-3 * max|ref|, also where the
-synthesis runs bf16 blocks (the bf16 rounding itself moves the planes by
-~8e-3 of their max at the test size, the port's gap from JAX is ~3e-4);
-bias_act on bf16 inputs is exact."""
+made with numpy. Tolerance: max|d| <= 1e-3 * max|ref| in f32; bias_act on
+bf16 inputs is exact. Where the synthesis runs bf16 blocks, see
+test_synthesis_planes for the bound and the evidence behind it."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -93,28 +92,77 @@ def generators(request):
             if layer in blk:
                 blk[layer]["noise_strength"] = jnp.asarray(np.float32(rng.rand() * 0.5))
     params = {"backbone": bb}
-    tg = TriPlaneGenerator(rendering_kwargs={"triplane_size": 32}, **kw)
-    tg.load_state_dict({k: torch.tensor(v)
-                        for k, v in generator_state_from_params(params).items()}, strict=True)
+    tg = TriPlaneGenerator(rendering_kwargs={"triplane_size": 32}, without_sr=True, **kw)
+    tg.backbone.load_state_dict({k.removeprefix("backbone."): torch.tensor(v)
+                                 for k, v in generator_state_from_params(params).items()},
+                                strict=True)
     return jg, params, tg
 
 
+def _bf16_ulp(v: float) -> float:
+    """One bf16 rounding step (8 significant bits) at magnitude v."""
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
 @pytest.mark.parametrize("generators,psi,tol", [(0, 1.0, 1e-3), (0, 0.7, 1e-3),
-                                                (2, 1.0, 1e-3)],
+                                                (2, 1.0, None)],
                          indirect=["generators"], ids=["f32-1.0", "f32-0.7", "bf16-1.0"])
 def test_synthesis_planes(generators, psi, tol):
     """mapping -> tri-grid planes (N, 3, 32*D, H, W), noise_mode='const';
-    all blocks in f32, or the 16^2 and 32^2 blocks in bf16 as the flagship
-    runs its top 4 resolutions."""
+    all blocks in f32 (max|d| <= tol * max|ref|), or the 16^2 and 32^2
+    blocks in bf16 as the flagship runs its top 4 resolutions.
+
+    bf16: every op of the port rounds where the JAX package rounds. Fed the
+    same inputs, bias_act, upfirdn2d, the modulated convs and the ToRGB
+    layers give results equal to JAX's, except where a bf16 convolution's
+    f32 sum, taken in another order by torch's CPU convolution than by
+    XLA's, lies within 1e-7 of a bf16 rounding boundary: that output
+    element then rounds one bf16 step the other way (about 1e-4 of the
+    elements, on any CPU). The step carries on into the skip image. So:
+      * 99% of the plane elements agree within 1e-5 of max|ref| (measured
+        ~8e-8; a misplaced rounding point, such as the f32 lrelu slope
+        once fixed in ops/bias_act.py, puts 84% of them past 1e-5);
+      * no element is further than 1.25 bf16 steps at the 0.9999 quantile
+        of the bf16 ToRGB outputs' magnitudes: a flip is one step of the
+        output it hits, the skip image's upsampling filter only shrinks
+        it, and the margin covers an element that two flips reach. Here
+        that quantile is in [4, 8), a step of 2.3e-3 of max|ref|, so the
+        bound is 2.9e-3; measured 2.3e-3. Only 3 of the 368,640 outputs
+        lie above 8, where a flip would read twice that. Running the
+        blocks in bf16 at all moves the planes by 7.8e-3 of max|ref|.
+    """
+    from gaussian_gan_decoder_tpu_torch.models.stylegan2 import ToRGBLayer
+
     jg, params, tg = generators
     rng = np.random.RandomState(4)
     z = rng.randn(1, 32).astype(np.float32)
     c = rng.randn(1, 25).astype(np.float32)
     jws = jg.mapping(params, jnp.asarray(z), jnp.asarray(c), truncation_psi=psi)
     ref = jg.synthesis_planes(params, jws, noise_mode="const")
+    rgb = []
+
+    def bf16_rgb(_mod, _inp, y):
+        if y.dtype == torch.bfloat16:
+            rgb.append(y.float().abs().flatten().numpy())
+
+    hooks = [m.register_forward_hook(bf16_rgb) for m in tg.modules()
+             if isinstance(m, ToRGBLayer)]
     with torch.no_grad():
         ws = tg.mapping(torch.tensor(z), torch.tensor(c), truncation_psi=psi)
         out = tg.synthesis_planes(ws, noise_mode="const")
+    for h in hooks:
+        h.remove()
     assert tuple(out.shape) == (1, 3, 96, 32, 32)
     _close(ws, jws, "ws")
-    _close(out, ref, "synthesis_planes", tol)
+    if tol is not None:
+        _close(out, ref, "synthesis_planes", tol)
+        return
+    ref = np.asarray(ref, np.float64)
+    scale = np.abs(ref).max()
+    d = np.abs(out.numpy().astype(np.float64) - ref) / scale
+    q99, worst = float(np.quantile(d, 0.99)), float(d.max())
+    assert rgb, "no bf16 ToRGB output seen"
+    bound = 1.25 * _bf16_ulp(float(np.quantile(np.concatenate(rgb), 0.9999))) / scale
+    print(f"synthesis_planes vs JAX: q99 {q99:.3e}, max {worst:.3e} (bound {bound:.3e})")
+    assert q99 <= 1e-5, q99
+    assert worst <= bound, (worst, bound)
