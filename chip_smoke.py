@@ -10,9 +10,10 @@ Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
      the flagship frame's own shapes, and times both; the training blend
      kernels (K4, K5) are held on the frame's pairs too, and on those pairs
      widened and made more opaque until pixels saturate;
-  2. drives the port's main path — flagship.decode_and_render on the
-     PanoHead flagship (z/w 512, 256^2 tri-grid of depth 3, 500k seeded
-     template Gaussians, 512^2 frame, seeded random weights) — for one
+  2. drives the port's main path — flagship.decode_and_render on the slab
+     route of the PanoHead flagship (z/w 512, 256^2 tri-grid of depth 3,
+     500k seeded template Gaussians, 512^2 frame, seeded random weights,
+     "poly6" GELU) — for one
      warm-up frame and FRAMES timed frames from distinct latents, with the
      kernels' launch counters set to 0 first; checks every frame (finite,
      not constant, visible Gaussians and pairs, no dropped pair), that every
@@ -20,7 +21,20 @@ Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
      the same frame computed with the plain versions;
   3. runs FRAMES more frames under torch.profiler for the device busy share
      and the largest kernels;
-  4. drives the training path — the distillation step of
+  4. the brick route (no slab context), on the same decoder weights, planes,
+     template and camera: the brick-table build (K10) on the frame's int8
+     tri-grid, bit-exact against its plain version and timed beside it and
+     beside torch.cat of the 8 shifted views; the decode K8 on the gathered,
+     plane-meaned staging and the gather-fused decode K9 on
+     sample_fused_inputs, each held to K2's checks; the cross-route witness
+     (the same planes and GELU decoded on both routes, K2's tolerances in
+     template order); 1 + FRAMES frames on the table route (K10 + K8) and on
+     the fused route (K10 + K9) with the JAX flagship's "poly" GELU,
+     counters at 0 first, each first frame against an all-plain brick frame,
+     then FRAMES more frames of each route under torch.profiler; then
+     decode_and_render_stream over STREAM latents at STREAM_BATCH per
+     backbone batch, each frame against decode_and_render;
+  5. drives the training path — the distillation step of
      apps/train_decoder.py as `--random_init` builds it (flagship generator
      and a trainable copy, exact-GELU heads, 500k surface points from a 128^3
      sigma grid, 512^2 target and render, random VGG16 LPIPS, Adam) — for one
@@ -30,7 +44,7 @@ Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
      step; then holds the training kernels against their plain versions on
      the inputs and cotangents the warm-up step gave them, times both, and
      profiles one more step for the device busy share;
-  5. prints the per-frame and per-step times, stage splits, each kernel's
+  6. prints the per-frame and per-step times, stage splits, each kernel's
      time beside its plain version's and its bound, peak device memory,
      then a JSON line of per-kernel results, the card's name and power
      limit, and as its last line {"ok": true, "device": {...}}.
@@ -60,6 +74,8 @@ IMAGE = 512
 POINTS = 500_000   # the flagship template
 FRAMES = 3         # timed frames, after one warm-up frame
 TRAIN_STEPS = 3    # timed training steps, after one warm-up step
+STREAM = 8         # latents of the frame stream, at STREAM_BATCH per backbone batch
+STREAM_BATCH = 4
 SURFACE_QUANTILE = 0.9
 
 # the card's published peaks (H100 SXM data sheet, dense), for the bounds
@@ -86,6 +102,12 @@ KERNELS = {
                   "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:255"),
     "heads_bwd": ("gaussian_gan_decoder_tpu_torch/csrc/heads_train.cu",
                   "gaussian_gan_decoder_tpu/decoder/pallas_heads_vjp.py:245"),
+    "brick_decode": ("gaussian_gan_decoder_tpu_torch/csrc/brick_decode.cu",
+                     "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:533"),
+    "fused_decode": ("gaussian_gan_decoder_tpu_torch/csrc/brick_decode.cu",
+                     "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:615"),
+    "brick_table": ("gaussian_gan_decoder_tpu_torch/csrc/brick_table.cu",
+                    "gaussian_gan_decoder_tpu/neuralfield/pallas_expand.py:149"),
 }
 
 
@@ -136,6 +158,64 @@ def chain_flops(cw):
     """FLOPs of the 5-head chain for one point, at each head's true input
     width (its staging prefix), not the kernels' zero padding."""
     return sum(2 * (sc * 128 + 2 * 128 * 128 + 128 * od) for _, od, sc, _ in cw.chain)
+
+
+def hold_decode(torch, rows_k, rows_p, real, cw, cam, label):
+    """Hold a decode kernel's rows (K2, K8, K9) against a reference's on the
+    real columns; pad columns must not be visible. -> max |d| of the rows
+    compared."""
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads
+    pr = pallas_heads.PROJ_ROWS
+    require(bool(torch.isfinite(rows_k).all()), f"{label}: non-finite rows")
+    d = (rows_k - rows_p)[:, real].abs()
+    rmax = rows_p[:, real].abs().amax(dim=1).clamp(min=1e-3)
+    rel_rows = d.amax(dim=1) / rmax
+    cb = pr["conic_b"]
+    cont = [r for r in list(range(0, 14)) + list(range(16, 26)) if r != cb]
+    worst = float(rel_rows[cont].max())
+    own_b = float(rel_rows[cb])
+    b_over_a = float(rmax[cb] / rmax[cb - 1])
+    # witness for the screen rows: the plain projection of the kernel's own
+    # head outputs (rows 0:16) must give the kernel's rows 16:26 at f32
+    # rounding, each row (conic_b too) at its own scale
+    proj = pallas_heads.project_heads(rows_k[:16].t(), cw, cam)
+    dp = (rows_k - proj)[16:26][:, real].abs().amax(dim=1)
+    proj_worst = float((dp / proj[16:26][:, real].abs().amax(dim=1).clamp(min=1e-3)).max())
+    rad_d = d[pr["radius_f"]]
+    vis_k, vis_p = rows_k[pr["visible"]] > 0.5, rows_p[pr["visible"]] > 0.5
+    vis_agree = float((vis_k == vis_p)[real].float().mean())
+    print(f"{label}: rows 0:14,16:26 but conic_b worst row-relative {worst:.3e}; "
+          f"conic_b {own_b:.3e} of its own row max (which is {b_over_a:.3e} of "
+          f"conic_a's); plain projection of the kernel's head rows vs its screen "
+          f"rows {proj_worst:.3e}; radius |d| max {float(rad_d.max()):.0f}, exact on "
+          f"{float((rad_d == 0).float().mean()):.5f}; visible agreement {vis_agree:.5f}; "
+          f"visible {int(vis_k[real].sum())}/{int(real.sum())}")
+    require(worst <= 1e-2, f"{label}: rows disagree: {rel_rows.tolist()}")
+    # conic_b = -cov_b / det is the near-cancelling off-diagonal of nearly
+    # isotropic Gaussians: the chain rows' gap (bf16 flips from the f32
+    # summation order, up to 1e-2 of their scale) reads larger at its
+    # smaller scale. Its limit is twice the chain rows'; a sign error
+    # reads 2, a dropped term ~1. The projection witness holds the
+    # kernel's own conic math to f32 rounding.
+    require(own_b <= 2e-2, f"{label}: conic_b disagrees: {own_b:.3e} of its row max")
+    require(proj_worst <= 1e-3, f"{label}: screen rows are not the projection of its "
+            f"head rows: {dp.tolist()}")
+    require(float(rad_d.max()) <= 1.0 and float((rad_d == 0).float().mean()) >= 0.999,
+            f"{label}: radius rows disagree")
+    require(vis_agree >= 0.999, f"{label}: visibility agreement {vis_agree}")
+    require(not bool(vis_k[~real].any()), f"{label}: pad columns visible")
+    return float(d[cont + [cb]].max())
+
+
+def plain_image(torch, rows, grid, cap, dev):
+    """Binning + the plain blend of decode rows -> (3, H, W) image."""
+    from gaussian_gan_decoder_tpu_torch import flagship
+    from gaussian_gan_decoder_tpu_torch.splat import fast_raster, pallas_blend
+    st, at = fast_raster.bin_pairs(rows, grid, grid, 16)
+    acc, tr = pallas_blend.blend_tiles_plain(st, at, grid, grid, 16, cap)
+    bg = torch.tensor(flagship.DEFAULT_BG, device=dev)
+    img = acc + tr[:, :, None] * bg
+    return img.reshape(grid, grid, 16, 16, 3).permute(4, 0, 2, 1, 3).reshape(3, IMAGE, IMAGE)
 
 
 def stage_split(torch, stage_ms):
@@ -410,6 +490,295 @@ def profile_step(torch, run, state, draws, z, iteration):
 
 
 
+def profile_frames(torch, frame, host_med, label):
+    """FRAMES more frames, frame(i, stage_timer), under torch.profiler: the
+    device time per frame, its share of the median host-wall frame, each
+    stage's host time beside the device time of the kernels it launched,
+    the driver allocations and the largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    state, names = {"k": 0, "open": None}, {}
+
+    def stage_timer(name):
+        # a call ends the stage `name` and opens the next one
+        if name == "start":
+            state["k"] = 0
+        if state["open"] is not None:
+            state["open"].__exit__(None, None, None)
+            names[state["k"]] = name
+            state["k"] += 1
+            state["open"] = None
+        if name != "end":
+            state["open"] = record_function(f"stage{state['k']}")
+            state["open"].__enter__()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(FRAMES):
+            stage_timer("start")
+            frame(i, stage_timer)
+            stage_timer("end")
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    on_card = sorted(((e.self_device_time_total / 1e3 / FRAMES, e.key) for e in events
+                      if e.device_type == DeviceType.CUDA and not e.key.startswith("stage")),
+                     reverse=True)
+    busy_ms = sum(t for t, _ in on_card)
+    require(busy_ms > 0, f"the profiler saw no device time in the {label} frames")
+    stages = {e.key: e for e in events
+              if e.device_type == DeviceType.CPU and e.key.startswith("stage")}
+    # device memory the caching allocator takes from or gives back to the
+    # driver inside the frames (host time the card may idle through)
+    alloc = {k: [0.0, 0.0] for k in ("cudaMalloc", "cudaFree")}
+    for e in events:
+        for k, v in alloc.items():
+            if e.key.startswith(k):
+                v[0] += e.count / FRAMES
+                v[1] += e.cpu_time_total / 1e3 / FRAMES
+    print(f"{label} profiler: {busy_ms:.3f} ms device time per frame, busy "
+          f"{busy_ms / host_med:.3f} of the median host-wall frame ({host_med:.3f} ms); "
+          + ", ".join(f"{k} {n:.1f} calls {t:.3f} ms host" for k, (n, t) in alloc.items())
+          + " per frame; largest: " + "; ".join(f"{k[:48]} {t:.3f} ms ({t / busy_ms:.1%})"
+                                                for t, k in on_card[:6]))
+    print(f"{label} stages, host ms / device ms of the kernels each launched (per frame): "
+          + ", ".join(f"{names[k]} {stages[f'stage{k}'].cpu_time_total / 1e3 / FRAMES:.3f} / "
+                      f"{stages[f'stage{k}'].device_time_total / 1e3 / FRAMES:.3f}"
+                      for k in sorted(names) if f"stage{k}" in stages))
+
+
+def frame_run(torch, decoder, weights, zs, cp, c2w, counters, frames, **route):
+    """Drive flagship.decode_and_render for one warm-up frame and `frames`
+    timed ones, launch counters at 0 first. -> dict of the readings."""
+    from gaussian_gan_decoder_tpu_torch import flagship
+    dev = zs.device
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    frame_ms, stage_ms, first = [], [], None
+    for i in range(frames + 1):          # frame 0 is the warm-up
+        marks = []
+        timer = make_timer(torch, marks)
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        timer("start")
+        img, decoded, aux = flagship.decode_and_render(
+            decoder, weights, zs[i], cp, c2w, route.get("slab_ctx"), FOV, image_size=IMAGE,
+            return_aux=True, stage_timer=timer, init_position=route.get("init_position"))
+        timer("end")
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t_host) * 1e3
+        require(tuple(img.shape) == (3, IMAGE, IMAGE), f"image shape {tuple(img.shape)}")
+        require(bool(torch.isfinite(img).all()), f"frame {i}: non-finite image")
+        require(float(img.std()) > 1e-4, f"frame {i}: constant image")
+        n_vis = int(aux["visibility_filter"].sum())
+        require(n_vis > 0 and aux["n_pairs"] > 0, f"frame {i}: nothing visible")
+        require(aux["n_dropped"] == 0, f"frame {i}: dropped pairs")
+        require(all(decoded[k].shape[0] == POINTS for k in decoded), "decoded shape")
+        if i == 0:
+            first = (img.clone(), n_vis, aux["n_pairs"])
+            continue
+        frame_ms.append((marks[0][1].elapsed_time(marks[-1][1]), host_ms))
+        stage_ms.append([(name, a.elapsed_time(b)) for (_, a), (name, b)
+                         in zip(marks[:-1], marks[1:])])
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, n in launches.items():
+        require(n >= frames + 1, f"{name} kernel launched {n} times in {frames + 1} frames")
+    return dict(frame_ms=frame_ms, stage_ms=stage_ms, first=first, launches=launches,
+                peak=torch.cuda.max_memory_allocated(dev))
+
+
+def report_frames(torch, run, label):
+    dev_ms = sorted(d for d, _ in run["frame_ms"])
+    host = sorted(h for _, h in run["frame_ms"])
+    med = dev_ms[len(dev_ms) // 2]
+    print(f"{label} frame (512^2, {POINTS} Gaussians): median {med:.3f} ms device "
+          f"({1e3 / med:.2f} fps), median {host[len(host) // 2]:.3f} ms host wall; "
+          f"first frame {run['first'][1]} visible, {run['first'][2]} pairs")
+    print(f"{label} stage split (median ms): " + ", ".join(
+        f"{n} {t:.3f}" for n, t in stage_split(torch, run["stage_ms"]).items()))
+    print(f"{label} peak device memory: {run['peak'] / 2 ** 30:.3f} GiB; launches "
+          f"{run['launches']}")
+    return med, host[len(host) // 2]
+
+
+def brick_phase(torch, dec, weights, planes, rows_slab, ctx, template, cam, cp, c2w, seed,
+                results):
+    """The brick route (no slab context) at full width, on the slab frame's
+    decoder weights, planes, template and camera: K10, K8 and K9 against
+    their plain versions; the cross-route witness; 1 + FRAMES frames on the
+    table route (K10 + K8) and on the fused route (K10 + K9); the frame
+    stream. -> the launches of K8-K10 on the brick-route frames."""
+    from gaussian_gan_decoder_tpu_torch import flagship
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads as ph
+    from gaussian_gan_decoder_tpu_torch.models import pallas_mapping
+    from gaussian_gan_decoder_tpu_torch.neuralfield import pallas_expand as pe
+    from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import (
+        _quantize_int8, build_plane_table, sample_from_planes, sample_fused_inputs)
+    from gaussian_gan_decoder_tpu_torch.splat import pallas_blend
+    dev = planes.device
+    pos = torch.tensor(template, device=dev)
+    M = pos.shape[0]
+    G = dec.G
+    D, box_warp = G.triplane_depth, float(G.rk["box_warp"])
+    n_planes, CD, H, W = planes.shape[1:]
+
+    def brick_decoder(fused):
+        # the JAX flagship decoder (poly GELU) with the slab frame's weights
+        d = flagship.flagship_decoder(gen=G, device=dev, fused_sampling=fused)
+        d.load_state_dict(dec.state_dict())
+        return d.eval()
+
+    bdec, fdec = brick_decoder(False), brick_decoder(True)
+    bweights = bdec.fold()
+    cw = bweights.chain
+    weights_of = (cw.w1, cw.b1, cw.w2, cw.b2, cw.w3, cw.b3, cw.w4, cw.b4, cw.meta)
+    with torch.inference_mode():
+        # -- K10: the frame's int8 tri-grid -> brick table ------------------
+        q8, _ = _quantize_int8(planes.float().reshape(n_planes, CD // D, D, H, W))
+        fp = pe.padded_channels_last(q8)
+        NY = pe.table_rows_ny(H, 1)
+        e_k = pe.brick_table(fp, NY)
+        e_p = pe.brick_table_plain(fp, NY)
+        torch.cuda.synchronize()
+        err = int((e_k.int() - e_p.int()).abs().max())
+        p1 = cuda_ms(torch, lambda: pe.brick_table_plain(fp, NY), 20)
+        lib1 = cuda_ms(torch, lambda: pe.concat_corners(fp), 20)
+        k1 = cuda_ms(torch, lambda: pe.brick_table(fp, NY), 20)
+        k2 = cuda_ms(torch, lambda: pe.brick_table(fp, NY), 20)
+        lib2 = cuda_ms(torch, lambda: pe.concat_corners(fp), 20)
+        p2 = cuda_ms(torch, lambda: pe.brick_table_plain(fp, NY), 20)
+        ms, plain_ms, lib_ms = (k1 + k2) / 2, (p1 + p2) / 2, (lib1 + lib2) / 2
+        print(f"K10 brick table: volume {tuple(q8.shape)} int8 -> table {tuple(e_k.shape)} "
+              f"(NY {NY}); max |d| {err} (bit-exact: {err == 0}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.cat of the 8 views {lib_ms:.4f} ms")
+        require(torch.equal(e_k, e_p), "K10 disagrees with its plain version")
+        results["brick_table"] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                                      library_ms=lib_ms, bound=bound(nbytes(q8, e_k), 0, "bf16"))
+        del e_k, e_p, fp
+
+        # -- K8 on the gathered, plane-meaned staging -----------------------
+        table = build_plane_table(planes, D, brick_dtype=torch.int8)
+        feats = sample_from_planes(G.plane_axes, planes, pos[None], box_warp, D, table=table)[0]
+        staging, Mpad = ph.build_brick_staging(feats.mean(0), pos, pos)
+        real = torch.arange(Mpad, device=dev) < M
+        rows_k = ph.decode_project(cw, staging, cam, M)
+        rows_p = ph.decode_project_plain(cw, staging, cam, M)
+        torch.cuda.synchronize()
+        err = hold_decode(torch, rows_k, rows_p, real, cw, cam, f"K8 brick decode (Mpad {Mpad})")
+        ms, plain_ms = paired_ms(torch, lambda: ph.decode_project(cw, staging, cam, M),
+                                 lambda: ph.decode_project_plain(cw, staging, cam, M), 3)
+        print(f"K8 brick decode: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        # per point: the chain and ~150 FLOPs of projection
+        results["brick_decode"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound=bound(nbytes(staging, *weights_of, rows_k), M * (chain_flops(cw) + 150),
+                        "bf16"))
+        del rows_k, rows_p, staging, feats
+
+        # -- K9 on sample_fused_inputs ---------------------------------------
+        rows_in, wts, scale_rows = sample_fused_inputs(G.plane_axes, planes, pos[None], box_warp,
+                                                       D, table=table, pad_to=Mpad)
+        aux, _ = ph.build_brick_staging(pos.new_zeros((M, ph.C)), pos, pos)
+        f_k = ph.decode_project_fused(cw, aux, rows_in, wts, scale_rows, cam, M)
+        f_p = ph.decode_project_fused_plain(cw, aux, rows_in, wts, scale_rows, cam, M)
+        torch.cuda.synchronize()
+        err = hold_decode(torch, f_k, f_p, real, cw, cam, "K9 fused decode")
+        ms, plain_ms = paired_ms(
+            torch, lambda: ph.decode_project_fused(cw, aux, rows_in, wts, scale_rows, cam, M),
+            lambda: ph.decode_project_fused_plain(cw, aux, rows_in, wts, scale_rows, cam, M),
+            3)
+        print(f"K9 fused decode: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        # per point: the chain, 3 planes x 8 corners x 32 channels of lerp,
+        # ~150 FLOPs of projection
+        results["fused_decode"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound=bound(nbytes(aux, *rows_in, wts, scale_rows, *weights_of, f_k),
+                        M * (chain_flops(cw) + 3 * 8 * 32 * 2 + 150), "bf16"))
+        del f_k, f_p, rows_in, wts, aux, table
+
+        # -- cross-route witness: the same planes and GELU on both routes ----
+        # Both quantise with the same absmax scales and lerp in f32, so this
+        # holds the K10 table, the gather and K8 against K2.
+        rows_b, _ = dec.decode_project(weights, planes, cam, init_position=pos)
+        hold_decode(torch, rows_b[:, :M], rows_slab[:, ctx.inv_slot],
+                    torch.ones(M, dtype=torch.bool, device=dev), weights.chain, cam,
+                    "cross-route: brick route (K10 + gather + K8) vs slab route (K2), template "
+                    "order")
+        del rows_b
+
+        # -- the all-plain brick frame ----------------------------------------
+        g = IMAGE // 16
+        cap = flagship.flagship_raster_config().tile_capacity
+        c0 = torch.zeros((1, 25), dtype=torch.float32, device=dev)
+
+        def plain_brick_frame(z):
+            ws = pallas_mapping.mapping_forward_plain(z, c0, bweights.mapping)
+            ws = ws[:, None].expand(1, bweights.mapping.num_ws, ws.shape[1])
+            pl = G.synthesis_planes(ws, noise_mode="const")
+            q, sc = _quantize_int8(pl.float().reshape(n_planes, CD // D, D, H, W))
+            tb = (pe.brick_table_plain(pe.padded_channels_last(q), NY), NY, sc)
+            ft = sample_from_planes(G.plane_axes, pl, pos[None], box_warp, D, table=tb)[0]
+            st, _ = ph.build_brick_staging(ft.mean(0), pos, pos)
+            return plain_image(torch, ph.decode_project_plain(cw, st, cam, M), g, cap, dev)
+
+        nprng = np.random.RandomState(seed + 1)
+        zs = torch.tensor(nprng.randn(FRAMES + 1, 1, 512).astype(np.float32), device=dev)
+        ref_img = plain_brick_frame(zs[0])
+        plain_ms = cuda_ms(torch, lambda: plain_brick_frame(zs[0]), 2)
+
+    # -- the brick-route main paths: table (K10 + K8) and fused (K10 + K9) ---
+    runs = {}
+    for label, d, kernel in (("brick", bdec, ph.decode_project),
+                             ("fused", fdec, ph.decode_project_fused)):
+        w = bweights if d is bdec else fdec.fold()
+        counters = {"mapping": pallas_mapping.mapping_forward, "brick_table": pe.brick_table,
+                    ("brick_decode" if d is bdec else "fused_decode"): kernel,
+                    "blend": pallas_blend.blend_tiles}
+        runs[label] = frame_run(torch, d, w, zs, cp, c2w, counters, FRAMES, init_position=pos)
+        _, host_med = report_frames(torch, runs[label], f"{label}-route")
+        profile_frames(torch, lambda i, timer, d=d, w=w: flagship.decode_and_render(
+            d, w, zs[i + 1], cp, c2w, None, FOV, image_size=IMAGE, init_position=pos,
+            stage_timer=timer), host_med, f"{label}-route")
+        fr_psnr = psnr(runs[label]["first"][0], ref_img)
+        print(f"{label}-route first frame vs the all-plain brick frame: {fr_psnr:.2f} dB")
+        require(fr_psnr >= 30.0, f"{label}-route frame disagrees with the plain frame: "
+                f"{fr_psnr:.2f} dB")
+    print(f"all-plain brick frame (the same stages, the plain versions): {plain_ms:.3f} ms "
+          "device")
+
+    # -- the stream: backbone batched STREAM_BATCH at a time ------------------
+    zs8 = torch.tensor(nprng.randn(STREAM, 1, 512).astype(np.float32), device=dev)
+    with torch.inference_mode():
+        flagship.decode_and_render_stream(bdec, bweights, zs8[:STREAM_BATCH], cp, c2w, FOV,
+                                          init_position=pos, frame_batch=STREAM_BATCH)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t_host = time.perf_counter()
+        start.record()
+        frames = flagship.decode_and_render_stream(bdec, bweights, zs8, cp, c2w, FOV,
+                                                   init_position=pos, frame_batch=STREAM_BATCH)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t_host) * 1e3
+        stream_ms = start.elapsed_time(end)
+        worst = float("inf")
+        for i in range(STREAM):
+            img, _ = flagship.decode_and_render(bdec, bweights, zs8[i], cp, c2w, None, FOV,
+                                                init_position=pos)
+            worst = min(worst, psnr(frames[i], img))
+    print(f"stream ({STREAM} latents, frame batch {STREAM_BATCH}, brick route): "
+          f"{stream_ms / STREAM:.3f} ms device per frame ({1e3 * STREAM / stream_ms:.2f} fps), "
+          f"{host_ms / STREAM:.3f} ms host wall per frame; worst frame vs decode_and_render "
+          f"{worst:.2f} dB")
+    require(worst >= 30.0, f"stream frames disagree with single frames: {worst:.2f} dB")
+    launches = {"brick_table": runs["brick"]["launches"]["brick_table"]
+                + runs["fused"]["launches"]["brick_table"],
+                "brick_decode": runs["brick"]["launches"]["brick_decode"],
+                "fused_decode": runs["fused"]["launches"]["fused_decode"]}
+    del bdec, fdec, frames
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -429,6 +798,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads
+    from gaussian_gan_decoder_tpu_torch.decoder.heads import GaussianDecoder
     from gaussian_gan_decoder_tpu_torch.gaussians.cameras import make_camera
     from gaussian_gan_decoder_tpu_torch.models import pallas_mapping
     from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import build_slab_volume
@@ -450,7 +820,10 @@ def main(argv=None) -> int:
 
     # -- the flagship model, template and camera ---------------------------
     rng = torch.Generator().manual_seed(args.seed)
-    dec = flagship.flagship_decoder(rng=rng).to(dev).eval()
+    # the slab route's decoder: the JAX flagship's with the "poly6" GELU the
+    # JAX benchmark sets on that route
+    dec = GaussianDecoder(flagship.flagship_generator(rng=rng, device=dev), gelu="poly6",
+                          rng=rng, device=dev).eval()
     weights = dec.fold()
     nprng = np.random.RandomState(args.seed)
     template = ((nprng.rand(POINTS, 3) - 0.5) * 0.4).astype(np.float32)
@@ -493,56 +866,19 @@ def main(argv=None) -> int:
         rows_k = pallas_heads.decode_project_slab(weights.chain, vol, scales, ctx, cam)
         rows_p = pallas_heads.decode_project_slab_plain(weights.chain, vol, scales, ctx, cam)
         torch.cuda.synchronize()
-        require(bool(torch.isfinite(rows_k).all()), "K2 wrote non-finite rows")
         v = ctx.valid > 0
-        d = (rows_k - rows_p)[:, v].abs()
-        rmax = rows_p[:, v].abs().amax(dim=1).clamp(min=1e-3)
-        rel_rows = d.amax(dim=1) / rmax
-        cb = pallas_heads.PROJ_ROWS["conic_b"]
-        cont = [r for r in list(range(0, 14)) + list(range(16, 26)) if r != cb]
-        worst = float(rel_rows[cont].max())
-        own_b = float(rel_rows[cb])
-        b_over_a = float(rmax[cb] / rmax[cb - 1])
-        # witness for the screen rows: the plain projection of the kernel's
-        # own head outputs (rows 0:16) must give the kernel's rows 16:26 at
-        # f32 rounding, each row (conic_b too) at its own scale
-        proj = pallas_heads.project_heads(rows_k[:16].t(), weights.chain, cam)
-        dp = (rows_k - proj)[16:26][:, v].abs().amax(dim=1)
-        proj_worst = float((dp / proj[16:26][:, v].abs().amax(dim=1).clamp(min=1e-3)).max())
-        rad_d = d[pallas_heads.PROJ_ROWS["radius_f"]]
-        vis_k = rows_k[pallas_heads.PROJ_ROWS["visible"]] > 0.5
-        vis_p = rows_p[pallas_heads.PROJ_ROWS["visible"]] > 0.5
-        vis_agree = float((vis_k == vis_p)[v].float().mean())
+        k2_err = hold_decode(torch, rows_k, rows_p, v, weights.chain, cam, "K2 slab decode")
         ms, plain_ms = paired_ms(
             torch, lambda: pallas_heads.decode_project_slab(weights.chain, vol, scales, ctx, cam),
             lambda: pallas_heads.decode_project_slab_plain(weights.chain, vol, scales, ctx, cam),
             3)
-        print(f"K2 slab decode: rows 0:14,16:26 but conic_b worst row-relative {worst:.3e}; "
-              f"conic_b {own_b:.3e} of its own row max (which is {b_over_a:.3e} of "
-              f"conic_a's); plain projection of the kernel's head rows vs its screen "
-              f"rows {proj_worst:.3e}; radius |d| max {float(rad_d.max()):.0f}, exact on "
-              f"{float((rad_d == 0).float().mean()):.5f}; visible agreement {vis_agree:.5f}; "
-              f"visible {int(vis_k.sum())}/{int(v.sum())}; kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms")
-        require(worst <= 1e-2, f"K2 rows disagree: {rel_rows.tolist()}")
-        # conic_b = -cov_b / det is the near-cancelling off-diagonal of nearly
-        # isotropic Gaussians: the chain rows' gap (bf16 flips from the f32
-        # summation order, up to 1e-2 of their scale) reads larger at its
-        # smaller scale. Its limit is twice the chain rows'; a sign error
-        # reads 2, a dropped term ~1. The projection witness holds the
-        # kernel's own conic math to f32 rounding.
-        require(own_b <= 2e-2, f"K2 conic_b disagrees: {own_b:.3e} of its row max")
-        require(proj_worst <= 1e-3, f"K2 screen rows are not the projection of its "
-                f"head rows: {dp.tolist()}")
-        require(float(rad_d.max()) <= 1.0 and float((rad_d == 0).float().mean()) >= 0.999,
-                "K2 radius rows disagree")
-        require(vis_agree >= 0.999, f"K2 visibility agreement {vis_agree}")
+        print(f"K2 slab decode: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
         require(bool((rows_k[16:28, ~v][[5, 10, 11]] == 0).all()), "K2 pad slots not culled")
         cw = weights.chain
         # per point: the chain, 3 planes x 8 corners x 32 channels of
         # trilinear lerp, ~150 FLOPs of projection
         results["slab_decode"] = dict(
-            max_abs_err=float(d[cont + [cb]].max()), ms=ms, plain_ms=plain_ms,
+            max_abs_err=k2_err, ms=ms, plain_ms=plain_ms,
             bound=bound(nbytes(vol, scales, ctx.positions, ctx.idx16, ctx.aux, ctx.inv_axes,
                                cw.w1, cw.b1, cw.w2, cw.b2, cw.w3, cw.b3, cw.w4, cw.b4, cw.meta,
                                rows_k),
@@ -598,93 +934,36 @@ def main(argv=None) -> int:
             pl = dec.G.synthesis_planes(ws, noise_mode="const")
             vo, sc = build_slab_volume(pl, dec.G.triplane_depth)
             rows = pallas_heads.decode_project_slab_plain(weights.chain, vo, sc, ctx, cam)
-            st, at = fast_raster.bin_pairs(rows, g, g, 16)
-            acc, tr = pallas_blend.blend_tiles_plain(st, at, g, g, 16, cap)
-            bg = torch.tensor(flagship.DEFAULT_BG, device=dev)
-            img = acc + tr[:, :, None] * bg
-            return img.reshape(g, g, 16, 16, 3).permute(4, 0, 2, 1, 3).reshape(3, IMAGE, IMAGE)
+            return plain_image(torch, rows, g, cap, dev)
 
         ref_img = plain_frame(zs[1])
         plain_frame_ms = cuda_ms(torch, lambda: plain_frame(zs[1]), 2)
 
     # -- the main path -------------------------------------------------------
-    counters = (pallas_mapping.mapping_forward, pallas_heads.decode_project_slab,
-                pallas_blend.blend_tiles)
-    for fn in counters:
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats(dev)
-    frame_ms, stage_ms, first = [], [], None
-    for i in range(FRAMES + 1):          # frame 0 is the warm-up
-        marks = []
-
-        def timer(name, marks=marks):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((name, ev))
-
-        torch.cuda.synchronize()
-        t_host = time.perf_counter()
-        timer("start")
-        img, decoded, aux = flagship.decode_and_render(
-            dec, weights, zs[i + 1], cp, c2w, ctx, FOV, image_size=IMAGE,
-            return_aux=True, stage_timer=timer)
-        timer("end")
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t_host) * 1e3
-        require(tuple(img.shape) == (3, IMAGE, IMAGE), f"image shape {tuple(img.shape)}")
-        require(bool(torch.isfinite(img).all()), f"frame {i}: non-finite image")
-        require(float(img.std()) > 1e-4, f"frame {i}: constant image")
-        n_vis = int(aux["visibility_filter"].sum())
-        require(n_vis > 0 and aux["n_pairs"] > 0, f"frame {i}: nothing visible")
-        require(aux["n_dropped"] == 0, f"frame {i}: dropped pairs")
-        require(all(decoded[k].shape[0] == POINTS for k in decoded), "decoded shape")
-        if i == 0:
-            first = (img.clone(), n_vis, aux["n_pairs"])
-            continue
-        frame_ms.append((marks[0][1].elapsed_time(marks[-1][1]), host_ms))
-        stage_ms.append([(name, a.elapsed_time(b)) for (_, a), (name, b)
-                         in zip(marks[:-1], marks[1:])])
-    launches = {name: fn.launches for name, fn in zip(KERNELS, counters)}
-    peak = torch.cuda.max_memory_allocated(dev)
-    for name, n in launches.items():
-        require(n >= FRAMES + 1, f"{name} kernel launched {n} times in "
-                f"{FRAMES + 1} frames")
-
-    dev_ms = sorted(d for d, _ in frame_ms)
-    host = sorted(h for _, h in frame_ms)
-    med = dev_ms[len(dev_ms) // 2]
-    print(f"frame (512^2, {POINTS} Gaussians): median {med:.3f} ms device "
-          f"({1e3 / med:.2f} fps), median {host[len(host) // 2]:.3f} ms host wall; "
-          f"first frame {first[1]} visible, {first[2]} pairs")
-    split = stage_split(torch, stage_ms)
-    print("stage split (median ms): " + ", ".join(f"{n} {t:.3f}" for n, t in split.items()))
-    print(f"peak device memory (main path): {peak / 2 ** 30:.3f} GiB; launches {launches}")
+    slab = frame_run(torch, dec, weights, zs[1:], cp, c2w,
+                     {"mapping": pallas_mapping.mapping_forward,
+                      "slab_decode": pallas_heads.decode_project_slab,
+                      "blend": pallas_blend.blend_tiles}, FRAMES, slab_ctx=ctx)
+    launches, first = dict(slab["launches"]), slab["first"]
+    _, host_med = report_frames(torch, slab, "slab-route")
     print(f"all-plain frame (the same stages, the three plain versions): "
           f"{plain_frame_ms:.3f} ms device")
 
     # -- device busy share: FRAMES more frames under torch.profiler ----------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(FRAMES):
-            flagship.decode_and_render(dec, weights, zs[i + 1], cp, c2w, ctx, FOV,
-                                       image_size=IMAGE)
-        torch.cuda.synchronize()
-    on_card = sorted(((e.self_device_time_total / 1e3 / FRAMES, e.key)
-                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                     reverse=True)
-    busy_ms = sum(t for t, _ in on_card)
-    require(busy_ms > 0, "the profiler saw no device time")
-    host_med = host[len(host) // 2]
-    print(f"profiler: {busy_ms:.3f} ms device time per frame, busy "
-          f"{busy_ms / host_med:.3f} of the median host-wall frame ({host_med:.3f} ms); "
-          "largest: " + "; ".join(f"{k[:48]} {t:.3f} ms ({t / busy_ms:.1%})"
-                                  for t, k in on_card[:5]))
+    profile_frames(torch, lambda i, timer: flagship.decode_and_render(
+        dec, weights, zs[i + 1], cp, c2w, ctx, FOV, image_size=IMAGE, stage_timer=timer),
+        host_med, "slab-route")
     fr_psnr = psnr(first[0], ref_img)
     print(f"first frame vs the plain-version frame: {fr_psnr:.2f} dB")
     require(fr_psnr >= 30.0, f"frame disagrees with the plain-version frame: {fr_psnr:.2f} dB")
 
-    del dec, weights, ctx, ref_img, first, img, decoded, aux, vol, scales, rows_k, rows_p
+    del ref_img, first, slab, vol, scales, rows_p
+    torch.cuda.empty_cache()
+
+    # -- the brick route: K10, K8, K9, their frames and the stream ------------
+    launches.update(brick_phase(torch, dec, weights, planes, rows_k, ctx, template, cam, cp, c2w,
+                                args.seed, results))
+    del dec, weights, ctx, rows_k, planes
     torch.cuda.empty_cache()
 
     # -- the training path: apps/train_decoder.py --random_init ---------------
@@ -728,7 +1007,8 @@ def main(argv=None) -> int:
          "replaces": KERNELS[name][1], "launches": launches[name],
          "max_abs_err": results[name]["max_abs_err"], "ms": results[name]["ms"],
          "plain_ms": results[name]["plain_ms"], "bound_ms": results[name]["bound"][0],
-         "bound_by": results[name]["bound"][1], "library_ms": None}
+         "bound_by": results[name]["bound"][1],
+         "library_ms": results[name].get("library_ms")}
         for name in KERNELS]}
     print(json.dumps(rec))
     print(smi)

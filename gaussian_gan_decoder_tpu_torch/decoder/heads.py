@@ -1,5 +1,5 @@
 """Gaussian-attribute decoder heads — port of decoder/heads.py: the slab
-decode route of the inference frame and the training side.
+and brick decode routes of the inference frame and the training side.
 
 GaussianDecoder is an nn.Module holding the five heads
 (`{color,opacity,rotation,scale,xyz}_decoder.backbone`, Linear layers at
@@ -8,9 +8,17 @@ the fine-tunable generator copy `G`, so the JAX package's exported decoder
 state dict loads with strict=True (port/from_jax.py).
 
 The frame runs: synthesize_planes (mapping kernel K1 + StyleGAN2
-synthesis) -> decode_project (int8 slab volume + the fused decode kernel
-K2). make_slab_context packs the static template once on the host (same
-packing and npz disk cache as the JAX package).
+synthesis) -> decode_project, on one of three routes, as the JAX
+package's decode_project dispatches:
+  * a slab context: the int8 slab volume + the fused slab decode K2;
+    make_slab_context packs the static template once on the host (same
+    packing and npz disk cache as the JAX package);
+  * fused_sampling: the int8 brick table (K10), the per-plane brick-row
+    gathers (sample_fused_inputs) and the gather-fused decode K9;
+  * otherwise: the int8 brick table (K10), the table sample, the plane
+    mean and the decode K8 over the prebuilt staging.
+The brick routes need no per-template pack; their rows come out in template
+order, padded to a multiple of 1024 points.
 
 The training side (apply = synthesize_planes_train + decode_from_planes)
 keeps the autograd graph: the f32 mapping and synthesis of the trainable G
@@ -31,8 +39,10 @@ from torch import nn
 
 from ..models.pallas_mapping import FoldedMapping, fold_mapping, mapping_forward
 from ..models.triplane import TriPlaneGenerator
-from ..neuralfield.renderer import build_slab_volume, sample_from_planes
-from .pallas_heads import ChainWeights, build_staging, decode_project_slab, pack_chain
+from ..neuralfield.renderer import (build_plane_table, build_slab_volume, sample_from_planes,
+                                   sample_fused_inputs)
+from .pallas_heads import (C, ChainWeights, build_brick_staging, build_staging,
+                           decode_project, decode_project_fused, decode_project_slab, pack_chain)
 from .pallas_heads_vjp import decode_heads_pallas_diff
 from .point_blocks import PointBlocks, build_point_blocks, compact_indices
 
@@ -96,10 +106,14 @@ class GaussianDecoder(nn.Module):
     the raw position; the mapping sees a zeroed camera."""
 
     def __init__(self, generator: TriPlaneGenerator, gelu: str = "poly6",
-                 rng: Optional[torch.Generator] = None, device=None):
+                 rng: Optional[torch.Generator] = None, device=None,
+                 fused_sampling: bool = False):
         super().__init__()
         self.G = generator
         self.gelu = gelu
+        # brick route: the gather-fused decode K9 in place of the table
+        # sample + K8 (the JAX decoder's fused_sampling)
+        self.fused_sampling = fused_sampling
         self.position_dim = 3
         cond = self.position_dim
         for name, out_dim in CHAIN:
@@ -170,17 +184,47 @@ class GaussianDecoder(nn.Module):
         return planes, ws
 
     @torch.no_grad()
-    def decode_project(self, weights: InferenceWeights, planes, cam, slab_ctx: SlabContext,
+    def decode_project(self, weights: InferenceWeights, planes, cam,
+                       slab_ctx: Optional[SlabContext] = None, init_position=None,
                        stage_timer=None):
-        """Slab volume + fused decode -> (rows (NROWS, Mpad) f32 in slot order,
-        layout name -> (row, dim) of the raw head outputs)."""
-        vol, scales = build_slab_volume(planes, self.G.triplane_depth)
-        if stage_timer is not None:
-            stage_timer("volume")
-        rows = decode_project_slab(weights.chain, vol, scales, slab_ctx, cam)
-        if stage_timer is not None:
-            stage_timer("decode")
-        return rows, weights.chain.layout
+        """Decode + heads + projection of one frame's planes (1, 3, 32*D, H, W)
+        -> (rows (NROWS, Mpad) f32, layout name -> (row, dim) of the raw head
+        outputs). With slab_ctx, the slab route (K2), rows in the context's
+        slot order. Without it, the brick route on the (M, 3) init_position
+        (the template): rows in template order, columns >= M pad and not
+        visible. stage_timer, when given, is called as each stage is issued:
+        volume, decode (slab); table, sample, decode (brick)."""
+        tick = stage_timer or (lambda name: None)
+        cw = weights.chain
+        g = self.G
+        D = g.triplane_depth
+        if slab_ctx is not None:
+            vol, scales = build_slab_volume(planes, D)
+            tick("volume")
+            rows = decode_project_slab(cw, vol, scales, slab_ctx, cam)
+            tick("decode")
+            return rows, cw.layout
+        if init_position is None:
+            raise ValueError("decode_project needs a slab context or the init_position template")
+        pos = init_position.float()
+        M = pos.shape[0]
+        box_warp = float(g.rk["box_warp"])
+        table = build_plane_table(planes, D, brick_dtype=torch.int8)
+        tick("table")
+        if self.fused_sampling:
+            aux, Mpad = build_brick_staging(pos.new_zeros((M, C)), pos, pos)
+            rows_in, wts, scale_rows = sample_fused_inputs(
+                g.plane_axes, planes, pos[None], box_warp, D, table=table, pad_to=Mpad)
+            tick("sample")
+            rows = decode_project_fused(cw, aux, rows_in, wts, scale_rows, cam, M)
+        else:
+            feats = sample_from_planes(g.plane_axes, planes, pos[None], box_warp, D,
+                                       table=table)[0]
+            staging, _ = build_brick_staging(feats.mean(0), pos, pos)
+            tick("sample")
+            rows = decode_project(cw, staging, cam, M)
+        tick("decode")
+        return rows, cw.layout
 
     # -- per template --------------------------------------------------------
 

@@ -1,5 +1,6 @@
-"""Fused slab decode: trilinear sample + 5-head chain + EWA projection —
-port of decoder/pallas_heads.py (slab route).
+"""Fused decode: 5-head chain + EWA projection, on the slab route (with
+the trilinear sample fused) and on the brick route — port of
+decoder/pallas_heads.py. The training chain (K6) is at the end.
 
 Kernel K2, csrc/slab_decode.cu::slab_decode_kernel, replaces the TPU kernel
 decoder/pallas_heads.py::decode_project_pallas_slab
@@ -46,6 +47,7 @@ OUT_W = 16       # padded raw head-output width
 INIT_COL = 120   # raw init_position stash (3 columns)
 VALID_COL = 123  # pad-slot mask: 1 real / 0 pad
 C = 32           # feature channels per plane
+CORNERS = 8      # brick-row corners per tri-grid tap (K9)
 SH_C0 = 0.28209479177387814
 
 # output rows: [0:16) raw head outputs (channel-major), then screen space
@@ -306,6 +308,160 @@ def decode_project_slab_plain(cw: ChainWeights, vol, scales, ctx, cam):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# brick route: K8 decode_project and K9 decode_project_fused
+# (csrc/brick_decode.cu)
+# ---------------------------------------------------------------------------
+# Kernel K8, brick_decode_kernel, replaces the TPU kernel
+# decoder/pallas_heads.py::decode_project_pallas: K2's chain-and-projection
+# tail (csrc/chain.cuh::chain_project_tail) over a prebuilt bf16 staging,
+# each 64-point block loading its rows. Kernel K9, fused_decode_kernel,
+# replaces decode_project_pallas_fused: it builds the staging's feature
+# columns from the raw int8 brick rows (dequant, corner lerp and plane mean
+# in f32, rounded to bf16), then runs the same tail. The TPU kernel's default
+# 'dots' lerp rounds the corner weights and products to bf16 to feed its
+# matrix unit; it is the same function at lower precision, so the port
+# implements the f32 'bcast' form only. What bounds both on the H100: the
+# chain's operations (as K2); K9 also reads ~0.8 KB of brick rows and
+# weights per point. Numerics are K2's bf16 rounding points. Unlike K2 there
+# is no valid column: pad slots are zero staging rows, and only `visible` is
+# culled, by column < n_points, as the TPU kernels do.
+
+DECODE_BLOCK = 1024   # the brick route's Mpad multiple (the JAX kernels' block)
+
+
+def build_brick_staging(feats_mean, cond0, init_position, block: int = DECODE_BLOCK):
+    """The brick route's staging (the JAX package's _build_staging): bf16
+    (Mpad, 128), features [0:32), conditioning [32:32+P), zeros for the chain
+    columns, init_position at [120:123), pad slots zero rows; Mpad = M rounded
+    up to block. -> (staging, Mpad)."""
+    M = cond0.shape[0]
+    Mpad = -(-M // block) * block
+    st = build_staging_f32(feats_mean, cond0, init_position)
+    return F.pad(st, (0, 0, 0, Mpad - M)).to(torch.bfloat16).contiguous(), Mpad
+
+
+def _check_chain_bf16(cw: ChainWeights):
+    H_ = cw.w1.shape[0]
+    chk = kernel_lib.check
+    for name in ("w1", "w2", "w3"):
+        chk(getattr(cw, name), name, torch.bfloat16, (H_, STAGE, STAGE))
+    chk(cw.w4, "w4", torch.bfloat16, (H_, STAGE, OUT_W))
+    for name in ("b1", "b2", "b3"):
+        chk(getattr(cw, name), name, torch.float32, (H_, STAGE))
+    chk(cw.b4, "b4", torch.float32, (H_, OUT_W))
+    chk(cw.meta, "meta", torch.int32, (32,))
+
+
+def _chain_ptrs(cw: ChainWeights, cam_c):
+    return [t.data_ptr() for t in (cw.w1, cw.b1, cw.w2, cw.b2, cw.w3, cw.b3, cw.w4, cw.b4,
+                                   cam_c, cw.meta)]
+
+
+def _check_brick_args(Mpad: int, n_points: int):
+    if Mpad % POINTS_PER_BLOCK:
+        raise ValueError(f"Mpad {Mpad} is not a multiple of {POINTS_PER_BLOCK}")
+    if not 0 <= n_points <= Mpad:
+        raise ValueError(f"n_points {n_points} outside [0, Mpad={Mpad}]")
+
+
+def decode_project_plain(cw: ChainWeights, staging, cam, n_points: int):
+    """Plain PyTorch version of K8 -> rows (NROWS, Mpad) f32, chunked over
+    points to bound the chain's memory at flagship size."""
+    Mpad = staging.shape[0]
+    rows = torch.empty((NROWS, Mpad), dtype=torch.float32, device=staging.device)
+    for m0 in range(0, Mpad, PLAIN_CHUNK):
+        sl = slice(m0, min(Mpad, m0 + PLAIN_CHUNK))
+        rows[:, sl] = chain_project_plain(staging[sl].float(), cw, cam)
+    rows[PROJ_ROWS["visible"], n_points:] = 0.0
+    return rows
+
+
+def decode_project(cw: ChainWeights, staging: torch.Tensor, cam, n_points: int) -> torch.Tensor:
+    """Heads + projection over a prebuilt staging (build_brick_staging) ->
+    rows (NROWS, Mpad) f32 in point order; columns >= n_points are pad and
+    not visible. CPU tensors take the plain version, CUDA tensors K8."""
+    if not kernel_lib.use_kernel(staging, cw.w1):
+        return decode_project_plain(cw, staging, cam, n_points)
+    lib = kernel_lib.library()
+    Mpad = staging.shape[0]
+    _check_brick_args(Mpad, n_points)
+    kernel_lib.check(staging, "staging", torch.bfloat16, (Mpad, STAGE))
+    _check_chain_bf16(cw)
+    rows = torch.empty((NROWS, Mpad), dtype=torch.float32, device=staging.device)
+    ptrs = _chain_ptrs(cw, _cam_consts(cam, staging.device))
+    code = lib.ggd_brick_decode(staging.data_ptr(), *ptrs, rows.data_ptr(), Mpad, n_points,
+                                cw.scale_offset, kernel_lib.stream())
+    kernel_lib.raise_on_error(code, "brick_decode_kernel")
+    decode_project.launches += 1
+    return rows
+
+
+decode_project.launches = 0
+
+
+def fused_features_plain(rows, wts, scale_rows):
+    """The plane-mean trilinear sample from raw brick rows: per plane
+    sum_c row_c * w_c in f32, times the plane's scale row, summed over the
+    planes -> (m, C) f32. rows n_planes x (m, 8*C), wts (WR, m)."""
+    acc = 0.0
+    for p, r in enumerate(rows):
+        accp = 0.0
+        for c in range(CORNERS):
+            accp = accp + r[:, c * C:(c + 1) * C].float() * wts[p * CORNERS + c][:, None]
+        acc = acc + accp * scale_rows[p][None, :]
+    return acc
+
+
+def decode_project_fused_plain(cw: ChainWeights, aux, rows, wts, scale_rows, cam,
+                               n_points: int):
+    """Plain PyTorch version of K9 -> rows (NROWS, Mpad) f32, chunked."""
+    Mpad = aux.shape[0]
+    out = torch.empty((NROWS, Mpad), dtype=torch.float32, device=aux.device)
+    for m0 in range(0, Mpad, PLAIN_CHUNK):
+        sl = slice(m0, min(Mpad, m0 + PLAIN_CHUNK))
+        staging = aux[sl].float()
+        staging[:, 0:C] = _bf16r(fused_features_plain([r[sl] for r in rows], wts[:, sl],
+                                                      scale_rows))
+        out[:, sl] = chain_project_plain(staging, cw, cam)
+    out[PROJ_ROWS["visible"], n_points:] = 0.0
+    return out
+
+
+def decode_project_fused(cw: ChainWeights, aux: torch.Tensor, rows, wts: torch.Tensor,
+                         scale_rows: torch.Tensor, cam, n_points: int) -> torch.Tensor:
+    """Gather-fused heads + projection (inputs from renderer.
+    sample_fused_inputs; aux = build_brick_staging with zero features) ->
+    rows (NROWS, Mpad) f32 in point order, the contract of decode_project.
+    CPU tensors take the plain version, CUDA tensors K9."""
+    if len(rows) != 3:
+        raise ValueError("the fused decode takes 3 planes")
+    if not kernel_lib.use_kernel(aux, wts, cw.w1, *rows):
+        return decode_project_fused_plain(cw, aux, rows, wts, scale_rows, cam, n_points)
+    lib = kernel_lib.library()
+    Mpad = aux.shape[0]
+    _check_brick_args(Mpad, n_points)
+    kernel_lib.check(aux, "aux", torch.bfloat16, (Mpad, STAGE))
+    for p, r in enumerate(rows):
+        kernel_lib.check(r, f"rows[{p}]", torch.int8, (Mpad, CORNERS * C))
+    kernel_lib.check(wts, "wts", torch.float32)
+    if wts.shape[0] < 3 * CORNERS or wts.shape[1] != Mpad:
+        raise ValueError(f"wts {tuple(wts.shape)}: expected (>= {3 * CORNERS}, {Mpad})")
+    kernel_lib.check(scale_rows, "scale_rows", torch.float32, (3, C))
+    _check_chain_bf16(cw)
+    out = torch.empty((NROWS, Mpad), dtype=torch.float32, device=aux.device)
+    ptrs = _chain_ptrs(cw, _cam_consts(cam, aux.device))
+    code = lib.ggd_fused_decode(aux.data_ptr(), *[r.data_ptr() for r in rows], wts.data_ptr(),
+                                scale_rows.data_ptr(), *ptrs, out.data_ptr(), Mpad, n_points,
+                                cw.scale_offset, kernel_lib.stream())
+    kernel_lib.raise_on_error(code, "fused_decode_kernel")
+    decode_project_fused.launches += 1
+    return out
+
+
+decode_project_fused.launches = 0
+
+
 def _cam_consts(cam, device):
     return torch.cat([
         cam.world_view_transform.reshape(-1).float().to(device),
@@ -331,7 +487,6 @@ def decode_project_slab(cw: ChainWeights, vol: torch.Tensor, scales: torch.Tenso
         raise ValueError(f"vol {tuple(vol.shape)}: the kernel takes 3 tri-grid planes of {C} channels")
     if Mpad % POINTS_PER_BLOCK:
         raise ValueError(f"Mpad {Mpad} is not a multiple of {POINTS_PER_BLOCK}")
-    H_ = cw.w1.shape[0]
     chk = kernel_lib.check
     chk(vol, "vol", torch.int8)
     chk(scales, "scales", torch.float32, (3, C))
@@ -339,18 +494,10 @@ def decode_project_slab(cw: ChainWeights, vol: torch.Tensor, scales: torch.Tenso
     chk(ctx.idx16, "idx16", torch.int16, (Mpad, 12))
     chk(ctx.aux, "aux", torch.bfloat16, (Mpad, STAGE))
     chk(ctx.inv_axes, "inv_axes", torch.float32, (3, 3, 3))
-    for name in ("w1", "w2", "w3"):
-        chk(getattr(cw, name), name, torch.bfloat16, (H_, STAGE, STAGE))
-    chk(cw.w4, "w4", torch.bfloat16, (H_, STAGE, OUT_W))
-    for name in ("b1", "b2", "b3"):
-        chk(getattr(cw, name), name, torch.float32, (H_, STAGE))
-    chk(cw.b4, "b4", torch.float32, (H_, OUT_W))
-    chk(cw.meta, "meta", torch.int32, (32,))
-    cam_c = _cam_consts(cam, vol.device)
+    _check_chain_bf16(cw)
     rows = torch.empty((NROWS, Mpad), dtype=torch.float32, device=vol.device)
-    ptrs = [t.data_ptr() for t in (
-        vol, scales, ctx.positions, ctx.idx16, ctx.aux, cw.w1, cw.b1, cw.w2, cw.b2, cw.w3,
-        cw.b3, cw.w4, cw.b4, cam_c, ctx.inv_axes, cw.meta, rows)]
+    ptrs = [t.data_ptr() for t in (vol, scales, ctx.positions, ctx.idx16, ctx.aux, ctx.inv_axes)]
+    ptrs += _chain_ptrs(cw, _cam_consts(cam, vol.device)) + [rows.data_ptr()]
     code = lib.ggd_slab_decode(*ptrs, Mpad, D, H, W, DZ, YP, XPC // C, ctx.box_warp,
                                cw.scale_offset, kernel_lib.stream())
     kernel_lib.raise_on_error(code, "slab_decode_kernel")

@@ -1,5 +1,5 @@
-"""Flagship builders and the decode-and-render frame — port of flagship.py
-(slab route).
+"""Flagship builders and the decode-and-render frame — port of flagship.py:
+the frame on the slab and brick routes, and the frame stream.
 
 The flagship is the PanoHead easy-khair deployment: tri-grid of depth 3 at
 256^2, 500k template Gaussians, a 512^2 frame. Weights are seeded random
@@ -46,12 +46,17 @@ def flagship_generator(variant: str = "panohead", img_resolution: int = 512,
 
 
 def flagship_decoder(gen: Optional[TriPlaneGenerator] = None,
-                     rng: Optional[torch.Generator] = None, device="cuda") -> GaussianDecoder:
-    """The slab route's decoder: sequential_reversed heads (hidden 128), the
-    fused mapping, poly6 GELU, bf16 chain, absmax int8 volume."""
+                     rng: Optional[torch.Generator] = None, device="cuda",
+                     fused_sampling: bool = False) -> GaussianDecoder:
+    """The JAX package's flagship decoder: sequential_reversed heads (hidden
+    128), the fused mapping, polynomial GELU ("poly"), bf16 chain, int8
+    bricks; fused_sampling takes the gather-fused decode (K9) on the brick
+    route. The slab route runs the coarser "poly6" GELU, as the JAX
+    benchmark sets it: GaussianDecoder(gen, gelu="poly6")."""
     dev = resolve_device(device)
     return GaussianDecoder(gen or flagship_generator(rng=rng, device=dev),
-                           gelu="poly6", rng=rng, device=dev)
+                           gelu="poly", rng=rng, device=dev,
+                           fused_sampling=fused_sampling)
 
 
 def flagship_raster_config() -> RasterizeConfig:
@@ -71,6 +76,37 @@ def default_camera_params(fov_deg: float = 13.0, device="cuda"):
             torch.tensor(cam2world, device=device))
 
 
+def _frame_tail(decoder: GaussianDecoder, weights: InferenceWeights, planes, cam, cfg, bgv,
+                slab_ctx: Optional[SlabContext], init_position, return_aux: bool,
+                stage_timer=None):
+    """One frame's planes -> (image, decoded[, aux]): decode + binning +
+    blend, outputs in template order."""
+    rows, layout = decoder.decode_project(weights, planes, cam, slab_ctx=slab_ctx,
+                                          init_position=init_position, stage_timer=stage_timer)
+    out = render_rows(cam, rows, bgv, cfg, stage_timer=stage_timer)
+    if slab_ctx is not None:
+        # slab rows are in packed slot order: map back to template order
+        order = slab_ctx.inv_slot
+    else:
+        # brick rows are in template order, pad columns past M
+        order = slice(0, init_position.shape[0])
+    r16 = rows[:16][:, order]
+    decoded = {name: r16[c:c + d].t() for name, (c, d) in layout.items()}
+    if not return_aux:
+        return out["render"], decoded
+    out["radii"] = rows[PROJ_ROWS["radius_f"]][order].to(torch.int32)
+    out["visibility_filter"] = (rows[PROJ_ROWS["visible"]] > 0.5)[order]
+    return out["render"], decoded, out
+
+
+def _route_device(slab_ctx, init_position):
+    if slab_ctx is not None:
+        return slab_ctx.positions.device
+    if init_position is None:
+        raise ValueError("a frame needs a slab context or the init_position template")
+    return init_position.device
+
+
 @torch.inference_mode()
 def decode_and_render(
     decoder: GaussianDecoder,
@@ -78,7 +114,7 @@ def decode_and_render(
     z: torch.Tensor,
     camera_params: torch.Tensor,
     cam2world,
-    slab_ctx: SlabContext,
+    slab_ctx: Optional[SlabContext],
     fov: float,
     image_size: int = 512,
     bg=DEFAULT_BG,
@@ -86,29 +122,63 @@ def decode_and_render(
     truncation_psi: float = 1.0,
     return_aux: bool = False,
     stage_timer=None,
+    init_position: Optional[torch.Tensor] = None,
 ):
-    """The real-time editing frame: latent -> Gaussians -> (3, H, W) image,
-    on the slab route. weights from decoder.fold(), slab_ctx from
-    decoder.make_slab_context(template). -> (image, decoded[, aux]); decoded
-    holds the raw head outputs per attribute in template order (scale
-    activated, xyz offset applied), aux the rasterizer output with radii and
-    visibility in template order. stage_timer, when given, is called with
-    each stage's name as the stage is issued (mapping, synthesis, volume,
-    decode, binning, blend)."""
-    dev = slab_ctx.positions.device
+    """The real-time editing frame: latent -> Gaussians -> (3, H, W) image.
+    weights from decoder.fold(). slab_ctx from decoder.make_slab_context
+    (template) takes the slab route; slab_ctx=None with init_position, the
+    (M, 3) template tensor, takes the brick route (decoder.fused_sampling
+    picks K9 over the table sample + K8). -> (image, decoded[, aux]);
+    decoded holds the raw head outputs per attribute in template order
+    (scale activated, xyz offset applied), aux the rasterizer output with
+    radii and visibility in template order. stage_timer, when given, is
+    called with each stage's name as the stage is issued (mapping,
+    synthesis, then volume, decode on the slab route or table, sample,
+    decode on the brick route, then binning, blend)."""
+    dev = _route_device(slab_ctx, init_position)
     cam = make_camera(image_size, float(fov), cam2world, device=dev)
     cfg = raster_cfg or flagship_raster_config()
     planes, _ = decoder.synthesize_planes(weights, z, camera_params, truncation_psi,
                                           stage_timer=stage_timer)
-    rows, layout = decoder.decode_project(weights, planes, cam, slab_ctx,
-                                          stage_timer=stage_timer)
     bgv = torch.as_tensor(bg, dtype=torch.float32, device=dev)
-    out = render_rows(cam, rows, bgv, cfg, stage_timer=stage_timer)
-    # rows are in packed slot order: map back to template order
-    r16 = rows[:16][:, slab_ctx.inv_slot]
-    decoded = {name: r16[c:c + d].t() for name, (c, d) in layout.items()}
-    if not return_aux:
-        return out["render"], decoded
-    out["radii"] = rows[PROJ_ROWS["radius_f"]][slab_ctx.inv_slot].to(torch.int32)
-    out["visibility_filter"] = (rows[PROJ_ROWS["visible"]] > 0.5)[slab_ctx.inv_slot]
-    return out["render"], decoded, out
+    return _frame_tail(decoder, weights, planes, cam, cfg, bgv, slab_ctx, init_position,
+                       return_aux, stage_timer)
+
+
+@torch.inference_mode()
+def decode_and_render_stream(
+    decoder: GaussianDecoder,
+    weights: InferenceWeights,
+    zs: torch.Tensor,
+    camera_params: torch.Tensor,
+    cam2world,
+    fov: float,
+    slab_ctx: Optional[SlabContext] = None,
+    init_position: Optional[torch.Tensor] = None,
+    image_size: int = 512,
+    bg=DEFAULT_BG,
+    raster_cfg: Optional[RasterizeConfig] = None,
+    truncation_psi: float = 1.0,
+    frame_batch: int = 4,
+):
+    """F frames from a latent stream zs (F, 1, z_dim) -> (F, 3, H, W): the
+    mapping (K1) and the synthesis run batched, frame_batch latents at a time
+    (the backbone at batch 1 leaves the card mostly idle), the per-frame tail
+    (decode + binning + blend) one frame at a time, so peak memory stays at
+    one frame's tail. Either route: slab_ctx, or init_position (brick)."""
+    F_, _, z_dim = zs.shape
+    if F_ % frame_batch:
+        raise ValueError(f"{F_} frames are not a multiple of frame_batch {frame_batch}")
+    dev = _route_device(slab_ctx, init_position)
+    cam = make_camera(image_size, float(fov), cam2world, device=dev)
+    cfg = raster_cfg or flagship_raster_config()
+    bgv = torch.as_tensor(bg, dtype=torch.float32, device=dev)
+    cp_b = camera_params.expand(frame_batch, camera_params.shape[-1])
+    frames = torch.empty((F_, 3, image_size, image_size), dtype=torch.float32, device=dev)
+    for f0 in range(0, F_, frame_batch):
+        planes, _ = decoder.synthesize_planes(weights, zs[f0:f0 + frame_batch, 0], cp_b,
+                                              truncation_psi)
+        for i in range(frame_batch):
+            frames[f0 + i] = _frame_tail(decoder, weights, planes[i:i + 1], cam, cfg, bgv,
+                                         slab_ctx, init_position, False)[0]
+    return frames

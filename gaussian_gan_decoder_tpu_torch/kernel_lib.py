@@ -50,6 +50,11 @@ _SIGNATURES = {
     # heads_train.cu
     "ggd_heads_fwd": [_P] * 11 + [_I, _F, _P],
     "ggd_heads_bwd": [_P] * 15 + [_I, _I, _F, _P],
+    # brick_table.cu
+    "ggd_brick_table": [_P, _P] + [_I] * 6 + [_P],
+    # brick_decode.cu
+    "ggd_brick_decode": [_P] * 12 + [_I, _I, _F, _P],
+    "ggd_fused_decode": [_P] * 17 + [_I, _I, _F, _P],
 }
 
 

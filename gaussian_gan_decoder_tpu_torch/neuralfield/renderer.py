@@ -1,14 +1,20 @@
 """Plane axes, tri-grid feature sampling, the two-pass importance renderer
 and the per-frame int8 slab volume — port of neuralfield/renderer.py.
 
-All plain PyTorch (the JAX functions are XLA-level too). build_slab_volume
-matches the JAX function bit for bit on equal f32 planes. sample_from_planes
-is the float brick path (build_plane_table + the trilinear table sample):
-the JAX package pre-expands each 2x2x2 corner neighbourhood into one table
-row because a TPU gathers rows at a fixed cost; here each point gathers its
-8 corners from the zero-padded channels-last volume, with the same corner
-weights, validity masks and summation order (dz, dy, dx), so the result is
-the same and autograd's scatter carries the gradient back to the planes.
+Plain PyTorch (the JAX functions are XLA-level too), except the brick-table
+build (neuralfield/pallas_expand.py, kernel K10). build_slab_volume matches
+the JAX function bit for bit on equal f32 planes.
+
+sample_from_planes has two routes. Without a table or brick dtype (the
+train step's float route) each point gathers its 8 corners from the
+zero-padded channels-last volume, with the JAX brick path's corner weights,
+validity masks and summation order (dz, dy, dx), so the result is the same
+and autograd's scatter carries the gradient back to the planes. With
+table= (the inference brick route) it is the JAX brick path itself: build_plane_table pre-expands each 2x2x2 neighbourhood into
+one table row (int8 with per-(plane, channel) absmax scales, or the float
+dtype), and _trilinear_sample_table gathers one row per point and plane and
+combines the corners. sample_fused_inputs prepares the same gathers for the
+gather-fused decode kernel K9.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .math_utils import get_ray_limits_box, linspace_batch
+from .pallas_expand import build_brick_table
 from .ray_marcher import mip_ray_march
 
 Y_ALIGN = 8   # slab volume row padding (YP)
@@ -63,11 +70,7 @@ def build_slab_volume(
     if D < 2:
         raise NotImplementedError("the bilinear (depth-1, EG3D) slab variant is not ported")
     C = CD // D
-    feats = plane_features.float().reshape(n_planes, C, D, H, W)
-    absmax = feats.abs().amax(dim=(2, 3, 4))
-    scales = torch.clamp(absmax / 127.0, min=1e-12)                 # (P, C)
-    q = feats * (1.0 / scales)[:, :, None, None, None]
-    q8 = torch.clamp(torch.round(q), -127, 127).to(torch.int8)
+    q8, scales = _quantize_int8(plane_features.float().reshape(n_planes, C, D, H, W))
     YP = -(-(H + 2) // Y_ALIGN) * Y_ALIGN
     XP = -(-(W + 2) // X_ALIGN) * X_ALIGN
     vol = torch.zeros((n_planes, D + 2, YP, XP, C), dtype=torch.int8,
@@ -95,12 +98,84 @@ def _corner_weights_1d(g, size):
     return torch.clamp(x0 + 1, 0, size), w1, v0, v1
 
 
+def _quantize_int8(feats: torch.Tensor):
+    """Symmetric absmax int8 per (volume, channel): feats (B, C, ...) f32 ->
+    (q8 int8, scales (B, C) f32), the JAX package's quantisation."""
+    dims = tuple(range(2, feats.dim()))
+    absmax = feats.abs().amax(dim=dims)
+    scales = torch.clamp(absmax / 127.0, min=1e-12)
+    inv = (1.0 / scales).reshape(scales.shape + (1,) * len(dims))
+    q8 = torch.clamp(torch.round(feats * inv), -127, 127).to(torch.int8)
+    return q8, scales
+
+
+def build_plane_table(plane_features: torch.Tensor, triplane_depth: int, brick_dtype=None):
+    """The corner-brick table of the tri-grid (N, 3, C*D, H, W), built once
+    per frame. brick_dtype torch.int8 quantises the raw volume with
+    symmetric absmax scales per (plane, channel) and expands the int8 volume
+    -> (e, NY, scales (N*3, C) f32); a float brick_dtype (or None: the
+    planes' dtype) -> (e, NY). The expansion is pallas_expand.
+    build_brick_table (K10 on the card; on the CPU its plain version, the
+    JAX package's XLA 8-slice concat with NY padded as K10 pads it)."""
+    N, n_planes, CD, H, W = plane_features.shape
+    if triplane_depth < 2:
+        raise NotImplementedError("the bilinear (depth-1, EG3D) brick table is not ported")
+    C, D = CD // triplane_depth, triplane_depth
+    if brick_dtype == torch.int8:
+        q8, scales = _quantize_int8(plane_features.float().reshape(N * n_planes, C, D, H, W))
+        e, NY = build_brick_table(q8)
+        return e, NY, scales
+    if brick_dtype is not None:
+        plane_features = plane_features.to(brick_dtype)
+    return build_brick_table(plane_features.reshape(N * n_planes, C, D, H, W))
+
+
+def _trilinear_sample_table(table, C: int, D: int, H: int, W: int, grid: torch.Tensor):
+    """table from build_plane_table ((e, NY) float or (e, NY, scales) int8);
+    grid (B, M, 3) in [-1, 1] -> (B, M, C): per-plane row gathers, the
+    8-corner combine in (dz, dy, dx) order (int8 corners cast to f32, float
+    corners times their mask in the table's dtype, then times the grid's
+    weights, as JAX promotes them), then the int8 dequant."""
+    e, NY = table[0], table[1]
+    scales = table[2] if len(table) > 2 else None
+    ix, wx, vx0, vx1 = _corner_weights_1d(grid[..., 0], W)
+    iy, wy, vy0, vy1 = _corner_weights_1d(grid[..., 1], H)
+    iz, wz, vz0, vz1 = _corner_weights_1d(grid[..., 2], D)
+    idx = (iz * NY + iy) * (W + 1) + ix
+    wdt = torch.float32 if scales is not None else e.dtype
+    wzs = ((1 - wz)[..., None], wz[..., None])
+    wys = ((1 - wy)[..., None], wy[..., None])
+    wxs = ((1 - wx)[..., None], wx[..., None])
+    vz, vy, vx = (vz0, vz1), (vy0, vy1), (vx0, vx1)
+    outs = []
+    for b in range(e.shape[0]):
+        rows = e[b][idx[b]]                                          # (M, 8C)
+        out = 0.0
+        k = 0
+        for dz in (0, 1):
+            for dy in (0, 1):
+                for dx in (0, 1):
+                    m = (vz[dz][b] & vy[dy][b] & vx[dx][b])[:, None].to(wdt)
+                    out = out + (rows[:, k * C:(k + 1) * C].to(wdt) * m
+                                 * wzs[dz][b] * wys[dy][b] * wxs[dx][b])
+                    k += 1
+        if scales is not None:
+            out = out * scales[b][None, :]
+        outs.append(out)
+    return torch.stack(outs)
+
+
 def sample_from_planes(plane_axes: np.ndarray, plane_features: torch.Tensor,
                        coordinates: torch.Tensor, box_warp: float,
-                       triplane_depth: int) -> torch.Tensor:
+                       triplane_depth: int, table=None) -> torch.Tensor:
     """Trilinear probe of the tri-grid at world coords (torch grid_sample
     semantics, align_corners=False, zeros padding): plane_features (N, 3,
-    C*D, H, W), coordinates (N, M, 3) -> (N, n_planes, M, C)."""
+    C*D, H, W), coordinates (N, M, 3) -> (N, n_planes, M, C).
+
+    With table (build_plane_table's output, reused across calls) it samples
+    the brick table: f32 out for int8 bricks, the planes' dtype otherwise.
+    Without it it gathers the 8 corners directly, in the planes' dtype,
+    differentiably."""
     N, n_planes, CD, H, W = plane_features.shape
     M = coordinates.shape[1]
     D = triplane_depth
@@ -109,6 +184,10 @@ def sample_from_planes(plane_axes: np.ndarray, plane_features: torch.Tensor,
     C = CD // D
     proj = project_onto_planes(plane_axes, (2.0 / box_warp) * coordinates)
     proj = proj.reshape(N * n_planes, M, 3)
+    if table is not None:
+        out = _trilinear_sample_table(table, C, D, H, W, proj)
+        out_dtype = torch.float32 if len(table) > 2 else plane_features.dtype
+        return out.reshape(N, n_planes, M, C).to(out_dtype)
     fcl = plane_features.reshape(N * n_planes, C, D, H, W).permute(0, 2, 3, 4, 1)
     fcl = F.pad(fcl, (0, 0, 1, 1, 1, 1, 1, 1)).reshape(N * n_planes, -1, C)
     ix, wx, vx0, vx1 = _corner_weights_1d(proj[..., 0], W)
@@ -129,6 +208,62 @@ def sample_from_planes(plane_axes: np.ndarray, plane_features: torch.Tensor,
                 m = (vz[dz] & vy[dy] & vx[dx])[..., None].to(wdt)
                 out = out + rows * m * wzs[dz] * wys[dy] * wxs[dx]
     return out.reshape(N, n_planes, M, C)
+
+
+def sample_fused_inputs(plane_axes: np.ndarray, plane_features: torch.Tensor,
+                        coordinates: torch.Tensor, box_warp: float, triplane_depth: int,
+                        pad_to: int, table=None):
+    """Inputs of the gather-fused decode (decoder/pallas_heads.py::
+    decode_project_fused, kernel K9) for one scene, from the int8 plane
+    table (build_plane_table(..., brick_dtype=torch.int8), built here when
+    table is None): plane_features (1, 3, C*D, H, W), coordinates (1, M, 3)
+    -> (rows, wts, scale_rows):
+
+      rows       - n_planes int8 brick-row gathers (Mpad, 8*C), the index
+                   padded with row 0 up to Mpad = pad_to;
+      wts        - (WR, Mpad) f32 channel-major corner weights, row p*8 + c
+                   the mask-folded weight of corner c of plane p (the
+                   products _trilinear_sample_table uses), WR =
+                   roundup(n_planes*8, 8), pad columns zero;
+      scale_rows - (n_planes, C) f32 int8 dequant scales with the
+                   1/n_planes plane mean folded in (what the JAX kernel's
+                   'bcast' lerp recovers from its segment matrices)."""
+    N, n_planes, CD, H, W = plane_features.shape
+    if N != 1:
+        raise ValueError("fused sampling is single-scene (the decode hot path)")
+    if triplane_depth < 2:
+        raise NotImplementedError("the bilinear (depth-1, EG3D) brick table is not ported")
+    M = coordinates.shape[1]
+    C, D = CD // triplane_depth, triplane_depth
+    Mpad = pad_to
+    if Mpad < M:
+        raise ValueError(f"pad_to {Mpad} < {M} points")
+    proj = project_onto_planes(plane_axes, (2.0 / box_warp) * coordinates).reshape(
+        n_planes, M, 3)
+    if table is None:
+        table = build_plane_table(plane_features, triplane_depth, brick_dtype=torch.int8)
+    e, NY, scales = table
+
+    def w01(w, v0, v1):
+        zero = torch.zeros_like(w)
+        return torch.where(v0, 1.0 - w, zero), torch.where(v1, w, zero)
+
+    rows, wcols = [], []
+    for b in range(n_planes):
+        g = proj[b]
+        ix, wx, vx0, vx1 = _corner_weights_1d(g[:, 0], W)
+        iy, wy, vy0, vy1 = _corner_weights_1d(g[:, 1], H)
+        iz, wz, vz0, vz1 = _corner_weights_1d(g[:, 2], D)
+        ax, ay, az = w01(wx, vx0, vx1), w01(wy, vy0, vy1), w01(wz, vz0, vz1)
+        for dz in (0, 1):
+            for dy in (0, 1):
+                for dx in (0, 1):
+                    wcols.append(az[dz] * ay[dy] * ax[dx])
+        idx = F.pad((iz * NY + iy) * (W + 1) + ix, (0, Mpad - M))
+        rows.append(e[b][idx])
+    WR = -(-(n_planes * 8) // 8) * 8
+    wts = F.pad(torch.stack([w.float() for w in wcols]), (0, Mpad - M, 0, WR - n_planes * 8))
+    return rows, wts.contiguous(), (scales / n_planes).contiguous()
 
 
 def triplane_crop_mask(xyz: torch.Tensor, thresh: float, boxwarp: float,

@@ -14,6 +14,7 @@ import torch
 from gaussian_gan_decoder_tpu.splat.pallas_blend import _blend_train_fwd, pallas_blend_diff
 from gaussian_gan_decoder_tpu_torch.splat.pallas_blend import (
     blend_tiles_diff, blend_train_bwd_plain, blend_train_plain)
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 GRID, TS, MAX_K = 4, 16, 96
 JAX_ROWS, CHUNK = 16, 128

@@ -1,9 +1,11 @@
-"""The port's decode-and-render frame end to end vs the JAX package, plus
-the port's packaging rules: it imports without jax, CPU tensors never reach
-a kernel, a CUDA-side wrapper without its kernel library raises (no
-fallback) for every kernel of the frame (K1-K3) and of the train step
-(K4-K7), the builders need a card unless asked for the CPU, and the JAX
-weight export loads strictly."""
+"""The port's decode-and-render frame end to end vs the JAX package (slab
+route), the brick route's decode_project vs the JAX decoder's, the brick
+frame vs the slab frame and the frame stream vs single frames (port only),
+plus the port's packaging rules: it imports without jax, CPU tensors never
+reach a kernel, a CUDA-side wrapper without its kernel library raises (no
+fallback) for every kernel of the frame (K1-K3, K8-K10) and of the train
+step (K4-K7), the builders need a card unless asked for the CPU, and the
+JAX weight exports (slab and brick decoders) load strictly."""
 import dataclasses
 import os
 import subprocess
@@ -20,6 +22,7 @@ from gaussian_gan_decoder_tpu.decoder.heads import GaussianDecoder as JDec
 from gaussian_gan_decoder_tpu.flagship import decode_and_render as jdecode_and_render
 from gaussian_gan_decoder_tpu.flagship import default_camera_params as jcam_params
 from gaussian_gan_decoder_tpu.flagship import flagship_raster_config as jraster_config
+from gaussian_gan_decoder_tpu.gaussians.cameras import make_camera as jmake_camera
 from gaussian_gan_decoder_tpu.models.triplane import TriPlaneGenerator as JGen
 from gaussian_gan_decoder_tpu.port.torch_export import decoder_state_dict, save_torch_state_dict
 from gaussian_gan_decoder_tpu_torch import flagship, kernel_lib
@@ -28,8 +31,10 @@ from gaussian_gan_decoder_tpu_torch.decoder.heads import CHAIN, GaussianDecoder
 from gaussian_gan_decoder_tpu_torch.gaussians.cameras import make_camera
 from gaussian_gan_decoder_tpu_torch.models import pallas_mapping
 from gaussian_gan_decoder_tpu_torch.models.triplane import TriPlaneGenerator
+from gaussian_gan_decoder_tpu_torch.neuralfield import pallas_expand
 from gaussian_gan_decoder_tpu_torch.port.from_jax import DROPPED_PREFIXES, load_decoder_state
 from gaussian_gan_decoder_tpu_torch.splat import pallas_blend
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 GEN_KW = dict(z_dim=32, c_dim=25, w_dim=32, img_resolution=64, channel_base=512,
               channel_max=32, num_fp16_res=0)
@@ -106,6 +111,115 @@ def test_decode_and_render_matches_jax(models):
     assert agree >= 0.995, agree
 
 
+def _brick_decoder(td, gelu, fused):
+    """A port decoder with td's weights on the brick route."""
+    dec = GaussianDecoder(td.G, gelu=gelu, fused_sampling=fused)
+    dec.load_state_dict(td.state_dict())
+    return dec
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["table", "fused"])
+def test_brick_decode_project_matches_jax(models, fused):
+    """GaussianDecoder.decode_project without a slab context (the int8
+    brick table, then the table sample + K8, or the fused inputs + K9)
+    against the JAX decoder's on seeded planes: K2's tolerances on rows
+    0:14 and px/py/depth/opac, and for the fused route 3e-2 (abs) on every
+    row (the JAX decoder's default 'dots' lerp); visibility agreement
+    >= 0.995; pad columns not visible."""
+    jd, params, td, _ = models
+    jdb = dataclasses.replace(jd, pallas_sampling=True, gelu="poly", slab_sampling=False,
+                              fused_sampling=fused)
+    rng = np.random.RandomState(3)
+    planes = rng.randn(1, 3, 96, TS, TS).astype(np.float32)
+    pos = ((rng.rand(M, 3) - 0.5) * 0.4).astype(np.float32)
+    _, c2w = jcam_params()
+    jcam = jmake_camera(IMG, jnp.asarray(FOV, jnp.float32), c2w)
+    jrows, jlayout = jdb.decode_project(params, jnp.asarray(planes), jnp.asarray(pos), jcam)
+    dec = _brick_decoder(td, "poly", fused)
+    cam = make_camera(IMG, FOV, np.asarray(c2w))
+    counter = pallas_heads.decode_project_fused if fused else pallas_heads.decode_project
+    before = (counter.launches, pallas_expand.brick_table.launches)
+    rows, layout = dec.decode_project(dec.fold(), torch.tensor(planes), cam,
+                                      init_position=torch.tensor(pos))
+    assert (counter.launches, pallas_expand.brick_table.launches) == before
+    assert layout == dict(jlayout)
+    rows, jrows = rows.numpy(), np.asarray(jrows)
+    assert rows.shape == jrows.shape == (pallas_heads.NROWS, 1024)
+    a, b = jrows[:14, :M], rows[:14, :M]
+    err = np.abs(a - b) / np.maximum(np.abs(a).max(axis=1, keepdims=True), 1e-3)
+    print(f"brick decode_project ({'fused' if fused else 'table'}) vs JAX: rows 0:14 "
+          f"worst row-relative {err.max():.3e}")
+    assert err.max() < 5e-2, err.max(axis=1)
+    pr = pallas_heads.PROJ_ROWS
+    for k in ("px", "py", "depth", "opac"):
+        e = np.abs(jrows[pr[k], :M] - rows[pr[k], :M]).max() / np.abs(jrows[pr[k], :M]).max()
+        assert e < 5e-2, (k, e)
+    if fused:   # rows 14:16 are unwritten scratch in the JAX kernel
+        keep = [r for r in range(pallas_heads.NROWS) if r not in (14, 15)]
+        d = np.abs(rows[keep, :M] - jrows[keep, :M]).max()
+        print(f"  every row: max |d| {d:.3e}")
+        assert d <= 3e-2
+    vis, jvis = rows[pr["visible"]] > 0.5, jrows[pr["visible"]] > 0.5
+    assert (vis[:M] == jvis[:M]).mean() >= 0.995 and vis[:M].mean() > 0.5
+    assert not vis[M:].any()
+
+
+def test_brick_frame_matches_slab_frame(models):
+    """Port only: one latent and template rendered on the brick route and on
+    the slab route with the same GELU. Both quantise with the same absmax
+    scales and lerp in f32, so they differ by summation order: image PSNR
+    >= 30 dB, decoded attributes within 5e-2 of each max, visibility
+    agreement >= 0.995 (the slab test's limits)."""
+    _, _, td, _ = models
+    rng = np.random.RandomState(4)
+    pos = ((rng.rand(M, 3) - 0.5) * 0.4).astype(np.float32)
+    z = torch.tensor(rng.randn(1, 32).astype(np.float32))
+    tcp, tc2w = flagship.default_camera_params(device="cpu")
+    w = td.fold()
+    kw = dict(image_size=IMG, bg=BG, return_aux=True)
+    simg, sdec, saux = flagship.decode_and_render(td, w, z, tcp, tc2w,
+                                                  td.make_slab_context(pos, block=BLOCK),
+                                                  FOV, **kw)
+    bimg, bdec, baux = flagship.decode_and_render(td, w, z, tcp, tc2w, None, FOV,
+                                                  init_position=torch.tensor(pos), **kw)
+    mse = float(((bimg - simg) ** 2).mean())
+    psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+    agree = float((baux["visibility_filter"] == saux["visibility_filter"]).float().mean())
+    print(f"brick vs slab frame: {psnr:.2f} dB, visibility agreement {agree:.5f}")
+    assert float(simg.std()) > 0 and psnr >= 30.0
+    for name, ref in sdec.items():
+        err = float((bdec[name] - ref).abs().max() / ref.abs().max())
+        print(f"  decoded {name}: {err:.3e}")
+        assert bdec[name].shape == ref.shape == (M, ref.shape[1]) and err <= 5e-2, name
+    assert agree >= 0.995 and baux["n_dropped"] == 0
+
+
+def test_stream_matches_single_frames(models):
+    """decode_and_render_stream (4 latents, frame_batch 2, brick route)
+    against decode_and_render frame by frame. The stream synthesises two
+    latents per batch; the CPU convolutions sum a batch of 2 in another
+    order than a batch of 1 (planes 4.7e-7 of their max apart), and where a
+    plane value sits at an int8 rounding boundary that moves a feature by
+    one quantum: 0.99 of the pixels within 1e-5, all within 1e-4 (read:
+    >= 0.99715 and <= 3.6e-5)."""
+    _, _, td, _ = models
+    rng = np.random.RandomState(5)
+    pos = torch.tensor(((rng.rand(M, 3) - 0.5) * 0.4).astype(np.float32))
+    zs = torch.tensor(rng.randn(4, 1, 32).astype(np.float32))
+    tcp, tc2w = flagship.default_camera_params(device="cpu")
+    w = td.fold()
+    frames = flagship.decode_and_render_stream(td, w, zs, tcp, tc2w, FOV, init_position=pos,
+                                               image_size=IMG, bg=BG, frame_batch=2)
+    assert tuple(frames.shape) == (4, 3, IMG, IMG)
+    for i in range(4):
+        img, _ = flagship.decode_and_render(td, w, zs[i], tcp, tc2w, None, FOV, image_size=IMG,
+                                            bg=BG, init_position=pos)
+        d = (frames[i] - img).abs()
+        err, frac = float(d.max()), float((d <= 1e-5).float().mean())
+        print(f"stream frame {i}: max |d| {err:.3e}, within 1e-5 on {frac:.5f} of pixels")
+        assert err <= 1e-4 and frac >= 0.99 and float(img.std()) > 0
+
+
 def test_port_imports_without_jax():
     """Every module of the port imports with jax (and the JAX package)
     refused by the import system."""
@@ -141,7 +255,10 @@ WRAPPERS = ((pallas_mapping, "mapping_forward", "mapping_forward_plain"),
             (pallas_blend, "blend_train", "blend_train_plain"),
             (pallas_blend, "blend_train_bwd", "blend_train_bwd_plain"),
             (pallas_heads, "decode_heads", "decode_heads_plain"),
-            (pallas_heads_vjp, "decode_heads_bwd", "decode_heads_bwd_plain"))
+            (pallas_heads_vjp, "decode_heads_bwd", "decode_heads_bwd_plain"),
+            (pallas_heads, "decode_project", "decode_project_plain"),
+            (pallas_heads, "decode_project_fused", "decode_project_fused_plain"),
+            (pallas_expand, "brick_table", "brick_table_plain"))
 
 
 def _launches():
@@ -160,6 +277,8 @@ def _wrapper_calls():
     starts = torch.zeros(17, dtype=torch.int32)
     cw = pallas_heads.pack_chain_f32(dec.heads(), CHAIN, 3, -2.5, "exact")
     stage, out16, img = torch.zeros(64, 128), torch.zeros(64, 16), torch.zeros(16, 256, 4)
+    bstage, brow = torch.zeros((64, 128), dtype=torch.bfloat16), torch.zeros((64, 256),
+                                                                            dtype=torch.int8)
     return [
         lambda: pallas_mapping.mapping_forward(torch.zeros(1, 32), torch.zeros(1, 25),
                                                w.mapping),
@@ -170,6 +289,12 @@ def _wrapper_calls():
                                              1024),
         lambda: pallas_heads.decode_heads(stage, cw),
         lambda: pallas_heads_vjp.decode_heads_bwd(stage, out16, out16, cw),
+        lambda: pallas_heads.decode_project(w.chain, bstage, cam, 10),
+        lambda: pallas_heads.decode_project_fused(w.chain, bstage, [brow] * 3,
+                                                  torch.zeros(24, 64), torch.ones(3, 32), cam,
+                                                  10),
+        lambda: pallas_expand.build_brick_table(torch.zeros((3, 32, 3, 4, 4),
+                                                            dtype=torch.int8)),
     ]
 
 
@@ -238,4 +363,22 @@ def test_from_jax_is_strict(models, tmp_path):
     save_torch_state_dict(path, sd)
     load_decoder_state(td, path)
     for k, v in td.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), sd[k])
+
+
+def test_from_jax_loads_brick_decoder(models):
+    """The JAX brick-route decoder (the JAX flagship_decoder's fields:
+    int8 bricks, Pallas build, poly GELU, fused sampling) exports the same
+    heads and generator: its state dict loads strictly into the port's
+    brick-route decoder."""
+    jd, params, td, _ = models
+    jdb = dataclasses.replace(jd, pallas_sampling=True, gelu="poly", slab_sampling=False,
+                              fused_sampling=True)
+    sd = decoder_state_dict(jdb, params)
+    dec = flagship.flagship_decoder(gen=TriPlaneGenerator(rendering_kwargs={"triplane_size": TS},
+                                                          without_sr=True, **GEN_KW),
+                                    device="cpu", fused_sampling=True)
+    assert dec.gelu == "poly" and dec.fused_sampling
+    load_decoder_state(dec, sd)
+    for k, v in dec.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), sd[k])

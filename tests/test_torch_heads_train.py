@@ -21,6 +21,7 @@ from gaussian_gan_decoder_tpu_torch.decoder.pallas_heads import (
     build_staging_f32, decode_heads_plain, pack_chain_f32)
 from gaussian_gan_decoder_tpu_torch.decoder.pallas_heads_vjp import (
     decode_heads_bwd_plain, decode_heads_pallas_diff)
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 M = 700
 

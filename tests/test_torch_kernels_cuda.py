@@ -17,7 +17,9 @@ from gaussian_gan_decoder_tpu_torch.gaussians.cameras import make_camera
 from gaussian_gan_decoder_tpu_torch.models import pallas_mapping
 from gaussian_gan_decoder_tpu_torch.models.stylegan2 import MappingNetwork
 from gaussian_gan_decoder_tpu_torch.models.triplane import TriPlaneGenerator
-from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import build_slab_volume
+from gaussian_gan_decoder_tpu_torch.neuralfield import pallas_expand
+from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import (
+    build_plane_table, build_slab_volume, sample_from_planes, sample_fused_inputs)
 from gaussian_gan_decoder_tpu_torch.splat import fast_raster, pallas_blend
 
 pytestmark = pytest.mark.cuda
@@ -61,28 +63,86 @@ def _small_frame(cuda):
     return dec.fold(), ctx, cam, vol, scales
 
 
+def _hold_decode_rows(rows, ref, real, chain, cam):
+    """A decode kernel's rows against its plain version's on the real
+    columns (chip_smoke.py's K2 checks and limits, where their reasons are
+    given)."""
+    cb = pallas_heads.PROJ_ROWS["conic_b"]
+    cont = [r for r in list(range(14)) + list(range(16, 26)) if r != cb]
+    err = (rows - ref)[:, real].abs().amax(dim=1) / ref[:, real].abs().amax(dim=1).clamp(min=1e-3)
+    assert float(err[cont].max()) <= 1e-2
+    # conic_b, the near-cancelling off-diagonal, at its own scale ...
+    assert float(err[cb]) <= 2e-2
+    # ... and every screen row is the plain projection of the kernel's own
+    # head rows, at f32 rounding
+    proj = pallas_heads.project_heads(rows[:16].t(), chain, cam)
+    perr = ((rows - proj)[16:26][:, real].abs().amax(dim=1)
+            / proj[16:26][:, real].abs().amax(dim=1).clamp(min=1e-3))
+    assert float(perr.max()) <= 1e-3
+    vis = pallas_heads.PROJ_ROWS["visible"]
+    assert float(((rows[vis] > 0.5) == (ref[vis] > 0.5))[real].float().mean()) >= 0.999
+    assert bool(torch.isfinite(rows).all())
+    assert not bool((rows[vis, ~real] > 0.5).any())
+
+
 def test_slab_decode_kernel(cuda):
     w, ctx, cam, vol, scales = _small_frame(cuda)
     rows = pallas_heads.decode_project_slab(w.chain, vol, scales, ctx, cam)
     ref = pallas_heads.decode_project_slab_plain(w.chain, vol, scales, ctx, cam)
     torch.cuda.synchronize()
-    v = ctx.valid > 0
-    cb = pallas_heads.PROJ_ROWS["conic_b"]
-    cont = [r for r in list(range(14)) + list(range(16, 26)) if r != cb]
-    err = (rows - ref)[:, v].abs().amax(dim=1) / ref[:, v].abs().amax(dim=1).clamp(min=1e-3)
-    assert float(err[cont].max()) <= 1e-2
-    # conic_b, the near-cancelling off-diagonal, at its own scale (the limit
-    # is chip_smoke.py's, where its reason is given) ...
-    assert float(err[cb]) <= 2e-2
-    # ... and every screen row is the plain projection of the kernel's own
-    # head rows, at f32 rounding
-    proj = pallas_heads.project_heads(rows[:16].t(), w.chain, cam)
-    perr = ((rows - proj)[16:26][:, v].abs().amax(dim=1)
-            / proj[16:26][:, v].abs().amax(dim=1).clamp(min=1e-3))
-    assert float(perr.max()) <= 1e-3
-    vis = pallas_heads.PROJ_ROWS["visible"]
-    assert float(((rows[vis] > 0.5) == (ref[vis] > 0.5))[v].float().mean()) >= 0.999
-    assert bool(torch.isfinite(rows).all())
+    _hold_decode_rows(rows, ref, ctx.valid > 0, w.chain, cam)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(3, 32, 3, 16, 16), (2, 32, 2, 21, 13)])
+def test_brick_table_kernel(cuda, dtype, shape):
+    """K10 against its plain version: bit-exact, the rows y0 > H included."""
+    g = torch.Generator().manual_seed(shape[3])
+    feats = (torch.randn(shape, generator=g) * 30).to(dtype).to(cuda)
+    e, NY = pallas_expand.build_brick_table(feats)
+    ref = pallas_expand.brick_table_plain(pallas_expand.padded_channels_last(feats), NY)
+    assert pallas_expand.brick_table.launches > 0
+    torch.cuda.synchronize()
+    assert e.dtype == dtype and e.shape == ref.shape
+    assert torch.equal(e.view(torch.uint8), ref.view(torch.uint8))
+
+
+def _small_brick(cuda):
+    g = torch.Generator().manual_seed(2)
+    gen = TriPlaneGenerator(z_dim=32, c_dim=25, w_dim=32, img_resolution=64,
+                            channel_base=512, channel_max=32,
+                            rendering_kwargs={"triplane_size": 32}, generator=g)
+    dec = GaussianDecoder(gen, gelu="poly", rng=g).to(cuda)
+    pos = torch.tensor(((np.random.RandomState(3).rand(3000, 3) - 0.5) * 0.5)
+                       .astype(np.float32), device=cuda)
+    cam = make_camera(64, 0.227, flagship.default_camera_params()[1], device=cuda)
+    planes = torch.randn(1, 3, 96, 32, 32, generator=g).to(cuda)
+    table = build_plane_table(planes, 3, brick_dtype=torch.int8)
+    return dec, dec.fold().chain, pos, cam, planes, table
+
+
+def test_brick_decode_kernel(cuda):
+    """K8 against its plain version on the table-sampled staging."""
+    dec, cw, pos, cam, planes, table = _small_brick(cuda)
+    feats = sample_from_planes(dec.G.plane_axes, planes, pos[None], 1.0, 3, table=table)[0]
+    staging, Mpad = pallas_heads.build_brick_staging(feats.mean(0), pos, pos)
+    rows = pallas_heads.decode_project(cw, staging, cam, pos.shape[0])
+    ref = pallas_heads.decode_project_plain(cw, staging, cam, pos.shape[0])
+    torch.cuda.synchronize()
+    _hold_decode_rows(rows, ref, torch.arange(Mpad, device=cuda) < pos.shape[0], cw, cam)
+
+
+def test_fused_decode_kernel(cuda):
+    """K9 against its plain version on sample_fused_inputs' rows."""
+    dec, cw, pos, cam, planes, table = _small_brick(cuda)
+    M = pos.shape[0]
+    aux, Mpad = pallas_heads.build_brick_staging(pos.new_zeros((M, 32)), pos, pos)
+    rows_in, wts, scale_rows = sample_fused_inputs(dec.G.plane_axes, planes, pos[None], 1.0, 3,
+                                                   table=table, pad_to=Mpad)
+    rows = pallas_heads.decode_project_fused(cw, aux, rows_in, wts, scale_rows, cam, M)
+    ref = pallas_heads.decode_project_fused_plain(cw, aux, rows_in, wts, scale_rows, cam, M)
+    torch.cuda.synchronize()
+    _hold_decode_rows(rows, ref, torch.arange(Mpad, device=cuda) < M, cw, cam)
 
 
 def test_blend_kernel(cuda):

@@ -15,6 +15,7 @@ from gaussian_gan_decoder_tpu.losses.lpips import VGG16LPIPS as JVGG, lpips_loss
 from gaussian_gan_decoder_tpu_torch.losses import (
     VGG16LPIPS, area_downsample, l1_loss, l2_loss, lpips_loss, sobel_loss, ssim)
 from gaussian_gan_decoder_tpu_torch.port.from_jax import load_vgg16_lpips_state
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 
 def _rel(got, ref):
@@ -78,7 +79,18 @@ def test_area_downsample_matches_jax():
 
 def test_lpips_matches_jax():
     """VGG16-LPIPS distance and its gradient w.r.t. the rendered image, with
-    the same numpy weights loaded into both."""
+    the same numpy weights loaded into both.
+
+    The port's side runs PyTorch's native CPU convolutions (oneDNN off).
+    Evidence, on these weights and images: in float64 on both sides (JAX
+    with x64, the torch VGG in double) the gradients agree to 1.2e-14 of
+    their max and the values to 1e-16, so the port computes the same
+    function. In float32, JAX's gradient is 5.3e-6 of the max from the
+    float64 one and the port's with native convolutions 5.7e-6 (7.6e-6 from
+    JAX's), but the port's through oneDNN's float32 convolutions on an
+    AVX-512/AMX CPU is 2.09e-4 away, in IEEE mode too: that CPU library's
+    rounding, not the port's. Limit 1e-5 of the max on the value and the
+    gradient: two float32 evaluations, each ~5e-6 from float64."""
     state = vgg_state()
     jvgg = JVGG()
     jparams = jvgg.load_torch_state_dict(state)
@@ -88,8 +100,9 @@ def test_lpips_matches_jax():
     jv, jg = jax.value_and_grad(lambda i: jlpips(jvgg, jparams, jnp.asarray(b)[None], i))(
         jnp.asarray(a)[None])
     ta = torch.tensor(a[None], requires_grad=True)
-    tv = lpips_loss(vgg, torch.tensor(b[None]), ta)
-    tv.backward()
+    with torch.backends.mkldnn.flags(enabled=False):
+        tv = lpips_loss(vgg, torch.tensor(b[None]), ta)
+        tv.backward()
     print(f"lpips {float(tv):.6f} vs JAX {float(jv):.6f}")
     assert abs(float(tv) - float(jv)) <= 1e-5 * abs(float(jv))
     assert _rel(ta.grad.numpy(), jg) <= 1e-5

@@ -14,6 +14,7 @@ from gaussian_gan_decoder_tpu_torch.models.pallas_mapping import (
     fold_mapping, mapping_forward,
 )
 from gaussian_gan_decoder_tpu_torch.models.stylegan2 import MappingNetwork
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 Z, CD, W, NUM_WS = 32, 25, 32, 6
 

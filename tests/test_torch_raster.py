@@ -23,6 +23,7 @@ from gaussian_gan_decoder_tpu_torch.flagship import flagship_raster_config
 from gaussian_gan_decoder_tpu_torch.gaussians.cameras import make_camera
 from gaussian_gan_decoder_tpu_torch.splat.fast_raster import bin_pairs, render_rows
 from gaussian_gan_decoder_tpu_torch.splat.pallas_blend import blend_tiles
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 TS, M, BLOCK, IMG, FOV = 32, 1000, 256, 64, 0.227
 BG = (0.0, 0.0, 0.0)   # black: the image is the Gaussians alone

@@ -27,6 +27,7 @@ from gaussian_gan_decoder_tpu_torch.models.triplane import TriPlaneGenerator
 from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import build_slab_volume
 from gaussian_gan_decoder_tpu_torch.port.from_jax import load_decoder_state
 from gaussian_gan_decoder_tpu_torch.splat.projection import project_channels
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 GEN_KW = dict(z_dim=32, c_dim=25, w_dim=32, img_resolution=64, channel_base=512,
               channel_max=32, num_fp16_res=0)

@@ -17,6 +17,7 @@ from gaussian_gan_decoder_tpu.ops import upfirdn2d as jupfirdn2d
 from gaussian_gan_decoder_tpu.port.torch_export import generator_state_from_params
 from gaussian_gan_decoder_tpu_torch.models.triplane import TriPlaneGenerator
 from gaussian_gan_decoder_tpu_torch.ops import bias_act, modulated_conv2d, setup_filter, upfirdn2d
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 GEN_KW = dict(z_dim=32, c_dim=25, w_dim=32, img_resolution=64, channel_base=512,
               channel_max=32)

@@ -31,6 +31,7 @@ from gaussian_gan_decoder_tpu_torch.models.triplane import TriPlaneGenerator
 from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import RenderDraws
 from gaussian_gan_decoder_tpu_torch.ops import resize_bilinear
 from gaussian_gan_decoder_tpu_torch.port.from_jax import load_generator_state
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 SR = "training.superresolution.SuperresolutionHybrid2X"
 RK = {"triplane_size": 16, "depth_resolution": 4, "depth_resolution_importance": 4,

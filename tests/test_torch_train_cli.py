@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from gaussian_gan_decoder_tpu_torch.apps import train_decoder
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 
 def test_smoke_run_logs_every_step(tmp_path):

@@ -4,14 +4,29 @@ tri-grid of depth 3, 4 + 4 depth samples, no SR, a 32^2 image, 1024
 surface points from a 16^3 sigma grid, random VGG16), with the JAX draws
 rebuilt from its key splits. The JAX side runs in float32 (x64 off, as its
 CLI runs) with its Pallas kernels in interpret mode; the port on the CPU
-takes the kernels' plain versions.
+takes the kernels' plain versions. One JAX value_and_grad and one port
+step (module-scoped) serve the three cases of the comparison.
 
 Tolerances: the loss and every metric within 1e-4 (relative); the gradient
-of every trainable tensor within 2e-3 of that tensor's largest gradient
-(the f32 chain through synthesis, sampling, the head chain, projection,
-blend and VGG is summed in another order on each side). Then one Adam
-update from identical gradients: parameters within 1e-3 of the learning
-rate plus one f32 spacing of the parameter."""
+of every trainable tensor within 2e-3 of that tensor's own largest
+gradient (the f32 chain through synthesis, sampling, the head chain,
+projection and blend is summed in another order on each side). Then one
+Adam update from identical gradients: parameters within 1e-3 of the
+learning rate plus one f32 spacing of the parameter.
+
+The port's LPIPS term runs in float64 here (its own lpips_loss on a double
+copy of the same VGG; the distance comes back as f32); its float32 form is
+held against JAX's alone in test_torch_losses.test_lpips_matches_jax.
+Evidence (this step, this CPU): the port run wholly in float64 agrees with
+JAX's float32 gradients to <= 5e-5 of every tensor's own max, so the two
+compute the same step. With the port's LPIPS in float32 its xyz and
+rotation head tensors are up to 6.4e-3 of their own max from JAX's: those
+heads' gradients are 2.8e-5 to 2.0e-3 of the largest head gradient,
+near-cancelling sums over the points, and they magnify the 7.6e-6 (of its
+max) f32 gap between the two VGG backward passes on this near-flat 32^2
+render. With the LPIPS term in float64 the worst gaps are 1.3e-4 (heads)
+and 8.4e-5 (generator) of each tensor's own max, so 2e-3 holds with no
+floor; a head tensor scaled by 0.5 reads 0.5 and fails."""
 import copy
 
 import jax
@@ -33,15 +48,17 @@ from gaussian_gan_decoder_tpu.train.distill import make_loss_fn as jmake_loss_fn
 from gaussian_gan_decoder_tpu_torch.decoder.heads import GaussianDecoder
 from gaussian_gan_decoder_tpu_torch.decoder.target_pipeline import (
     TargetDraws, TargetSamplerConfig)
-from gaussian_gan_decoder_tpu_torch.losses import VGG16LPIPS
+from gaussian_gan_decoder_tpu_torch.losses import VGG16LPIPS, lpips_loss
 from gaussian_gan_decoder_tpu_torch.models.triplane import TriPlaneGenerator
 from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import RenderDraws
 from gaussian_gan_decoder_tpu_torch.port.from_jax import (
     load_decoder_state, load_generator_state, load_vgg16_lpips_state)
+from gaussian_gan_decoder_tpu_torch.train import distill
 from gaussian_gan_decoder_tpu_torch.train.distill import (
     DistillConfig, init_train_state, make_loss_fn, make_train_step)
 
 from test_torch_losses import vgg_state
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 RK = {"triplane_size": 16, "depth_resolution": 4, "depth_resolution_importance": 4,
       "c_gen_conditioning_zero": True}
@@ -116,7 +133,13 @@ def _grads_by_name(jgrads):
     return {k: np.asarray(v) for k, v in flatten_params(jgrads).items()}
 
 
-def test_train_step_matches_jax(setup):
+HEADS = ("color_decoder.", "opacity_decoder.", "rotation_decoder.", "scale_decoder.",
+         "xyz_decoder.")
+
+
+@pytest.fixture(scope="module")
+def step(setup):
+    """JAX's loss, metrics and gradients and the port's, for one step."""
     jd, gparams, params, jvgg_params, frozen, dec, vgg = setup
     jtcfg, tcfg, jdcfg, dcfg = _cfgs()
     z = np.random.RandomState(0).randn(1, 32).astype(np.float32)
@@ -125,32 +148,50 @@ def test_train_step_matches_jax(setup):
         jfn = jmake_loss_fn(jd, gparams, JVGG(), jvgg_params, None, None, jdcfg, jtcfg, JRCfg())
         (jloss, (jmetrics, _)), jgrads = jax.value_and_grad(jfn, has_aux=True)(
             params, key, jnp.asarray(z), 0)
-        assert int(jmetrics["General/n_dropped"]) == 0
         draws = _draws(key)
-    fn = make_loss_fn(dec, frozen, vgg, dcfg, tcfg)
-    dec.zero_grad(set_to_none=True)
-    loss, metrics, _ = fn(draws, torch.tensor(z), 0)
-    loss.backward()
-    print(f"loss port {float(loss):.6f} JAX {float(jloss):.6f}")
-    assert abs(float(loss) - float(jloss)) <= 1e-4 * abs(float(jloss))
-    for k, v in jmetrics.items():
-        if k.startswith("Loss/"):
-            assert abs(float(metrics[k]) - float(v)) <= 1e-4 * max(abs(float(v)), 1e-3), k
-    assert int(metrics["General/n_pairs"]) > 0
-    ref = decoder_state_dict(jd, jgrads)
-    worst, n = 0.0, 0
-    for name, p in dec.named_parameters():
-        if name.startswith(("G.decoder.", "G.torgb.")):
-            continue   # not on the decode path: zero gradient on the JAX side too
-        g = np.zeros(p.shape, np.float32) if p.grad is None else p.grad.numpy()
-        r = ref[name]
-        err = np.abs(g - r).max() / max(np.abs(r).max(), 1e-12)
-        if np.abs(r).max() > 0:
-            n += 1
+    dec = copy.deepcopy(dec)
+    vgg64 = copy.deepcopy(vgg).double()
+
+    def lpips64(_, target, image):
+        return lpips_loss(vgg64, target.double(), image.double()).float()
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(distill, "lpips_loss", lpips64)
+        loss, metrics, _ = make_loss_fn(dec, frozen, vgg, dcfg, tcfg)(draws, torch.tensor(z), 0)
+        loss.backward()
+    grads = {name: (np.zeros(p.shape, np.float32) if p.grad is None else p.grad.numpy())
+             for name, p in dec.named_parameters()
+             # G.decoder / G.torgb are not on the decode path: zero on both sides
+             if not name.startswith(("G.decoder.", "G.torgb."))}
+    return (float(jloss), {k: float(v) for k, v in jmetrics.items()},
+            decoder_state_dict(jd, jgrads), float(loss.detach()),
+            {k: float(v) for k, v in metrics.items()}, grads)
+
+
+@pytest.mark.parametrize("part", ["loss", "heads", "generator"])
+def test_train_step_matches_jax(step, part):
+    jloss, jmetrics, ref, loss, metrics, grads = step
+    if part == "loss":
+        print(f"loss port {loss:.6f} JAX {jloss:.6f}")
+        assert int(jmetrics["General/n_dropped"]) == 0
+        assert abs(loss - jloss) <= 1e-4 * abs(jloss)
+        for k, v in jmetrics.items():
+            if k.startswith("Loss/"):
+                assert abs(metrics[k] - v) <= 1e-4 * max(abs(v), 1e-3), k
+        assert int(metrics["General/n_pairs"]) > 0
+        return
+    names = [n for n in grads if n.startswith(HEADS) == (part == "heads")]
+    worst, n_checked = 0.0, 0
+    for name in names:
+        g, r = grads[name], ref[name]
+        own = np.abs(r).max()
+        err = np.abs(g - r).max() / max(own, 1e-12)
+        if own > 0:
+            n_checked += 1
             worst = max(worst, err)
-        assert err <= 2e-3, (name, err, np.abs(r).max())
-    print(f"gradients of {n} tensors: worst {worst:.3e} of the tensor's max")
-    assert n > 40
+        assert err <= 2e-3, (name, err, own)
+    print(f"{part}: gradients of {n_checked} tensors, worst {worst:.3e} of their own max")
+    assert n_checked >= (40 if part == "heads" else 50)
 
 
 def test_adam_update_matches_optax(setup):
@@ -169,8 +210,8 @@ def test_adam_update_matches_optax(setup):
     tx = optax.adam(9e-5, b1=0.9, b2=0.999, eps=1e-8)
     with jax.enable_x64(False):
         jp = {n: jnp.asarray(v) for n, v in params.items()}
-        upd, _ = tx.update({n: jnp.asarray(g) for n, g in grads.items()}, tx.init(jp), jp)
-        new = optax.apply_updates(jp, upd)
+        new = jax.jit(lambda g, p: optax.apply_updates(p, tx.update(g, tx.init(p), p)[0]))(
+            {n: jnp.asarray(g) for n, g in grads.items()}, jp)
     for n, p in dec.named_parameters():
         # the step is ~lr; old + step rounds to the parameter's own f32 grid,
         # so the two may differ by one spacing of that grid
