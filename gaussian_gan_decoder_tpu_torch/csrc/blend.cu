@@ -44,7 +44,7 @@ __global__ void blend_kernel(const int* __restrict__ starts, const float* __rest
     for (int j = 0; j < n; ++j) {
       const float dx = pixx - s[0][j];
       const float dy = pixy - s[1][j];
-      const float power = -0.5f * (s[2][j] * dx * dx + s[4][j] * dy * dy) - s[3][j] * dx * dy;
+      const float power = ggd::falloff_power(s[2][j], s[3][j], s[4][j], dx, dy);
       float alpha = fminf(0.99f, s[5][j] * expf(power));
       if (power > 0.f || alpha < (1.f / 255.f)) alpha = 0.f;
       if (T >= 1e-4f) {

@@ -55,8 +55,7 @@ __device__ __forceinline__ Falloff falloff(Pix px, const float (*s)[kChunk], int
   Falloff f;
   f.dx = px.x - s[0][j];
   f.dy = px.y - s[1][j];
-  const float power =
-      -0.5f * (s[2][j] * f.dx * f.dx + s[4][j] * f.dy * f.dy) - s[3][j] * f.dx * f.dy;
+  const float power = ggd::falloff_power(s[2][j], s[3][j], s[4][j], f.dx, f.dy);
   f.e = expf(power);
   f.raw = s[5][j] * f.e;
   f.alpha = fminf(0.99f, f.raw);

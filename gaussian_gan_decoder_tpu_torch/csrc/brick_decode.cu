@@ -5,7 +5,7 @@
 // gaussian_gan_decoder_tpu/decoder/pallas_heads.py::decode_project_pallas
 // (_heads_project_kernel + _chain_project_body): the staging (features,
 // position conditioning, init position; bf16, pad slots zero) is prebuilt in
-// device memory; each 64-point block loads its rows into the shared staging
+// device memory; each 128-point block loads its rows into the shared staging
 // and runs chain.cuh's chain_project_tail, the tail K2 runs.
 //
 // K9 (fused_decode_kernel) replaces decode_project_pallas_fused
@@ -22,16 +22,19 @@
 // to bf16, f32 accumulation. The cull is the TPU kernels': only `visible`
 // is masked, by column < n_points; there is no valid column.
 //
-// Bound on the H100: the chain's FLOPs (~1e5 per point) on the CUDA cores;
-// K9 also reads ~0.8 KB of brick rows and weights per point, level with its
-// FLOP bound at the bf16 tensor-core rate. Tensor-core MMA is a later step.
+// Bound on the H100: the chain's operations (5.12e5 FLOPs a point, padded)
+// at the bf16 tensor-core rate, where chain_project_tail now runs them (bf16
+// mma.sync, f32 accumulators, 128-point blocks, a ragged last block
+// masked); K9 also reads ~0.8 KB of brick rows and weights per point. Only
+// the front halves (K8's staging load, K9's lerp) are this file's own; they
+// are not redesigned.
 #include "chain.cuh"
 
 namespace {
 
 using ggd::kDecPts;
 using ggd::kDecThreads;
-using ggd::kLds;
+using ggd::kXld;
 
 constexpr int kC = 32;        // channels per plane
 constexpr int kCorners = 8;   // tri-grid corners per brick row
@@ -39,11 +42,11 @@ constexpr int kCorners = 8;   // tri-grid corners per brick row
 __global__ void __launch_bounds__(kDecThreads) brick_decode_kernel(
     const __nv_bfloat16* __restrict__ staging, const ggd::DecodeChain cw,
     float* __restrict__ out, int Mpad, int n_points, float scale_offset) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const ggd::DecodeSmem s = ggd::decode_smem(smem);
   __shared__ int sMeta[32];
   const int m0 = blockIdx.x * kDecPts;
-  ggd::decode_prologue(s, sMeta, cw, staging, m0);
+  ggd::decode_prologue(s, sMeta, cw, staging, m0, min(kDecPts, Mpad - m0));
   ggd::chain_project_tail(s, sMeta, cw, out, Mpad, m0, scale_offset, false, n_points);
 }
 
@@ -53,15 +56,16 @@ __global__ void __launch_bounds__(kDecThreads) fused_decode_kernel(
     const float* __restrict__ wts, const float* __restrict__ scale_rows,
     const ggd::DecodeChain cw, float* __restrict__ out, int Mpad, int n_points,
     float scale_offset) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const ggd::DecodeSmem s = ggd::decode_smem(smem);
   __shared__ int sMeta[32];
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * kDecPts;
-  ggd::decode_prologue(s, sMeta, cw, aux, m0);
+  const int n_rows = min(kDecPts, Mpad - m0);
+  ggd::decode_prologue(s, sMeta, cw, aux, m0, n_rows);
 
-  {
-    const int pt = tid >> 2, part = tid & 3;
+  for (int pt = tid >> 2; pt < n_rows; pt += kDecThreads / 4) {
+    const int part = tid & 3;
     const int m = m0 + pt;
     const int8_t* rows[3] = {rows0, rows1, rows2};
     float acc[8];
@@ -85,7 +89,7 @@ __global__ void __launch_bounds__(kDecThreads) fused_decode_kernel(
       for (int c = 0; c < 8; ++c) acc[c] += accp[c] * scale_rows[p * kC + part * 8 + c];
     }
 #pragma unroll
-    for (int c = 0; c < 8; ++c) s.X[pt * kLds + part * 8 + c] = ggd::bf16r(acc[c]);
+    for (int c = 0; c < 8; ++c) s.X[pt * kXld + part * 8 + c] = __float2bfloat16_rn(acc[c]);
   }
   __syncthreads();
   ggd::chain_project_tail(s, sMeta, cw, out, Mpad, m0, scale_offset, false, n_points);
@@ -98,13 +102,15 @@ extern "C" int ggd_brick_decode(const void* staging, const void* w1, const void*
                                 const void* w4, const void* b4, const void* cam,
                                 const void* meta, void* out, int Mpad, int n_points,
                                 float scale_offset, void* stream) {
-  if (Mpad <= 0 || Mpad % kDecPts != 0 || n_points > Mpad) return (int)cudaErrorInvalidValue;
+  if (Mpad <= 0 || n_points > Mpad) return (int)cudaErrorInvalidValue;
+  for (const void* p : {staging, w1, w2, w3, w4})
+    if (!ggd::aligned16(p)) return (int)cudaErrorMisalignedAddress;
   const size_t smem = ggd::kDecodeSmemBytes;
   cudaError_t e = cudaFuncSetAttribute(brick_decode_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const ggd::DecodeChain cw = ggd::decode_chain(w1, b1, w2, b2, w3, b3, w4, b4, cam, meta);
-  brick_decode_kernel<<<Mpad / kDecPts, kDecThreads, smem, (cudaStream_t)stream>>>(
+  brick_decode_kernel<<<(Mpad + kDecPts - 1) / kDecPts, kDecThreads, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)staging, cw, (float*)out, Mpad, n_points, scale_offset);
   return (int)cudaGetLastError();
 }
@@ -117,13 +123,15 @@ extern "C" int ggd_fused_decode(const void* aux, const void* rows0, const void* 
                                 const void* w3, const void* b3, const void* w4, const void* b4,
                                 const void* cam, const void* meta, void* out, int Mpad,
                                 int n_points, float scale_offset, void* stream) {
-  if (Mpad <= 0 || Mpad % kDecPts != 0 || n_points > Mpad) return (int)cudaErrorInvalidValue;
+  if (Mpad <= 0 || n_points > Mpad) return (int)cudaErrorInvalidValue;
+  for (const void* p : {aux, w1, w2, w3, w4})
+    if (!ggd::aligned16(p)) return (int)cudaErrorMisalignedAddress;
   const size_t smem = ggd::kDecodeSmemBytes;
   cudaError_t e = cudaFuncSetAttribute(fused_decode_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const ggd::DecodeChain cw = ggd::decode_chain(w1, b1, w2, b2, w3, b3, w4, b4, cam, meta);
-  fused_decode_kernel<<<Mpad / kDecPts, kDecThreads, smem, (cudaStream_t)stream>>>(
+  fused_decode_kernel<<<(Mpad + kDecPts - 1) / kDecPts, kDecThreads, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)aux, (const int8_t*)rows0, (const int8_t*)rows1,
       (const int8_t*)rows2, (const float*)wts, (const float*)scale_rows, cw, (float*)out, Mpad,
       n_points, scale_offset);

@@ -1,9 +1,16 @@
 // Device code of the 5-head decoder chain shared by the inference decode
 // kernels K2 (slab_decode.cu), K8 and K9 (brick_decode.cu) — bf16 staging —
 // and the training kernels K6/K7 (heads_train.cu, f32): the GELU variants,
-// the exact GELU's derivative, softplus, the 128-wide hidden layer of a
-// 64-point block, and the decode kernels' shared chain + EWA projection
-// tail (chain_project_tail).
+// softplus, K6's 128-wide f32 hidden layer of a 64-point block (FMAs on the
+// CUDA cores), and the decode kernels' shared chain + EWA projection tail
+// (chain_project_tail), which runs the chain on the tensor cores: bf16
+// mma.sync with f32 accumulators.
+//
+// The tail per point, before and after it moved to the tensor cores: the
+// same 5 x (3 x 128 x 128 + 128 x 16) MACs (5.12e5 FLOPs, the first layer
+// zero-padded to 128 inputs); weights read from L2 7.8 KB a point (a 64-point
+// block converting 500 KB of bf16 to f32 in shared memory) before, 3.9 KB
+// after (a 128-point block, the bf16 tiles copied as they are by cp.async).
 #pragma once
 
 #include "common.cuh"
@@ -59,23 +66,13 @@ __device__ __forceinline__ float gelu(float x, int kind) {
   }
 }
 
-constexpr int kGeluExact = 0;
-
-// d gelu / dx of the exact GELU on the A&S erf (decoder/pallas_heads_vjp.py
-// _GELU_GRADS['exact']), the only GELU the training chain differentiates
-__device__ __forceinline__ float gelu_exact_grad(float x) {
-  const float cdf = 0.5f * (1.f + erf_as(x * 0.70710678118654752f));
-  return cdf + x * 0.3989422804014327f * expf(-0.5f * x * x);
-}
-
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
 }
 
-// out = gelu(in @ W + b) for a 64 x 128 x 128 layer of a 256-thread block,
-// thread tile 4 x 8; rounded to bf16 when kRound (K2's rounding points).
-// in/out rows have stride kLds, sW is 128 x 128 (in, out).
-template <bool kRound>
+// out = gelu(in @ W + b) for a 64 x 128 x 128 f32 layer of a 256-thread
+// block (K6), thread tile 4 x 8. in/out rows have stride kLds, sW is
+// 128 x 128 (in, out).
 __device__ __forceinline__ void hidden_layer(const float* in, float* out, const float* sW,
                                              const float* sBias, int gelu_kind) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -102,20 +99,38 @@ __device__ __forceinline__ void hidden_layer(const float* in, float* out, const 
     for (int j = 0; j < 8; ++j) {
       const int n = tx + 16 * j;
       const float v = gelu(acc[i][j] + sBias[n], gelu_kind);
-      out[(ty * 4 + i) * kLds + n] = kRound ? bf16r(v) : v;
+      out[(ty * 4 + i) * kLds + n] = v;
     }
 }
 
 // ---------------------------------------------------------------------------
-// The decode kernels' tail (K2, K8, K9): the bf16 chain over a 64-point
-// staging block, then the EWA projection, channel-major rows out. The TPU
-// kernels' shared body is decoder/pallas_heads.py::_chain_project_body.
+// The decode kernels' tail (K2, K8, K9): the bf16 chain over a 128-point
+// staging block on the tensor cores, then the EWA projection, channel-major
+// rows out. The TPU kernels' shared body is
+// decoder/pallas_heads.py::_chain_project_body.
+//
+// Warp w of the block's 8 owns points 16 w .. 16 w + 15 for the whole chain.
+// Each 128 x 128 layer is 8 k-steps x 16 n-tiles of mma.sync m16n8k16
+// (bf16 operands, f32 accumulators). The staging (bf16, in shared memory)
+// feeds layer 1 through ldmatrix; each layer's accumulator fragment, after
+// bias, GELU (f32) and the bf16 rounding, IS the next layer's A fragment
+// (the m16n8 C layout of n-tiles 2k, 2k+1 is the m16k16 A layout of k-step
+// k), so hidden activations never leave registers. The weights stream
+// through a two-slot ring in shared memory by cp.async: the next layer's
+// 32 KB arrive while this layer computes. Layer 4 (128 x 16) is two more
+// n-tiles; its transformed outputs go to O16 (f32) and, rounded to bf16,
+// into the staging columns later heads read.
 // ---------------------------------------------------------------------------
 
-constexpr int kDecPts = 64;       // points per block
+constexpr int kDecPts = 128;      // points per block: 8 warps x 16 rows
 constexpr int kDecThreads = 256;  // threads per block
 constexpr int kNRows = 32;        // output rows
 constexpr int kValidCol = 123;    // K2's pad-slot mask column of the staging
+constexpr int kXld = 136;   // bf16 row stride of staging and weight tiles: the 8
+                            // rows of an ldmatrix land on distinct banks
+constexpr int kW4ld = 24;   // bf16 row stride of the 128 x 16 layer-4 tile
+constexpr int kMaxHeads = 5;
+constexpr int kBiasHead = 3 * kStage + kOutW;   // b1 b2 b3 b4 of one head, f32
 
 // row indices of the projection block (pallas_heads.PROJ_ROWS)
 constexpr int kPx = 16, kPy = 17, kCa = 18, kCb = 19, kCc = 20, kOp = 21, kCol = 22,
@@ -141,126 +156,196 @@ inline DecodeChain decode_chain(const void* w1, const void* b1, const void* w2, 
                      (const int*)meta};
 }
 
-// dynamic shared memory of a decode block, in floats
+// host side: cp.async and the 16-byte staging loads need 16-byte aligned rows
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+// dynamic shared memory of a decode block
 struct DecodeSmem {
-  float* X;      // kDecPts x kLds  staging
-  float* A;      // kDecPts x kLds  hidden
-  float* B;      // kDecPts x kLds  hidden
-  float* sW;     // kStage x kStage  current layer
-  float* sBias;  // kStage
-  float* O16;    // kDecPts x kOutW  raw head outputs
-  float* sCam;   // 36
+  __nv_bfloat16* X;    // kDecPts x kXld  staging
+  __nv_bfloat16* W;    // 2 x kStage x kXld  ring of hidden-layer weights
+  __nv_bfloat16* W4;   // kStage x kW4ld  layer 4 of the current head
+  float* bias;         // kMaxHeads x kBiasHead
+  float* O16;          // kDecPts x kOutW  raw head outputs
+  float* sCam;         // 36
 };
 
 constexpr size_t kDecodeSmemBytes =
-    (3 * (size_t)kDecPts * kLds + kStage * kStage + kStage + kDecPts * kOutW + 36) *
-    sizeof(float);
+    ((size_t)kDecPts * kXld + 2 * (size_t)kStage * kXld + (size_t)kStage * kW4ld) * 2 +
+    ((size_t)kMaxHeads * kBiasHead + kDecPts * kOutW + 36) * sizeof(float);
 
-__device__ __forceinline__ DecodeSmem decode_smem(float* smem) {
+__device__ __forceinline__ DecodeSmem decode_smem(unsigned char* smem) {
   DecodeSmem s;
-  s.X = smem;
-  s.A = s.X + kDecPts * kLds;
-  s.B = s.A + kDecPts * kLds;
-  s.sW = s.B + kDecPts * kLds;
-  s.sBias = s.sW + kStage * kStage;
-  s.O16 = s.sBias + kStage;
+  s.X = reinterpret_cast<__nv_bfloat16*>(smem);
+  s.W = s.X + kDecPts * kXld;
+  s.W4 = s.W + 2 * kStage * kXld;
+  s.bias = reinterpret_cast<float*>(s.W4 + kStage * kW4ld);
+  s.O16 = s.bias + kMaxHeads * kBiasHead;
   s.sCam = s.O16 + kDecPts * kOutW;
   return s;
 }
 
-// sW (K x N, f32) <- w (K x N, bf16) ; sBias <- bias (N)
-__device__ __forceinline__ void load_layer_bf16(float* sW, float* sBias, const __nv_bfloat16* w,
-                                                const float* bias, int K, int N) {
-  for (int i = threadIdx.x; i < K * N; i += kDecThreads) sW[i] = bf16f(w[i]);
-  for (int i = threadIdx.x; i < N; i += kDecThreads) sBias[i] = bias[i];
+// stage st = 3 h + l of the weight stream (w1, w2, w3 of head h) -> ring
+// slot st & 1, as 16-byte cp.async chunks
+__device__ __forceinline__ void fetch_hidden(const DecodeSmem& s, const DecodeChain& cw, int st) {
+  const int h = st / 3, l = st % 3;
+  const __nv_bfloat16* src =
+      (l == 0 ? cw.w1 : (l == 1 ? cw.w2 : cw.w3)) + (size_t)h * kStage * kStage;
+  __nv_bfloat16* dst = s.W + (st & 1) * kStage * kXld;
+  for (int i = threadIdx.x; i < kStage * kStage / 8; i += kDecThreads) {
+    const int r = i >> 4, c = (i & 15) * 8;
+    cp_async16(dst + r * kXld + c, src + r * kStage + c);
+  }
 }
 
-// block prologue: chain description and camera to shared memory, O16 zero,
-// X <- the block's rows of the bf16 staging (Mpad x kStage). Ends with a
-// barrier.
+__device__ __forceinline__ void fetch_w4(const DecodeSmem& s, const DecodeChain& cw, int h) {
+  const __nv_bfloat16* src = cw.w4 + (size_t)h * kStage * kOutW;
+  for (int i = threadIdx.x; i < kStage * kOutW / 8; i += kDecThreads) {
+    const int r = i >> 1, c = (i & 1) * 8;
+    cp_async16(s.W4 + r * kW4ld + c, src + r * kOutW + c);
+  }
+}
+
+// block prologue: the first layer's and layer 4's weights in flight, chain
+// description, biases and camera to shared memory, O16 zero, X <- the
+// block's n_rows rows of the bf16 staging (Mpad x kStage; the rest zero).
+// Ends with a barrier.
 __device__ __forceinline__ void decode_prologue(const DecodeSmem& s, int* sMeta,
                                                 const DecodeChain& cw,
                                                 const __nv_bfloat16* __restrict__ staging,
-                                                int m0) {
+                                                int m0, int n_rows) {
   const int tid = threadIdx.x;
+  fetch_hidden(s, cw, 0);
+  fetch_w4(s, cw, 0);
+  cp_async_commit();
   if (tid < 32) sMeta[tid] = cw.meta[tid];
   if (tid < 36) s.sCam[tid] = cw.cam[tid];
+  const int n_heads = cw.meta[0];
+  for (int i = tid; i < n_heads * kBiasHead; i += kDecThreads) {
+    const int h = i / kBiasHead, j = i % kBiasHead, l = j / kStage, c = j % kStage;
+    const float* b = l == 0 ? cw.b1 : (l == 1 ? cw.b2 : (l == 2 ? cw.b3 : cw.b4));
+    s.bias[i] = l < 3 ? b[h * kStage + c] : b[h * kOutW + c];
+  }
   for (int i = tid; i < kDecPts * kOutW; i += kDecThreads) s.O16[i] = 0.f;
-  for (int i = tid; i < kDecPts * kStage; i += kDecThreads) {
-    const int r = i / kStage, c = i % kStage;
-    s.X[r * kLds + c] = bf16f(staging[(size_t)(m0 + r) * kStage + c]);
+  for (int i = tid; i < kDecPts * kStage / 8; i += kDecThreads) {
+    const int r = i >> 4, c = (i & 15) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < n_rows) v = *reinterpret_cast<const uint4*>(staging + (size_t)(m0 + r) * kStage + c);
+    *reinterpret_cast<uint4*>(s.X + r * kXld + c) = v;
   }
   __syncthreads();
 }
 
+// bias + GELU (f32) + bf16 rounding of a 16 x 128 accumulator, packed as
+// the next layer's A fragments: n-tile j holds columns 8 j + 2 q + {0, 1}
+// of rows g and g + 8, which are k-step j / 2's registers 2 (j & 1) and
+// 2 (j & 1) + 1
+template <int kGelu>
+__device__ __forceinline__ void gelu_to_frag(const float (&acc)[16][4], const float* bl, int q,
+                                             uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = 8 * j + 2 * q;
+    const float b0 = bl[n], b1 = bl[n + 1];
+    a[j >> 1][(j & 1) * 2] = pack_bf16x2(gelu(acc[j][0] + b0, kGelu), gelu(acc[j][1] + b1, kGelu));
+    a[j >> 1][(j & 1) * 2 + 1] =
+        pack_bf16x2(gelu(acc[j][2] + b0, kGelu), gelu(acc[j][3] + b1, kGelu));
+  }
+}
+
 // The chain over X (features already in columns 0:32) and the projection,
-// written to out[(row) * Mpad + m0 + point]. Cull: with valid_col (K2)
-// visible, opac and radius_f are multiplied by the staging's valid column;
-// without it (K8, K9) only visible is masked, by column < n_points, as the
-// TPU kernel's decode_project_pallas does.
+// written to out[(row) * Mpad + m0 + point] for the points below Mpad.
+// Cull: with valid_col (K2) visible, opac and radius_f are multiplied by
+// the staging's valid column; without it (K8, K9) only visible is masked,
+// by column < n_points, as the TPU kernel's decode_project_pallas does.
 __device__ __forceinline__ void chain_project_tail(const DecodeSmem& s, const int* sMeta,
                                                    const DecodeChain& cw,
                                                    float* __restrict__ out, int Mpad, int m0,
                                                    float scale_offset, bool valid_col,
                                                    int n_points) {
-  const int tid = threadIdx.x;
-  float* X = s.X;
-  float* A = s.A;
-  float* B = s.B;
-  float* sW = s.sW;
-  float* sBias = s.sBias;
-  float* O16 = s.O16;
-  const int n_heads = sMeta[0];
-  const int gk = sMeta[26];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int lm = lane >> 3, lr = lane & 7;   // ldmatrix: this lane's matrix and row
+  const int r0 = warp * 16;
+  const int n_heads = sMeta[0], gk = sMeta[26], n_stages = 3 * n_heads;
+  uint32_t a[8][4];
   for (int h = 0; h < n_heads; ++h) {
-    load_layer_bf16(sW, sBias, cw.w1 + (size_t)h * kStage * kStage, cw.b1 + h * kStage, kStage,
-                    kStage);
-    __syncthreads();
-    hidden_layer<true>(X, A, sW, sBias, gk);
-    __syncthreads();
-    load_layer_bf16(sW, sBias, cw.w2 + (size_t)h * kStage * kStage, cw.b2 + h * kStage, kStage,
-                    kStage);
-    __syncthreads();
-    hidden_layer<true>(A, B, sW, sBias, gk);
-    __syncthreads();
-    load_layer_bf16(sW, sBias, cw.w3 + (size_t)h * kStage * kStage, cw.b3 + h * kStage, kStage,
-                    kStage);
-    __syncthreads();
-    hidden_layer<true>(B, A, sW, sBias, gk);
-    __syncthreads();
-    load_layer_bf16(sW, sBias, cw.w4 + (size_t)h * kStage * kOutW, cw.b4 + h * kOutW, kStage,
-                    kOutW);
-    __syncthreads();
-    {
-      const int r = tid >> 2, cb = tid & 3;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-      for (int k = 0; k < kStage; ++k) {
-        const float a = A[r * kLds + k];
+    const float* bh = s.bias + h * kBiasHead;
+    for (int l = 0; l < 3; ++l) {
+      const int st = 3 * h + l;
+      // this stage's weights are in; every warp is past stage st - 1, so
+      // its slot and (at l = 0) the layer-4 tile may be refilled
+      cp_async_wait_all();
+      __syncthreads();
+      if (st + 1 < n_stages) fetch_hidden(s, cw, st + 1);
+      if (l == 0 && h > 0) fetch_w4(s, cw, h);
+      cp_async_commit();
+      if (l == 0) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[j] += a * sW[k * kOutW + cb + 4 * j];
+        for (int kk = 0; kk < 8; ++kk)
+          ldmatrix_x4(a[kk], s.X + (r0 + (lm & 1) * 8 + lr) * kXld + kk * 16 + (lm >> 1) * 8);
       }
-      const int out_dim = sMeta[1 + h], stage_col = sMeta[6 + h];
-      const int out_col = sMeta[11 + h], kind = sMeta[16 + h];
+      const __nv_bfloat16* Ws = s.W + (st & 1) * kStage * kXld;
+      float acc[16][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = cb + 4 * j;
-        if (col < out_dim) {
-          float o = acc[j] + sBias[col];
-          if (kind == 1) o = -softplus(o + 5.f) + scale_offset;
-          else if (kind == 2) o = o * 0.01f + (col < 3 ? X[r * kLds + kInitCol + col] : 0.f);
-          O16[r * kOutW + out_col + col] = o;
-          X[r * kLds + stage_col + col] = bf16r(o);
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+        for (int jp = 0; jp < 8; ++jp) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, Ws + (kk * 16 + (lm & 1) * 8 + lr) * kXld + jp * 16 + (lm >> 1) * 8);
+          mma_bf16(acc[2 * jp], a[kk], b[0], b[1]);
+          mma_bf16(acc[2 * jp + 1], a[kk], b[2], b[3]);
         }
       }
+      const float* bl = bh + l * kStage;
+      switch (gk) {
+        case 0: gelu_to_frag<0>(acc, bl, q, a); break;
+        case 1: gelu_to_frag<1>(acc, bl, q, a); break;
+        case 2: gelu_to_frag<2>(acc, bl, q, a); break;
+        case 3: gelu_to_frag<3>(acc, bl, q, a); break;
+        default: gelu_to_frag<4>(acc, bl, q, a); break;
+      }
     }
-    __syncthreads();
+    // layer 4: the tile arrived with stage 3 h + 1's wait
+    float o4[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o4[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, s.W4 + (kk * 16 + (lm & 1) * 8 + lr) * kW4ld + (lm >> 1) * 8);
+      mma_bf16(o4[0], a[kk], b[0], b[1]);
+      mma_bf16(o4[1], a[kk], b[2], b[3]);
+    }
+    const int out_dim = sMeta[1 + h], stage_col = sMeta[6 + h];
+    const int out_col = sMeta[11 + h], kind = sMeta[16 + h];
+    const float* b4 = bh + 3 * kStage;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * q + (e & 1), r = r0 + g + 8 * (e >> 1);
+        if (col < out_dim) {
+          float o = o4[j][e] + b4[col];
+          if (kind == 1) o = -softplus(o + 5.f) + scale_offset;
+          else if (kind == 2) o = o * 0.01f + (col < 3 ? bf16f(s.X[r * kXld + kInitCol + col]) : 0.f);
+          s.O16[r * kOutW + out_col + col] = o;
+          s.X[r * kXld + stage_col + col] = __float2bfloat16_rn(o);
+        }
+      }
+    __syncwarp();
   }
+  __syncthreads();
 
   // projection, one thread per point
-  if (tid < kDecPts) {
+  if (tid < kDecPts && m0 + tid < Mpad) {
     const int m = m0 + tid;
-    const float* o = O16 + tid * kOutW;
+    const float* o = s.O16 + tid * kOutW;
     float* dst = out + m;
 #pragma unroll
     for (int r = 0; r < kOutW; ++r) dst[(size_t)r * Mpad] = o[r];
@@ -335,7 +420,7 @@ __device__ __forceinline__ void chain_project_tail(const DecodeSmem& s, const in
     const bool vis0 = in_front && det_ok;
     const float radius = vis0 ? ceilf(3.f * sqrtf(lam)) : 0.f;
     const bool visible = vis0 && radius > 0.f;
-    const float valid = valid_col ? X[tid * kLds + kValidCol] : 1.f;
+    const float valid = valid_col ? bf16f(s.X[tid * kXld + kValidCol]) : 1.f;
     const float vis_mask = valid_col ? valid : (m < n_points ? 1.f : 0.f);
 
     dst[(size_t)kPx * Mpad] = px;

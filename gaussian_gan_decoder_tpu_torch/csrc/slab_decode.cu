@@ -8,33 +8,36 @@
 // matrix-unit contractions). Each point reads its 8 corners per plane
 // straight from the channels-last int8 volume (32 contiguous bytes each).
 //
-// Per block of 64 points, 256 threads:
-//   1. staging X (64 x 128) <- the static aux staging (bf16: cond, init,
-//      valid at column 123);
+// Per block of 128 points, 256 threads (a ragged last block is masked):
+//   1. staging X (128 x 128, bf16) <- the static aux staging (cond, init,
+//      valid at column 123), while the first layer's weights arrive;
 //   2. features: 4 threads per point, 8 channels each; per plane the
 //      corner weights come from the slot position and the host's padded
 //      indices + validity bits (align_corners=False, zeros padding), then
 //      dequant (scale / 3) and the plane mean; pad slots get 0; X[:, 0:32]
 //      <- bf16(mean);
-//   3. the chain: per head 3 x (128x128 linear + GELU, bf16-rounded) and a
-//      128x16 linear, then the scale / xyz transforms; outputs go to the
-//      raw block O16 (f32) and, bf16-rounded, back into the staging prefix;
+//   3. the chain on the tensor cores: per head 3 x (128x128 linear + GELU,
+//      bf16-rounded) and a 128x16 linear as bf16 mma.sync with f32
+//      accumulators, each warp's 16 points kept in registers from layer to
+//      layer, then the scale / xyz transforms; outputs go to the raw block
+//      O16 (f32) and, bf16-rounded, back into the staging prefix;
 //   4. the projection and colour/opacity activations per point, culled by
 //      the valid column, written to rows 0..31.
 // Steps 3 and 4 are chain.cuh's chain_project_tail, shared with K8 and K9.
-// Weights and activations sit in shared memory as f32 holding bf16 values;
-// products accumulate in f32 (register-tiled 4 x 8 per thread).
 //
-// Bound on the H100: the chain's ~1e5 FMA-heavy FLOPs per point on the CUDA
-// cores (tensor-core MMA on the bf16 operands is the next step).
+// Bound on the H100: the chain's operations, 5.12e5 FLOPs a point at the
+// bf16 tensor-core rate (0.30 ms for 572,416 slots); HBM moves ~0.7 KB a
+// point (staging, corners, rows). Per point the weights read from L2 fell
+// from 7.8 KB (64-point blocks, f32 FMAs from shared memory, 21 ms a frame)
+// to 3.9 KB (128-point blocks, bf16 MMA).
 #include "chain.cuh"
 
 namespace {
 
 using ggd::kDecPts;
 using ggd::kDecThreads;
-using ggd::kLds;
 using ggd::kValidCol;
+using ggd::kXld;
 
 constexpr int kC = 32;
 
@@ -45,19 +48,19 @@ __global__ void __launch_bounds__(kDecThreads) slab_decode_kernel(
     const float* __restrict__ inv_axes, float* __restrict__ out,
     int Mpad, int D, int H, int W, int DZ, int YP, int XP, float box_warp,
     float scale_offset) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const ggd::DecodeSmem s = ggd::decode_smem(smem);
-  float* X = s.X;
   __shared__ int sMeta[32];
 
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * kDecPts;
-  // 1. static staging
-  ggd::decode_prologue(s, sMeta, cw, aux, m0);
+  const int n_rows = min(kDecPts, Mpad - m0);
+  // 1. static staging (the first weights already in flight)
+  ggd::decode_prologue(s, sMeta, cw, aux, m0, n_rows);
 
   // 2. trilinear features, 4 threads per point x 8 channels
-  {
-    const int pt = tid >> 2, part = tid & 3;
+  for (int pt = tid >> 2; pt < n_rows; pt += kDecThreads / 4) {
+    const int part = tid & 3;
     const int m = m0 + pt;
     const float bw = 2.f / box_warp;
     const float g0 = bw * positions[m * 3 + 0];
@@ -87,9 +90,9 @@ __global__ void __launch_bounds__(kDecThreads) slab_decode_kernel(
       const int ix = min(max(ip[0], 0), XP - 2);
       const int iy = min(max(ip[1], 0), YP - 2);
       const int iz = min(max(ip[2], 0), DZ - 2);
-      float s[8];
+      float sum[8];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) s[c] = 0.f;
+      for (int c = 0; c < 8; ++c) sum[c] = 0.f;
 #pragma unroll
       for (int dz = 0; dz < 2; ++dz) {
 #pragma unroll
@@ -102,16 +105,17 @@ __global__ void __launch_bounds__(kDecThreads) slab_decode_kernel(
             const int2 q2 = *reinterpret_cast<const int2*>(row + (ix + dx) * kC + part * 8);
             const int8_t* q = reinterpret_cast<const int8_t*>(&q2);
 #pragma unroll
-            for (int c = 0; c < 8; ++c) s[c] += w * (float)q[c];
+            for (int c = 0; c < 8; ++c) sum[c] += w * (float)q[c];
           }
         }
       }
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[c] += s[c] * (scales[p * kC + part * 8 + c] / 3.f);
+      for (int c = 0; c < 8; ++c) acc[c] += sum[c] * (scales[p * kC + part * 8 + c] / 3.f);
     }
-    const bool valid = X[pt * kLds + kValidCol] > 0.f;
+    const bool valid = ggd::bf16f(s.X[pt * kXld + kValidCol]) > 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) X[pt * kLds + part * 8 + c] = valid ? ggd::bf16r(acc[c]) : 0.f;
+    for (int c = 0; c < 8; ++c)
+      s.X[pt * kXld + part * 8 + c] = __float2bfloat16_rn(valid ? acc[c] : 0.f);
   }
   __syncthreads();
 
@@ -128,13 +132,15 @@ extern "C" int ggd_slab_decode(const void* vol, const void* scales, const void* 
                                const void* cam, const void* meta, void* out, int Mpad, int D,
                                int H, int W, int DZ, int YP, int XP, float box_warp,
                                float scale_offset, void* stream) {
-  if (Mpad <= 0 || Mpad % kDecPts != 0) return (int)cudaErrorInvalidValue;
+  if (Mpad <= 0) return (int)cudaErrorInvalidValue;
+  for (const void* p : {aux, w1, w2, w3, w4})
+    if (!ggd::aligned16(p)) return (int)cudaErrorMisalignedAddress;
   const size_t smem = ggd::kDecodeSmemBytes;
   cudaError_t e = cudaFuncSetAttribute(slab_decode_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const ggd::DecodeChain cw = ggd::decode_chain(w1, b1, w2, b2, w3, b3, w4, b4, cam, meta);
-  slab_decode_kernel<<<Mpad / kDecPts, kDecThreads, smem, (cudaStream_t)stream>>>(
+  slab_decode_kernel<<<(Mpad + kDecPts - 1) / kDecPts, kDecThreads, smem, (cudaStream_t)stream>>>(
       (const int8_t*)vol, (const float*)scales, (const float*)positions,
       (const int16_t*)idx16, (const __nv_bfloat16*)aux, cw, (const float*)inv_axes,
       (float*)out, Mpad, D, H, W, DZ, YP, XP, box_warp, scale_offset);

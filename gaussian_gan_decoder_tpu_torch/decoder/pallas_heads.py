@@ -13,12 +13,12 @@ contiguous bytes per corner) at the compact padded indices of the host pack,
 with the corner weights recomputed in f32 from the slot position.
 
 What bounds it on the H100: the chain — 5 heads x 4 linears of width 128,
-~1e5 FLOPs per point, ~3e11 FLOPs per flagship frame; the gather reads
-only ~0.8 KB per point. Its design (first, simple form): one block of 256
-threads per 64 points, the staging, hidden activations and the current
-layer's weights in shared memory (f32 values that hold bf16 numbers),
-register-tiled FMAs on the CUDA cores, the projection tail fused. Tensor
-cores (mma/wgmma on the bf16 operands) are the next step.
+5.12e5 FLOPs per point (padded), ~3e11 FLOPs per flagship frame; the
+gather reads only ~0.8 KB per point. Its design: one block of 256 threads
+per 128 points (a ragged last block masked), the chain on the tensor cores
+(bf16 mma.sync, f32 accumulators, each warp's 16 points carried in
+registers from layer to layer), the bf16 weights streamed through a
+two-slot shared-memory ring by cp.async, the projection tail fused.
 
 Numerics, shared by the kernel and decode_project_slab_plain, follow the
 TPU kernel's bf16 rounding points: the staging is bf16 — the plane-mean
@@ -57,7 +57,7 @@ PROJ_ROWS = {
     "depth": 25, "radius_f": 26, "visible": 27,
 }
 NROWS = 32
-POINTS_PER_BLOCK = 64   # K2 block
+POINTS_PER_BLOCK = 128  # K2/K8/K9 block: 8 warps x 16 points; a ragged last block is masked
 PLAIN_CHUNK = 131072    # slots per step of the plain version's gather
 
 
@@ -315,7 +315,7 @@ def decode_project_slab_plain(cw: ChainWeights, vol, scales, ctx, cam):
 # Kernel K8, brick_decode_kernel, replaces the TPU kernel
 # decoder/pallas_heads.py::decode_project_pallas: K2's chain-and-projection
 # tail (csrc/chain.cuh::chain_project_tail) over a prebuilt bf16 staging,
-# each 64-point block loading its rows. Kernel K9, fused_decode_kernel,
+# each 128-point block loading its rows. Kernel K9, fused_decode_kernel,
 # replaces decode_project_pallas_fused: it builds the staging's feature
 # columns from the raw int8 brick rows (dequant, corner lerp and plane mean
 # in f32, rounded to bf16), then runs the same tail. The TPU kernel's default
@@ -359,8 +359,8 @@ def _chain_ptrs(cw: ChainWeights, cam_c):
 
 
 def _check_brick_args(Mpad: int, n_points: int):
-    if Mpad % POINTS_PER_BLOCK:
-        raise ValueError(f"Mpad {Mpad} is not a multiple of {POINTS_PER_BLOCK}")
+    if Mpad <= 0:
+        raise ValueError(f"Mpad {Mpad}: nothing to decode")
     if not 0 <= n_points <= Mpad:
         raise ValueError(f"n_points {n_points} outside [0, Mpad={Mpad}]")
 
@@ -485,8 +485,8 @@ def decode_project_slab(cw: ChainWeights, vol: torch.Tensor, scales: torch.Tenso
     Mpad = ctx.aux.shape[0]
     if n_planes != 3 or XPC % C or D < 2:
         raise ValueError(f"vol {tuple(vol.shape)}: the kernel takes 3 tri-grid planes of {C} channels")
-    if Mpad % POINTS_PER_BLOCK:
-        raise ValueError(f"Mpad {Mpad} is not a multiple of {POINTS_PER_BLOCK}")
+    if Mpad <= 0:
+        raise ValueError(f"Mpad {Mpad}: nothing to decode")
     chk = kernel_lib.check
     chk(vol, "vol", torch.int8)
     chk(scales, "scales", torch.float32, (3, C))
@@ -513,13 +513,12 @@ decode_project_slab.launches = 0
 # ---------------------------------------------------------------------------
 # Kernel K6, csrc/heads_train.cu::heads_fwd_kernel, replaces the TPU kernel
 # decoder/pallas_heads.py::decode_heads_pallas (_heads_kernel) in f32. What
-# bounds it on the H100: operations, ~5.1e5 FLOPs per point on the CUDA
-# cores. Its design: K2's chain code (csrc/chain.cuh) without the slab
-# gather, the projection and the bf16 rounding: one block per 64 points,
+# bounds it on the H100: operations, ~5.1e5 FLOPs per point, as f32 FMAs on
+# the CUDA cores (csrc/chain.cuh::hidden_layer): one block per 64 points,
 # the staging and hidden activations and the current layer's f32 weights
 # in shared memory.
 
-FWD_POINTS_PER_BLOCK = 64   # K6 block; K7 walks 32-point tiles
+FWD_POINTS_PER_BLOCK = 64   # K6 block; K7 walks BWD_TILE-point tiles
 
 
 def build_staging_f32(feats_mean, cond0, init_position):

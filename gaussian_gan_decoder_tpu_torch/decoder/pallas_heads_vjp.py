@@ -4,15 +4,17 @@ decoder/pallas_heads_vjp.py.
 Kernel K7, csrc/heads_train.cu::heads_bwd_kernel (+ heads_grad_reduce),
 replaces the TPU kernel decoder/pallas_heads_vjp.py::_run_bwd
 (_heads_bwd_kernel). What bounds it on the H100: operations, about three
-times K6's ~5.1e5 FLOPs per point (the recompute, the data gradient and
-the weight gradient of every layer) on the CUDA cores. Its design: the TPU
-kernel keeps 5 residual sets per head (25 x block x 128 f32), which no
-Hopper block holds. K7 reads K6's packed outputs instead: the staging
-before head h is the input staging plus the outputs of heads < h, so each
-head's hidden layers are recomputed during its reverse step. A block walks
-32-point tiles; weight and bias gradients go to the block's own partial
-slice and a second kernel sums the slices in a fixed order, so the result
-is the same run to run.
+times K6's 5.12e5 FLOPs per point (the recompute, the data gradient and
+the weight gradient of every layer), which it runs on the tensor cores in
+3xTF32 (f32 operands split into TF32 high and low parts, about f32
+accuracy). Its design: the TPU kernel keeps 5 residual sets per head
+(25 x block x 128 f32), which no Hopper block holds. K7 reads K6's packed
+outputs instead: the staging before head h is the input staging plus the
+outputs of heads < h, so each head's hidden layers are recomputed during
+its reverse step. BWD_BLOCKS blocks walk 64-point tiles, heads outer (a
+ragged last tile is masked); weight and bias gradients go to the block's
+own partial slice and a second kernel sums the slices in a fixed order, so
+the result is the same run to run.
 
 decode_heads_pallas_diff is a torch.autograd.Function: forward K6 (or its
 plain version on the CPU), backward K7 (or decode_heads_bwd_plain).
@@ -28,8 +30,8 @@ from .pallas_heads import (
     FWD_POINTS_PER_BLOCK, GELUS, INIT_COL, OUT_W, STAGE, ChainWeights, _erf,
     build_staging_f32, check_chain_f32, decode_heads, pack_chain_f32)
 
-BWD_TILE = 32          # K7 points per tile
-BWD_BLOCKS = 256       # K7 blocks = weight-gradient partial slices (fixed: deterministic)
+BWD_TILE = 64          # K7 points per tile; a ragged last tile is masked in the kernel
+BWD_BLOCKS = 132       # K7 blocks = weight-gradient partial slices (fixed: deterministic)
 _HEAD_GRAD = 3 * (STAGE * STAGE + STAGE) + STAGE * OUT_W + OUT_W   # floats per head
 
 
@@ -107,15 +109,15 @@ def decode_heads_bwd(staging: torch.Tensor, out16: torch.Tensor, dout: torch.Ten
     lib = kernel_lib.library()
     _check_exact(cw)
     Mpad = staging.shape[0]
-    if Mpad % BWD_TILE:
-        raise ValueError(f"Mpad {Mpad} is not a multiple of {BWD_TILE}")
+    if Mpad <= 0:
+        raise ValueError(f"Mpad {Mpad}: no points")
     chk = kernel_lib.check
     chk(staging, "staging", torch.float32, (Mpad, STAGE))
     chk(out16, "out16", torch.float32, (Mpad, OUT_W))
     chk(dout, "dout", torch.float32, (Mpad, OUT_W))
     check_chain_f32(cw)
     dev = staging.device
-    n_part = min(BWD_BLOCKS, Mpad // BWD_TILE)
+    n_part = min(BWD_BLOCKS, -(-Mpad // BWD_TILE))
     dstage = torch.empty_like(staging)
     partials = torch.zeros((n_part, 5 * _HEAD_GRAD), dtype=torch.float32, device=dev)
     flat = torch.empty((5, _HEAD_GRAD), dtype=torch.float32, device=dev)

@@ -49,14 +49,14 @@ def test_mapping_kernel(cuda, batch, c_dim):
     assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-3
 
 
-def _small_frame(cuda):
+def _small_frame(cuda, block=256):
     g = torch.Generator().manual_seed(0)
     gen = TriPlaneGenerator(z_dim=32, c_dim=25, w_dim=32, img_resolution=64,
                             channel_base=512, channel_max=32,
                             rendering_kwargs={"triplane_size": 32}, generator=g)
     dec = GaussianDecoder(gen, rng=g).to(cuda)
     pos = ((np.random.RandomState(1).rand(3000, 3) - 0.5) * 0.4).astype(np.float32)
-    ctx = dec.make_slab_context(pos, block=256, device=cuda)
+    ctx = dec.make_slab_context(pos, block=block, device=cuda)
     cam = make_camera(64, 0.227, flagship.default_camera_params()[1], device=cuda)
     planes = torch.randn(1, 3, 96, 32, 32, generator=g).to(cuda)
     vol, scales = build_slab_volume(planes, 3)
@@ -85,8 +85,14 @@ def _hold_decode_rows(rows, ref, real, chain, cam):
     assert not bool((rows[vis, ~real] > 0.5).any())
 
 
-def test_slab_decode_kernel(cuda):
-    w, ctx, cam, vol, scales = _small_frame(cuda)
+@pytest.mark.parametrize("block", [256, 64])
+def test_slab_decode_kernel(cuda, block):
+    """K2 against its plain version. With 64-slot slab blocks this template
+    packs to Mpad 3008, so the kernel's last 128-point block is half past
+    Mpad and its slab block holds 8 pad slots."""
+    w, ctx, cam, vol, scales = _small_frame(cuda, block)
+    if block == 64:
+        assert ctx.aux.shape[0] % pallas_heads.POINTS_PER_BLOCK == 64
     rows = pallas_heads.decode_project_slab(w.chain, vol, scales, ctx, cam)
     ref = pallas_heads.decode_project_slab_plain(w.chain, vol, scales, ctx, cam)
     torch.cuda.synchronize()
@@ -206,10 +212,14 @@ def test_blend_train_kernels(cuda, max_k):
     assert bool(torch.isfinite(d_k).all())
 
 
-def test_heads_train_kernels(cuda):
+@pytest.mark.parametrize("M", [16384 + 64, 8192 + 32])
+def test_heads_train_kernels(cuda, M):
     """K6 and K7 against decode_heads_plain / decode_heads_bwd_plain on the
     exact-GELU sequential_reversed chain: outputs within 1e-5 and gradients
-    within 1e-4 of their max (f32, summation order only)."""
+    within 1e-4 of their max (f32 on the CUDA cores, 3xTF32 on the tensor
+    cores: summation order only). 16448 points give K7 more 64-point tiles
+    than blocks; 8224 end in a half tile, masked inside K7. Two launches of
+    K7 give bit-identical results (fixed-order partial sums, no atomics)."""
     from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads_vjp
     from gaussian_gan_decoder_tpu_torch.decoder.heads import CHAIN, DecoderHead
 
@@ -218,19 +228,23 @@ def test_heads_train_kernels(cuda):
     for name, od in CHAIN:
         heads[name] = DecoderHead(32 + cond, od, generator=g).to(cuda)
         cond += od
-    M = 16384 + 64   # K7: more 32-point tiles than blocks
     feats = (torch.randn(M, 32, generator=g) * 2).to(cuda)
     pos = (torch.rand(M, 3, generator=g) - 0.5).to(cuda)
     with torch.no_grad():
         cw = pallas_heads.pack_chain_f32(heads, CHAIN, 3, -2.5, "exact")
         st = pallas_heads.build_staging_f32(feats, pos, pos)
-        out = pallas_heads.decode_heads(st, cw)
+        pad = -M % pallas_heads.FWD_POINTS_PER_BLOCK
+        out = pallas_heads.decode_heads(torch.nn.functional.pad(st, (0, 0, 0, pad)), cw)
+        out = out[:M].contiguous()
         ref = pallas_heads.decode_heads_plain(st, cw)
         dout = torch.randn(M, 16, generator=g).to(cuda)
         dst, grads = pallas_heads_vjp.decode_heads_bwd(st, out, dout, cw)
+        dst2, grads2 = pallas_heads_vjp.decode_heads_bwd(st, out, dout, cw)
         dst_p, grads_p = pallas_heads_vjp.decode_heads_bwd_plain(st, ref, dout, cw)
     torch.cuda.synchronize()
     assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-5
     assert float((dst - dst_p).abs().max() / dst_p.abs().max()) <= 1e-4
     for a, b in zip(grads, grads_p):
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+    assert torch.equal(dst, dst2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
