@@ -6,8 +6,11 @@
 Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
 (nvcc, sm_90a, into gaussian_gan_decoder_tpu_torch/_build/), then:
 
-  1. checks each kernel against its plain PyTorch version on the card, at
-     the flagship frame's own shapes, and times both; the training blend
+  1. requires TF32 HMMA in K6's SASS (cuobjdump -sass of the built
+     library; every kernel's HMMA counts are printed), then checks each
+     kernel against its plain PyTorch version on the card, at the flagship
+     frame's own shapes, and times both; K1 at batch 1 and at the stream's
+     batch 4, its time read from the profiler; the training blend
      kernels (K4, K5) are held on the frame's pairs too, and on those pairs
      widened and made more opaque until pixels saturate;
   2. drives the port's main path — flagship.decode_and_render on the slab
@@ -137,6 +140,45 @@ def cuda_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profiled_ms(torch, fn, iters, kernel):
+    """Mean device ms per call of fn of the kernels whose name holds
+    `kernel`, over iters calls under torch.profiler (after one warm-up):
+    the kernel's own time, where events around the calls of a kernel of
+    tens of microseconds read the host's launch path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and kernel in e.key]
+    n = sum(e.count for e in ev)
+    require(n == iters, f"the profiler saw {n} launches of {kernel} in {iters} calls")
+    return sum(e.self_device_time_total for e in ev) / 1e3 / iters
+
+
+def sass_hmma(so):
+    """HMMA instructions of each kernel of the built library, from
+    cuobjdump -sass -> {kernel: {mnemonic: count}}."""
+    import re
+    from gaussian_gan_decoder_tpu_torch import kernel_lib
+    tool = os.path.join(os.path.dirname(kernel_lib._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn is not None and "HMMA" in line:
+            op = re.search(r"HMMA\.[\w.]+", line).group(0)
+            counts.setdefault(fn, {}).setdefault(op, 0)
+            counts[fn][op] += 1
+    return counts
 
 
 def paired_ms(torch, kernel_fn, plain_fn, iters):
@@ -455,7 +497,7 @@ def train_kernels(torch, captured, results):
         weights = (cw.w1, cw.b1, cw.w2, cw.b2, cw.w3, cw.b3, cw.w4, cw.b4, cw.meta)
         fwd_flops = st.shape[0] * chain_flops(cw)
         # the least time for these FLOPs at f32 accuracy: 3xTF32 on the
-        # tensor cores (K6 itself still runs f32 FMAs on the CUDA cores)
+        # tensor cores
         results["heads_fwd"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound=bound(nbytes(st, o_k, *weights), fwd_flops, "tf32x3"))
@@ -835,6 +877,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernel_lib.library()
     print(f"build: kernels ready in {time.perf_counter() - t0:.1f} s")
+    # the tensor-core kernels, by their SASS: K6's 128 x 128 products must be
+    # TF32 HMMA (mma.sync), not FMAs
+    hmma = sass_hmma(kernel_lib.build())
+    for fn, ops in sorted(hmma.items()):
+        print(f"SASS {fn[:90]}: " + ", ".join(f"{op} x {n}" for op, n in sorted(ops.items())))
+    k6_sass = [ops for fn, ops in hmma.items() if "heads_fwd_kernel" in fn]
+    require(k6_sass and all(any("TF32" in op for op in ops) for ops in k6_sass),
+            "heads_fwd_kernel has no TF32 HMMA in its SASS")
 
     # -- the flagship model, template and camera ---------------------------
     rng = torch.Generator().manual_seed(args.seed)
@@ -856,27 +906,35 @@ def main(argv=None) -> int:
     results = {}
 
     with torch.inference_mode():
-        # -- K1: mapping at B = 1 ------------------------------------------
-        c0 = torch.zeros((1, 25), dtype=torch.float32, device=dev)
-        z = zs[0]
-        ws_k = pallas_mapping.mapping_forward(z, c0, weights.mapping)[:, 0]
-        ws_p = pallas_mapping.mapping_forward_plain(z, c0, weights.mapping)
-        torch.cuda.synchronize()
-        err = float((ws_k - ws_p).abs().max())
-        rel = err / float(ws_p.abs().max())
-        ms, plain_ms = paired_ms(
-            torch, lambda: pallas_mapping.mapping_forward(z, c0, weights.mapping),
-            lambda: pallas_mapping.mapping_forward_plain(z, c0, weights.mapping), 50)
-        print(f"K1 mapping: max|d| {err:.3e} (rel {rel:.3e}), kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
-        require(rel <= 1e-3, f"K1 disagrees with its plain version: rel {rel:.3e}")
+        # -- K1: mapping at B = 1 (the frames) and B = 4 (the stream) --------
+        # Events around 50 back-to-back wrapper calls read the host's launch
+        # path at tens of microseconds: the kernels line takes the
+        # profiler's device time of mapping_kernel.
         fm = weights.mapping
-        out = pallas_mapping.mapping_forward(z, c0, fm)
-        results["mapping"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound=bound(nbytes(fm.we, fm.be, fm.w0, fm.b0, fm.wr, fm.br, fm.w_avg, z, c0, out),
-                        2 * z.shape[0] * sum(w.numel() for w in (fm.we, fm.w0, fm.wr)
-                                             if w is not None), "bf16"))
+        for B in (1, STREAM_BATCH):
+            zb = zs[:B, 0]
+            cb = torch.zeros((B, 25), dtype=torch.float32, device=dev)
+            ws_k = pallas_mapping.mapping_forward(zb, cb, fm)[:, 0]
+            ws_p = pallas_mapping.mapping_forward_plain(zb, cb, fm)
+            torch.cuda.synchronize()
+            err = float((ws_k - ws_p).abs().max())
+            rel = err / float(ws_p.abs().max())
+            ev_ms, plain_ms = paired_ms(
+                torch, lambda: pallas_mapping.mapping_forward(zb, cb, fm),
+                lambda: pallas_mapping.mapping_forward_plain(zb, cb, fm), 50)
+            ms = profiled_ms(torch, lambda: pallas_mapping.mapping_forward(zb, cb, fm), 50,
+                             "mapping_kernel")
+            b1 = bound(nbytes(fm.we, fm.be, fm.w0, fm.b0, fm.wr, fm.br, fm.w_avg, zb, cb, ws_k),
+                       2 * B * sum(w.numel() for w in (fm.we, fm.w0, fm.wr) if w is not None),
+                       "bf16")
+            print(f"K1 mapping (B {B}): max|d| {err:.3e} (rel {rel:.3e}), kernel {ms:.4f} ms "
+                  f"device (profiler), {ev_ms:.4f} ms a call (events around 50 calls), plain "
+                  f"{plain_ms:.4f} ms, bound {b1[0]:.4f} ms")
+            require(rel <= 1e-3, f"K1 disagrees with its plain version at B {B}: rel {rel:.3e}")
+            if B == 1:
+                results["mapping"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b1)
+        z = zs[0]
+        c0 = torch.zeros((1, 25), dtype=torch.float32, device=dev)
 
         # -- K2: slab decode over the full flagship pack --------------------
         planes, _ = dec.synthesize_planes(weights, z, cp)

@@ -1,8 +1,7 @@
 // Device code of the 5-head decoder chain shared by the inference decode
 // kernels K2 (slab_decode.cu), K8 and K9 (brick_decode.cu) — bf16 staging —
 // and the training kernels K6/K7 (heads_train.cu, f32): the GELU variants,
-// softplus, K6's 128-wide f32 hidden layer of a 64-point block (FMAs on the
-// CUDA cores), and the decode kernels' shared chain + EWA projection tail
+// softplus, and the decode kernels' shared chain + EWA projection tail
 // (chain_project_tail), which runs the chain on the tensor cores: bf16
 // mma.sync with f32 accumulators.
 //
@@ -18,7 +17,6 @@
 namespace ggd {
 
 constexpr int kStage = 128;   // staging width
-constexpr int kLds = 132;     // padded row stride of staging/hidden tiles (bank spread)
 constexpr int kOutW = 16;     // padded head-output width
 constexpr int kInitCol = 120; // raw init_position stash (3 columns)
 
@@ -31,8 +29,6 @@ static __constant__ float kGeluPoly[10] = {2.83848659e-05f, 3.98631713e-01f, -6.
 static __constant__ float kGeluPoly6[7] = {1.78927555e-03f, 3.88399878e-01f, -5.61855200e-02f,
                                     5.99722169e-03f, -3.76970754e-04f, 1.25452394e-05f,
                                     -1.69796236e-07f};
-
-__device__ __forceinline__ float sgn(float x) { return (float)((x > 0.f) - (x < 0.f)); }
 
 // A&S 7.1.26 erf, the TPU kernels' erf
 __device__ __forceinline__ float erf_as(float x) {
@@ -68,39 +64,6 @@ __device__ __forceinline__ float gelu(float x, int kind) {
 
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
-// out = gelu(in @ W + b) for a 64 x 128 x 128 f32 layer of a 256-thread
-// block (K6), thread tile 4 x 8. in/out rows have stride kLds, sW is
-// 128 x 128 (in, out).
-__device__ __forceinline__ void hidden_layer(const float* in, float* out, const float* sW,
-                                             const float* sBias, int gelu_kind) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < kStage; ++k) {
-    float a[4], b[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = in[(ty * 4 + i) * kLds + k];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) b[j] = sW[k * kStage + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = tx + 16 * j;
-      const float v = gelu(acc[i][j] + sBias[n], gelu_kind);
-      out[(ty * 4 + i) * kLds + n] = v;
-    }
 }
 
 // ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 // Shared helpers of the port's CUDA kernels (plain C interface, sm_90a):
 // bf16 rounding, a block sum, and the tensor-core building blocks
-// (cp.async, ldmatrix, mma.sync in bf16 and in split TF32).
+// (cp.async, ldmatrix, mma.sync in bf16; the split-TF32 ones are in
+// tf32.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,6 +21,8 @@ __device__ __forceinline__ float bf16r(float v) {
 __device__ __forceinline__ float bf16f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+
+__device__ __forceinline__ float sgn(float x) { return (float)((x > 0.f) - (x < 0.f)); }
 
 // the Gaussian falloff exponent -0.5 (ca dx^2 + cc dy^2) - cb dx dy of the
 // blends (K3, K4, K5), rounded op by op in the order the plain versions
@@ -79,32 +82,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c (16x8 f32) += a (16x8 tf32, row) * b (8x8 tf32, col)
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x = hi + lo with both parts tf32 ("3xTF32": hi*hi + hi*lo + lo*hi keeps
-// about f32 accuracy; the lo*lo term is below f32 rounding)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float r = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
-}
-
-// c += a * b in 3xTF32, the small terms first
-__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ahi, const uint32_t* alo,
-                                           uint32_t bhi0, uint32_t bhi1, uint32_t blo0,
-                                           uint32_t blo1) {
-  mma_tf32(c, alo, bhi0, bhi1);
-  mma_tf32(c, ahi, blo0, blo1);
-  mma_tf32(c, ahi, bhi0, bhi1);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {

@@ -1,5 +1,7 @@
 // K6 / K7: the 5-head decoder chain of the training step, f32, forward and
-// backward.
+// backward, both on the tensor cores in 3xTF32 (tf32.cuh: each f32 operand
+// split into TF32 high and low parts, hi*hi + hi*lo + lo*hi by mma.sync
+// m16n8k8 with f32 accumulators, about f32 accuracy).
 //
 // K6 replaces the TPU kernel gaussian_gan_decoder_tpu/decoder/pallas_heads.py
 // ::decode_heads_pallas (_heads_kernel, compute_dtype f32): per point the
@@ -7,11 +9,37 @@
 // 120) runs through the heads; head h reads the staging prefix, 3 x (128x128
 // linear + GELU) and a 128x16 linear, then scale = -softplus(o + 5) + offset
 // or xyz = 0.01 o + init; the transformed output lands in the packed (M, 16)
-// result and, for later heads, in the staging columns. One block of 256
-// threads per 64 points, f32 weights of the current layer in shared memory,
-// chain.cuh's hidden_layer (register-tiled f32 FMAs on the CUDA cores).
-// Bound: operations, 5.12e5 FLOPs a point (padded), whose least time at
-// f32 accuracy is 3xTF32 on the tensor cores; K6 is not redesigned yet.
+// result and, for later heads, in the staging columns.
+//
+// Bound: operations, 5.12e5 FLOPs a point (padded), whose least time at f32
+// accuracy is 3xTF32 on the tensor cores. Design: one block of 8 warps per
+// 128 points; warp w owns points 16 w .. 16 w + 15 for the whole chain, and
+// its activations never leave registers: the m16n8 accumulator of a layer,
+// after bias and GELU, IS the next layer's A fragments once the 8 k slots of
+// each k-step are assigned to the columns the thread holds (see fwd_stage).
+// The staging tile (f32, shared memory) feeds layer 1 and takes the head
+// outputs. The weights are split once per call on the device
+// (split_weights_kernel) into TF32 (hi, lo) pairs, and stream by cp.async
+// (tf32.cuh) through a two-slot ring, 64 rows a slot, the next half layer
+// arriving while this one computes: twice the operand bytes of the f32
+// weights, but one 16-byte load gives the hi and lo parts of two n-tiles'
+// B fragments, and no split instructions run in the product loop
+// (scripts/k6_ablation.py times the warps splitting as they read). Rows
+// swizzled by bits 2-3 make every fragment load conflict-free without
+// padding. Layer 1 multiplies only the rows of w1 within the head's
+// staging prefix (the rest are zero, ChainWeights): 48 of 128 in the
+// decoder's chain. Layer 4 is two more n-tiles. Bias and GELU run on the
+// accumulator fragments, the GELU kind a template argument, so the
+// epilogue is straight-line code; the exact GELU takes the fast exp.
+//
+// Per point, before (64-point blocks, f32 FMAs on the CUDA cores,
+// chain.cuh::hidden_layer) and after: weights from L2 16 KB -> 12.5 KB (each
+// layer serves 128 points, not 64, but as (hi, lo) pairs; layer 1 48 rows);
+// activations through shared memory 3 x 2 x 512 B a layer -> none; one
+// block an SM either way (171.5 KB -> 218 KB of shared memory). FLOPs
+// 5.12e5 as f32 FMAs at 67 TFLOP/s -> 4.1e5 (layer 1 cut to 48 rows) three
+// times over as TF32 on the tensor cores; least time for the train step's
+// 500,000 points 2.86 ms -> 1.16 ms (3xTF32 at a third of 495 TFLOP/s).
 //
 // K7 replaces decoder/pallas_heads_vjp.py::_run_bwd (_heads_bwd_kernel): the
 // exact reverse of K6's chain. The TPU kernel keeps 5 residual sets per head
@@ -22,9 +50,7 @@
 //
 // Design: 132 blocks (one per SM), heads outer and 64-point tiles inner
 // (blockIdx.x, + gridDim.x, ...; a ragged last tile is masked). All three
-// kinds of 128 x 128 product run on the tensor cores in 3xTF32 (each f32
-// operand split into TF32 high and low parts, hi*hi + hi*lo + lo*hi by
-// mma.sync m16n8k8 with f32 accumulators, about f32 accuracy): the
+// kinds of 128 x 128 product run on the tensor cores in 3xTF32: the
 // recompute X W, the data gradient G W^T and the weight gradient A^T G.
 // The 16-wide layer 4 stays on the CUDA cores. Each warp keeps its rows'
 // pre-activations z1..z3 in registers (later their GELU derivatives), the
@@ -43,16 +69,17 @@
 // FLOPs the same, ~1.5e6 f32 (3 x K6's 5.12e5), now 4.6e6 TF32 on the
 // tensor cores. Bound: those FLOPs at a third of the 495 TFLOP/s TF32 rate.
 #include "chain.cuh"
+#include "tf32.cuh"
 
 namespace {
 
+using ggd::kBiasHead;
 using ggd::kInitCol;
-using ggd::kLds;
+using ggd::kMaxHeads;
 using ggd::kOutW;
 using ggd::kStage;
 
 constexpr int kThreads = 256;
-constexpr int kFwdPts = 64;   // K6 points per block
 constexpr int kW4Ld = 17;     // padded row stride of W4 in K7 (transposed reads)
 // per-head slice of the gradient partials: w1 b1 w2 b2 w3 b3 w4 b4
 constexpr int kOffB1 = kStage * kStage;
@@ -68,10 +95,6 @@ struct Chain {
   const float *w1, *b1, *w2, *b2, *w3, *b3, *w4, *b4;
 };
 
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, int K, int N) {
-  for (int i = threadIdx.x; i < K * N; i += kThreads) dst[(i / N) * ld + i % N] = src[i];
-}
-
 // transformed head output (meta kind: 1 scale, 2 xyz)
 __device__ __forceinline__ float transform(float o, int kind, int col, float scale_offset,
                                            const float* xrow) {
@@ -80,63 +103,263 @@ __device__ __forceinline__ float transform(float o, int kind, int col, float sca
   return o;
 }
 
-__global__ void __launch_bounds__(kThreads) heads_fwd_kernel(
-    const float* __restrict__ staging, Chain cw, const int* __restrict__ meta,
-    float* __restrict__ out, float scale_offset) {
-  extern __shared__ __align__(16) float smem[];
-  float* X = smem;                          // kFwdPts x kLds staging
-  float* A = X + kFwdPts * kLds;            // hidden
-  float* B = A + kFwdPts * kLds;            // hidden
-  float* sW = B + kFwdPts * kLds;           // 128 x 128 current layer
-  float* sBias = sW + kStage * kStage;      // 128
-  float* O16 = sBias + kStage;              // kFwdPts x kOutW
-  __shared__ int sMeta[32];
-  const int tid = threadIdx.x;
-  const size_t m0 = (size_t)blockIdx.x * kFwdPts;
-  if (tid < 32) sMeta[tid] = meta[tid];
-  for (int i = tid; i < kFwdPts * kOutW; i += kThreads) O16[i] = 0.f;
-  for (int i = tid; i < kFwdPts * kStage; i += kThreads)
-    X[(i / kStage) * kLds + i % kStage] = staging[m0 * kStage + i];
-  __syncthreads();
-  const int n_heads = sMeta[0], gk = sMeta[26];
-  for (int h = 0; h < n_heads; ++h) {
-    const float* ws[3] = {cw.w1, cw.w2, cw.w3};
-    const float* bs[3] = {cw.b1, cw.b2, cw.b3};
-    const float* src[3] = {X, A, B};
-    float* dst[3] = {A, B, A};
-    for (int l = 0; l < 3; ++l) {
-      load_rows(sW, kStage, ws[l] + (size_t)h * kStage * kStage, kStage, kStage);
-      for (int i = tid; i < kStage; i += kThreads) sBias[i] = bs[l][h * kStage + i];
-      __syncthreads();
-      ggd::hidden_layer(src[l], dst[l], sW, sBias, gk);
-      __syncthreads();
-    }
-    load_rows(sW, kOutW, cw.w4 + (size_t)h * kStage * kOutW, kStage, kOutW);
-    if (tid < kOutW) sBias[tid] = cw.b4[h * kOutW + tid];
-    __syncthreads();
-    {
-      const int r = tid >> 2, cb = tid & 3;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-      for (int k = 0; k < kStage; ++k) {
-        const float a = A[r * kLds + k];
+// ---- K6: 128-point blocks, the chain in registers -------------------------
+// Fragment roles of mma.sync m16n8k8 (g = lane / 4, q = lane % 4): A holds
+// (row g, k slot q), (g + 8, q), (g, q + 4), (g + 8, q + 4); B (k slot q,
+// n slot g), (q + 4, g); C (g, n slots 2q, 2q + 1), (g + 8, 2q, 2q + 1).
+// A layer's 128 columns are 16 n-tiles: slot s of n-tile j is column
+// 16 (j >> 1) + 2 s + (j & 1), so a thread's C registers of n-tiles 2J and
+// 2J + 1 are columns 16 J + 4 q + {0, 1, 2, 3}. k-step (J, b) of the next
+// layer gives slot q column 16 J + 4 q + 2 b and slot q + 4 column
+// 16 J + 4 q + 2 b + 1: its A fragment is four of those C registers, after
+// bias and GELU, and its B fragments are weight rows 16 J + 4 q + 2 b and
+// + 1 at columns 16 J' + 2 g + {0, 1}: with each weight stored as its
+// (hi, lo) pair, one 16-byte load a row for n-tiles 2J' and 2J' + 1.
+
+constexpr int kFwdPts = 128;   // K6 points per block: 8 warps x 16 rows
+constexpr int kXld = 144;      // f32 row stride of the staging tile: 128 staging
+                               // columns, then the 16 packed outputs; 144 = 16 (mod 32)
+                               // words puts the two rows of a 16-byte fragment load on
+                               // distinct banks
+constexpr int kOutCol = 128;   // the packed outputs in a staging tile row
+constexpr int kW4ld = 20;      // f32 row stride of K6's 128 x 16 layer-4 tile
+constexpr int kLayer = kStage * kStage;
+constexpr int kRow = 2 * kStage;       // floats of a split weight row: (hi, lo) per column
+constexpr int kSlot = 64 * kRow;       // floats of a ring slot: 64 split weight rows
+
+template <int kGelu>
+__device__ __forceinline__ float gelu_fwd(float x) {
+  return kGelu == 0 ? ggd::gelu_exact(x) : ggd::gelu(x, kGelu);
+}
+
+// v <- gelu(v + bias): C register e of n-tile 2 J + p is column
+// 16 J + 4 q + 2 (e & 1) + p
+template <int kGelu>
+__device__ __forceinline__ void bias_gelu(float (&v)[16][4], const float* bias) {
+  const int q = threadIdx.x & 3;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[j] += a * sW[k * kOutW + cb + 4 * j];
+  for (int J = 0; J < 8; ++J) {
+    const float4 bv = *reinterpret_cast<const float4*>(bias + 16 * J + 4 * q);
+    const float bb[2][2] = {{bv.x, bv.z}, {bv.y, bv.w}};   // [p][e & 1]
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[2 * J + p][e] = gelu_fwd<kGelu>(v[2 * J + p][e] + bb[p][e & 1]);
+  }
+}
+
+// acc += A @ W over k-step pairs J in [kJ0, kJ1) of one ring stage
+// (kFromX: only those below nJ). A is the staging tile (kFromX: xr is this
+// thread's row g, row g + 8 at 8 kXld) or the previous layer's activations
+// act; slot holds weight rows 16 kJ0 .. 16 kJ1 - 1 as (hi, lo) pairs, row
+// k's words XOR-swizzled by bits 2-3 of k, which for this thread's rows
+// 16 J + 4 q + {0..3} is q.
+template <int kJ0, int kJ1, bool kFromX>
+__device__ __forceinline__ void fwd_stage(float (&acc)[16][4], const float (&act)[16][4],
+                                          const float* xr, const float* slot, int nJ) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int J = kJ0; J < kJ1; ++J) {
+    if (kFromX && J >= nJ) break;
+    float a[2][4];
+    if constexpr (kFromX) {
+      const float4 x0 = *reinterpret_cast<const float4*>(xr + 16 * J + 4 * q);
+      const float4 x8 = *reinterpret_cast<const float4*>(xr + 8 * kXld + 16 * J + 4 * q);
+      a[0][0] = x0.x; a[0][1] = x8.x; a[0][2] = x0.y; a[0][3] = x8.y;
+      a[1][0] = x0.z; a[1][1] = x8.z; a[1][2] = x0.w; a[1][3] = x8.w;
+    } else {
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        a[b][0] = act[2 * J][b];
+        a[b][1] = act[2 * J][2 + b];
+        a[b][2] = act[2 * J + 1][b];
+        a[b][3] = act[2 * J + 1][2 + b];
       }
-      const int od = sMeta[1 + h], sc = sMeta[6 + h], oc = sMeta[11 + h], kind = sMeta[16 + h];
+    }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = cb + 4 * j;
+    for (int b = 0; b < 2; ++b) {
+      uint32_t ahi[4], alo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ggd::split_tf32(a[b][e], ahi[e], alo[e]);
+      const float* r0 = slot + (16 * (J - kJ0) + 4 * q + 2 * b) * kRow;
+#pragma unroll
+      for (int Jn = 0; Jn < 8; ++Jn) {
+        // (hi, lo) of columns 16 Jn + 2 g and + 1, rows k and k + 1: b0 and
+        // b1 of n-tiles 2 Jn and 2 Jn + 1
+        const int n = (32 * Jn + 4 * g) ^ (q << 3);
+        const uint4 v0 = *reinterpret_cast<const uint4*>(r0 + n);
+        const uint4 v1 = *reinterpret_cast<const uint4*>(r0 + kRow + n);
+        ggd::mma_3xtf32(acc[2 * Jn], ahi, alo, v0.x, v1.x, v0.y, v1.y);
+        ggd::mma_3xtf32(acc[2 * Jn + 1], ahi, alo, v0.z, v1.z, v0.w, v1.w);
+      }
+    }
+  }
+}
+
+// o = act @ W4 (128 x 16): two n-tiles, slot s of n-tile p is column
+// 2 s + p, so C register e of n-tile p is column 4 q + 2 (e & 1) + p
+__device__ __forceinline__ void layer4(float (&o)[2][4], const float (&act)[16][4],
+                                       const float* W4) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[p][e] = 0.f;
+#pragma unroll
+  for (int J = 0; J < 8; ++J)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const float a[4] = {act[2 * J][b], act[2 * J][2 + b], act[2 * J + 1][b],
+                          act[2 * J + 1][2 + b]};
+      uint32_t ahi[4], alo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ggd::split_tf32(a[e], ahi[e], alo[e]);
+      const float* r0 = W4 + (16 * J + 4 * q + 2 * b) * kW4ld + 2 * g;
+      const float2 v0 = *reinterpret_cast<const float2*>(r0);
+      const float2 v1 = *reinterpret_cast<const float2*>(r0 + kW4ld);
+      uint32_t h[4], l[4];
+      ggd::split_tf32(v0.x, h[0], l[0]);
+      ggd::split_tf32(v1.x, h[1], l[1]);
+      ggd::split_tf32(v0.y, h[2], l[2]);
+      ggd::split_tf32(v1.y, h[3], l[3]);
+      ggd::mma_3xtf32(o[0], ahi, alo, h[0], h[1], l[0], l[1]);
+      ggd::mma_3xtf32(o[1], ahi, alo, h[2], h[3], l[2], l[3]);
+    }
+}
+
+// w1, w2, w3 -> their TF32 (hi, lo) pairs, wsplit[h][l][128][128][2], once
+// per call
+__global__ void split_weights_kernel(Chain cw, float* __restrict__ wsplit, int n_heads) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_heads * 3 * kLayer) return;
+  const int hl = i / kLayer, e = i % kLayer, l = hl % 3;
+  const float* w = l == 0 ? cw.w1 : (l == 1 ? cw.w2 : cw.w3);
+  uint32_t hi, lo;
+  ggd::split_tf32(w[(size_t)(hl / 3) * kLayer + e], hi, lo);
+  wsplit[(size_t)hl * 2 * kLayer + 2 * e] = __uint_as_float(hi);
+  wsplit[(size_t)hl * 2 * kLayer + 2 * e + 1] = __uint_as_float(lo);
+}
+
+// Stage st of the weight stream (two stages a layer, 64 split rows each,
+// layers w1 w2 w3 of head 0, 1, ...) goes to ring slot st & 1; each
+// ring_step waits for stage st, then starts stage st + 1, and at a head's
+// first stage that head's W4 (the barrier frees it: every warp is past
+// the last head's layer 4).
+template <int kGelu>
+__global__ void __launch_bounds__(kThreads, 1) heads_fwd_kernel(
+    const float* __restrict__ staging, Chain cw, const float* __restrict__ wsplit,
+    const int* __restrict__ meta, float* __restrict__ out, int Mpad, float scale_offset) {
+  extern __shared__ __align__(16) float smem[];
+  float* X = smem;                        // kFwdPts x kXld staging tile + outputs
+  float* ring = X + kFwdPts * kXld;       // 2 x kSlot
+  float* W4 = ring + 2 * kSlot;           // kStage x kW4ld
+  float* sB = W4 + kStage * kW4ld;        // kMaxHeads x kBiasHead: b1 b2 b3 b4
+  __shared__ int sMeta[32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, q = lane & 3;
+  const int m0 = blockIdx.x * kFwdPts;
+  const int n_rows = min(kFwdPts, Mpad - m0);
+  const int n_heads = meta[0];
+  const int n_stages = 6 * n_heads;
+
+  // k-step pairs of head h's layer 1: w1's rows past the head's staging
+  // prefix (meta stage column) are zero (ChainWeights), so they are neither
+  // copied nor multiplied
+  auto n_j1 = [&](int h) { return min(8, (__ldg(meta + 6 + h) + 15) / 16); };
+  auto fetch = [&](int st) {
+    const int hl = st / 2, part = st % 2;
+    const int n = min(64, (hl % 3 == 0 ? 16 * n_j1(hl / 3) : kStage) - 64 * part);
+    const float* w = wsplit + (size_t)hl * 2 * kLayer + part * kSlot;
+    if (n > 0) ggd::cp_rows<kRow, kRow, true, kThreads>(ring + (st & 1) * kSlot, w, n);
+  };
+  auto fetch_w4 = [&](int h) {
+    const float* src = cw.w4 + (size_t)h * kStage * kOutW;
+    for (int i = tid; i < kStage * kOutW / 4; i += kThreads)
+      ggd::cp_async16(W4 + (i >> 2) * kW4ld + (i & 3) * 4, src + i * 4);
+  };
+
+  // prologue: staging rows (zero past Mpad), stage 0 and head 0's W4 in
+  // flight; meta, biases and the zeroed output columns by plain stores
+  for (int i = tid; i < kFwdPts * 32; i += kThreads) {
+    const int r = i >> 5, c = (i & 31) * 4;
+    if (r < n_rows)
+      ggd::cp_async16(X + r * kXld + c, staging + (size_t)(m0 + r) * kStage + c);
+    else
+      *reinterpret_cast<float4*>(X + r * kXld + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  fetch(0);
+  fetch_w4(0);
+  ggd::cp_async_commit();
+  if (tid < 32) sMeta[tid] = meta[tid];
+  for (int i = tid; i < n_heads * kBiasHead; i += kThreads) {
+    const int h = i / kBiasHead, j = i % kBiasHead, l = j / kStage, c = j % kStage;
+    const float* b = l == 0 ? cw.b1 : (l == 1 ? cw.b2 : (l == 2 ? cw.b3 : cw.b4));
+    sB[i] = l < 3 ? b[h * kStage + c] : b[h * kOutW + c];
+  }
+  for (int i = tid; i < kFwdPts * 4; i += kThreads)
+    *reinterpret_cast<float4*>(X + (i >> 2) * kXld + kOutCol + (i & 3) * 4) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const float* xr = X + (16 * warp + g) * kXld;
+  int st = 0;
+  // wait for stage st and return its slot, the next copies started
+  auto advance = [&]() -> const float* {
+    ggd::ring_step([&] {
+      if (st + 1 < n_stages) fetch(st + 1);
+      if (st % 6 == 0 && st > 0) fetch_w4(st / 6);
+    });
+    return ring + (st++ & 1) * kSlot;
+  };
+  // act: the last layer's activations, acc the layer's sums
+  float act[16][4], acc[16][4];
+  for (int h = 0; h < n_heads; ++h) {
+    const float* bh = sB + h * kBiasHead;
+    for (int l = 0; l < 3; ++l) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      const int nJ = l == 0 ? n_j1(h) : 8;
+      const float* slot = advance();
+      if (l == 0)
+        fwd_stage<0, 4, true>(acc, act, xr, slot, nJ);
+      else
+        fwd_stage<0, 4, false>(acc, act, xr, slot, nJ);
+      slot = advance();
+      if (l == 0)
+        fwd_stage<4, 8, true>(acc, act, xr, slot, nJ);
+      else
+        fwd_stage<4, 8, false>(acc, act, xr, slot, nJ);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) act[j][e] = acc[j][e];
+      bias_gelu<kGelu>(act, bh + l * kStage);
+    }
+    // layer 4: head h's W4 landed with the wait of the stage after its fetch
+    float o[2][4];
+    layer4(o, act, W4);
+    const int od = sMeta[1 + h], sc = sMeta[6 + h], oc = sMeta[11 + h], kind = sMeta[16 + h];
+    const float* b4 = bh + 3 * kStage;
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 4 * q + 2 * (e & 1) + p;
+        float* xrow = X + (16 * warp + g + 8 * (e >> 1)) * kXld;
         if (col < od) {
-          const float o = transform(acc[j] + sBias[col], kind, col, scale_offset, X + r * kLds);
-          O16[r * kOutW + oc + col] = o;
-          if (sc + od <= kStage) X[r * kLds + sc + col] = o;
+          const float v = transform(o[p][e] + b4[col], kind, col, scale_offset, xrow);
+          xrow[kOutCol + oc + col] = v;
+          if (sc + od <= kStage) xrow[sc + col] = v;
         }
       }
-    }
-    __syncthreads();
+    __syncwarp();   // the warp's next layer 1 reads its own rows only
   }
-  for (int i = tid; i < kFwdPts * kOutW; i += kThreads) out[m0 * kOutW + i] = O16[i];
+  for (int i = lane; i < 16 * 4; i += 32) {
+    const int r = 16 * warp + (i >> 2), c = (i & 3) * 4;
+    if (r < n_rows)
+      *reinterpret_cast<float4*>(out + (size_t)(m0 + r) * kOutW + c) =
+          *reinterpret_cast<const float4*>(X + r * kXld + kOutCol + c);
+  }
 }
 
 // ---- K7 on a 64-point tile, 256 threads, products on the tensor cores ----
@@ -158,12 +381,8 @@ __device__ __forceinline__ int own_col(int j, int warp) {
 // rows [64 half, 64 half + 64) of a 128 x 128 f32 matrix -> ring slot
 // `half`, as 16-byte cp.async chunks
 __device__ __forceinline__ void fetch_half(float* ring, const float* w, int half) {
-  float* dst = ring + half * kHalf * kWld;
-  const float* src = w + (size_t)half * kHalf * kStage;
-  for (int i = threadIdx.x; i < kHalf * kStage / 4; i += kThreads) {
-    const int r = i >> 5, c = (i & 31) * 4;
-    ggd::cp_async16(dst + r * kWld + c, src + r * kStage + c);
-  }
+  ggd::cp_rows<kStage, kWld, false, kThreads>(ring + half * kHalf * kWld,
+                                               w + (size_t)half * kHalf * kStage, kHalf);
 }
 
 __device__ __forceinline__ void zero_frag(float (&acc)[8][4]) {
@@ -302,29 +521,13 @@ __device__ __forceinline__ void add_bias(float (&z)[8][4], const float* bias) {
   }
 }
 
-// exact GELU (on the A&S erf) and its derivative from one erf and one exp:
-// cdf = (1 + erf(x / sqrt 2)) / 2, gelu = x cdf, gelu' = cdf + x phi(x);
-// the A&S erf's exp(-(x / sqrt 2)^2) is phi(x) sqrt(2 pi). The reciprocal
-// is the fast one (2 ulp): the IEEE division is a subroutine call whose
-// stack frame made this register-bound kernel spill.
-__device__ __forceinline__ float gelu_and_grad(float x, float& grad) {
-  const float a = fabsf(x * 0.70710678118654752f);
-  const float t = __fdividef(1.f, 1.f + 0.3275911f * a);
-  const float poly = t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f +
-                     t * (-1.453152027f + t * 1.061405429f))));
-  const float ex = expf(-a * a);
-  const float cdf = 0.5f * (1.f + ggd::sgn(x) * (1.f - poly * ex));
-  grad = cdf + x * 0.3989422804014327f * ex;
-  return x * cdf;
-}
-
 // dst <- gelu(z) (owner layout)
 __device__ __forceinline__ void store_gelu(float* dst, const float (&z)[8][4]) {
   float a[8][4], unused;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) a[j][e] = gelu_and_grad(z[j][e], unused);
+    for (int e = 0; e < 4; ++e) a[j][e] = ggd::gelu_and_grad(z[j][e], unused);
   store_owner(dst, a);
 }
 
@@ -335,7 +538,7 @@ __device__ __forceinline__ void store_gelu_keep_grad(float* dst, float (&z)[8][4
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) a[j][e] = gelu_and_grad(z[j][e], z[j][e]);
+    for (int e = 0; e < 4; ++e) a[j][e] = ggd::gelu_and_grad(z[j][e], z[j][e]);
   store_owner(dst, a);
 }
 
@@ -348,10 +551,9 @@ __device__ __forceinline__ void times(float (&d)[8][4], const float (&gz)[8][4])
 }
 
 __device__ __forceinline__ void next_half(float* ring, const float* w, int half) {
-  ggd::cp_async_wait_all();
-  __syncthreads();
-  if (w != nullptr) fetch_half(ring, w, half);
-  ggd::cp_async_commit();
+  ggd::ring_step([&] {
+    if (w != nullptr) fetch_half(ring, w, half);
+  });
 }
 
 // The weight stream of one tile of one head, in ring slots by half:
@@ -572,21 +774,43 @@ __global__ void heads_grad_reduce(const float* __restrict__ partials, float* __r
 
 }  // namespace
 
+// wsplit: n_heads x 3 x 128 x 128 x 2 f32 scratch for the weights split
+// into TF32 (hi, lo) pairs; gelu: the chain's GELU id (meta[26])
 extern "C" int ggd_heads_fwd(const void* staging, const void* w1, const void* b1,
                              const void* w2, const void* b2, const void* w3, const void* b3,
                              const void* w4, const void* b4, const void* meta, void* out,
-                             int Mpad, float scale_offset, void* stream) {
-  if (Mpad <= 0 || Mpad % kFwdPts != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (3 * (size_t)kFwdPts * kLds + kStage * kStage + kStage + kFwdPts * kOutW) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(heads_fwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+                             void* wsplit, int Mpad, int n_heads, int gelu, float scale_offset,
+                             void* stream) {
+  if (Mpad <= 0 || n_heads < 1 || n_heads > kMaxHeads || gelu < 0 || gelu > 4)
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {staging, w1, b1, w2, b2, w3, b3, w4, b4, (const void*)out,
+                        (const void*)wsplit})
+    if (!ggd::aligned16(p)) return (int)cudaErrorMisalignedAddress;
   const Chain cw{(const float*)w1, (const float*)b1, (const float*)w2, (const float*)b2,
                  (const float*)w3, (const float*)b3, (const float*)w4, (const float*)b4};
-  heads_fwd_kernel<<<Mpad / kFwdPts, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)staging, cw, (const int*)meta, (float*)out, scale_offset);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int n = n_heads * 3 * kLayer;
+  split_weights_kernel<<<(n + 255) / 256, 256, 0, s>>>(cw, (float*)wsplit, n_heads);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = ((size_t)kFwdPts * kXld + 2 * kSlot + kStage * kW4ld +
+                       kMaxHeads * kBiasHead) * sizeof(float);
+  const dim3 grid((Mpad + kFwdPts - 1) / kFwdPts);
+  auto launch = [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, s>>>((const float*)staging, cw, (const float*)wsplit,
+                                        (const int*)meta, (float*)out, Mpad, scale_offset);
+    return cudaGetLastError();
+  };
+  switch (gelu) {
+    case 0: return (int)launch(heads_fwd_kernel<0>);
+    case 1: return (int)launch(heads_fwd_kernel<1>);
+    case 2: return (int)launch(heads_fwd_kernel<2>);
+    case 3: return (int)launch(heads_fwd_kernel<3>);
+    default: return (int)launch(heads_fwd_kernel<4>);
+  }
 }
 
 // partials: n_part x (5 x 51600) zeros; grads: 5 x 51600, per head

@@ -9,119 +9,282 @@
 // with bf16 weights (lr_mult/gain folded in by the host), activations
 // rounded to bf16 before each product and f32 accumulation.
 //
-// Bound on the H100: latency of a serial chain of 8 tiny layers. One launch
-// of one block runs it all; activations live in shared memory (ping-pong
-// B x max(in, W) f32 buffers), one thread per output column reads its
-// weight column coalesced across the block.
+// Bound on the H100: the latency of 8 dependent layers; the bytes (4.7 MB
+// of bf16 weights at the flagship's width 512) take 1.4 us at 3.35 TB/s and
+// the FLOPs are ~8 MFLOP at batch 1. Design: one cooperative launch of up to
+// one block per SM (132 on the H100). Block i owns Cb = W / nblk output
+// columns (4 at W 512) of every layer and at its start copies all of its
+// weight columns (fc0's rows and fc1..fc7's, 37 KB at W 512) into shared
+// memory by cp.async, so the whole weight set arrives at once across the
+// card. Every block computes the z norm and the c embed with its norm
+// itself (the embed's 25 x W weights are read by every block), which needs
+// no barrier; each layer's bf16-rounded activations (B x W f32) pass to the
+// next through global memory (L2) with one grid barrier a layer. A layer
+// splits its K-long sums over the block's threads, each thread summing its
+// k's in order, then a fixed-order warp and block reduction: the same bits
+// from run to run.
+//
+// Before (one block of 256 threads on one SM; each thread two columns of
+// 1024 or 512 dependent 2-byte loads from device memory, one after another)
+// and after: 1 -> 128 SMs at W 512; the weights arrive in one wave of
+// independent cp.async copies instead of ~9 x 1024 serial round trips.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxB = 8;
+constexpr int kGroup = 8;   // output columns a thread sums per pass
 
-__global__ void __launch_bounds__(kThreads) mapping_kernel(
-    const float* __restrict__ z, const float* __restrict__ c,
-    const __nv_bfloat16* __restrict__ we, const float* __restrict__ be,
-    const __nv_bfloat16* __restrict__ w0, const float* __restrict__ b0,
-    const __nv_bfloat16* __restrict__ wr, const float* __restrict__ br,
-    const float* __restrict__ wavg, float psi, float* __restrict__ out,
-    int B, int Z, int Cd, int W, int n_rest) {
-  extern __shared__ float smem[];
-  const int IN = Z + (Cd > 0 ? W : 0);
-  const int LDA = IN > W ? IN : W;
-  float* xa = smem;              // B x LDA
-  float* xb = xa + B * LDA;      // B x LDA
-  float* red = xb + B * LDA;     // 32
-  const float eps = 1e-8f;
-  const int tid = threadIdx.x;
+// floats of shared memory before the weight columns: layer 0's input
+// (B x IN), the reduction buffer, padded to 16 bytes
+__host__ __device__ __forceinline__ int base_floats(int x0_floats) {
+  return (x0_floats + kWarps * kMaxB * kGroup + 3) / 4 * 4;
+}
 
-  for (int b = 0; b < B; ++b) {
-    float ss = 0.f;
-    for (int i = tid; i < Z; i += blockDim.x) {
-      const float v = z[b * Z + i];
-      ss += v * v;
+struct MapArgs {
+  const float* z;
+  const float* c;
+  const __nv_bfloat16* we;
+  const float* be;
+  const __nv_bfloat16* w0;
+  const float* b0;
+  const __nv_bfloat16* wr;
+  const float* br;
+  const float* wavg;
+  float psi;
+  float* out;
+  float* act;   // 2 x B x W: the layer outputs, ping-pong
+  int B, Z, Cd, W, n_rest;
+  int Cb;       // output columns a block owns
+  int unit;     // bf16 elements a cp.async copies (4, 2; 1: plain loads)
+  int resident; // the block's weight columns are in shared memory
+};
+
+// the block's columns [j0, j0 + ncol) of rows [0, K) of a (K, W) bf16 matrix
+// -> dst (K x Cb), by `unit`-element copies
+__device__ __forceinline__ void copy_columns(__nv_bfloat16* dst, const __nv_bfloat16* w, int K,
+                                             int W, int Cb, int j0, int ncol, int unit) {
+  const int per_row = (ncol + unit - 1) / unit;
+  for (int i = threadIdx.x; i < K * per_row; i += kThreads) {
+    const int k = i / per_row, c = (i % per_row) * unit;
+    const __nv_bfloat16* src = w + (size_t)k * W + j0 + c;
+    __nv_bfloat16* d = dst + k * Cb + c;
+    if (unit == 4) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(ggd::smem_u32(d)),
+                   "l"(src));
+    } else if (unit == 2) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(ggd::smem_u32(d)),
+                   "l"(src));
+    } else {
+      *d = *src;
     }
-    const float r = rsqrtf(ggd::block_sum(ss, red) / Z + eps);
-    for (int i = tid; i < Z; i += blockDim.x) xa[b * LDA + i] = ggd::bf16r(z[b * Z + i] * r);
   }
-  if (Cd > 0) {
-    for (int j = tid; j < W; j += blockDim.x) {
-      for (int b = 0; b < B; ++b) {
-        float acc = 0.f;
-        for (int i = 0; i < Cd; ++i)
-          acc += ggd::bf16r(c[b * Cd + i]) * ggd::bf16f(we[(size_t)i * W + j]);
-        xb[b * LDA + j] = acc + be[j];
-      }
-    }
-    __syncthreads();
-    for (int b = 0; b < B; ++b) {
-      float ss = 0.f;
-      for (int j = tid; j < W; j += blockDim.x) {
-        const float v = xb[b * LDA + j];
-        ss += v * v;
-      }
-      const float r = rsqrtf(ggd::block_sum(ss, red) / W + eps);
-      for (int j = tid; j < W; j += blockDim.x)
-        xa[b * LDA + Z + j] = ggd::bf16r(xb[b * LDA + j] * r);
-    }
-  }
-  __syncthreads();
+}
 
+// One layer: v[b][j] = sum_k x[b][k] w[k][j] for the block's columns, then
+// + bias, lrelu * sqrt 2, and either the bf16-rounded activation to xout
+// or (last) the truncation lerp to out. x is (B, K) with row stride ldx, in
+// shared memory (layer 0) or global memory written by other blocks
+// (read through L2: kGlobalX); w is the block's (K, Cb) columns with row
+// stride ldw, in shared or in global memory.
+template <bool kGlobalX>
+__device__ __forceinline__ void layer(const MapArgs& a, const float* x, int ldx, int K,
+                                      const __nv_bfloat16* w, int ldw, const float* bias,
+                                      float* xout, bool last, int j0, int ncol, float* red) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float kSqrt2 = 1.41421356237309515f;
-  float* src = xa;
-  float* dst = xb;
-  for (int l = 0; l <= n_rest; ++l) {
-    const int K = l == 0 ? IN : W;
-    const __nv_bfloat16* w = l == 0 ? w0 : wr + (size_t)(l - 1) * W * W;
-    const float* bias = l == 0 ? b0 : br + (size_t)(l - 1) * W;
-    const bool last = l == n_rest;
-    for (int j = tid; j < W; j += blockDim.x) {
-      float acc[kMaxB];
+  for (int c0 = 0; c0 < ncol; c0 += kGroup) {
+    float acc[kMaxB][kGroup];
 #pragma unroll
-      for (int b = 0; b < kMaxB; ++b) acc[b] = 0.f;
-      for (int i = 0; i < K; ++i) {
-        const float wv = ggd::bf16f(w[(size_t)i * W + j]);
+    for (int b = 0; b < kMaxB; ++b)
 #pragma unroll
-        for (int b = 0; b < kMaxB; ++b)
-          if (b < B) acc[b] += src[b * LDA + i] * wv;
-      }
+      for (int c = 0; c < kGroup; ++c) acc[b][c] = 0.f;
+    for (int k = tid; k < K; k += kThreads) {
+      float xv[kMaxB];
 #pragma unroll
       for (int b = 0; b < kMaxB; ++b) {
-        if (b < B) {
-          float v = acc[b] + bias[j];
-          v = (fmaxf(v, 0.f) + 0.2f * fminf(v, 0.f)) * kSqrt2;
-          if (last)
-            out[b * W + j] = wavg[j] + (v - wavg[j]) * psi;
+        xv[b] = 0.f;
+        if (b < a.B) {
+          if constexpr (kGlobalX)
+            xv[b] = __ldcg(x + b * ldx + k);
           else
-            dst[b * LDA + j] = ggd::bf16r(v);
+            xv[b] = x[b * ldx + k];
+        }
+      }
+      const __nv_bfloat16* wk = w + (size_t)k * ldw + c0;
+#pragma unroll
+      for (int c = 0; c < kGroup; ++c) {
+        if (c0 + c < ncol) {
+          const float wv = ggd::bf16f(wk[c]);
+#pragma unroll
+          for (int b = 0; b < kMaxB; ++b) acc[b][c] += xv[b] * wv;
         }
       }
     }
+#pragma unroll
+    for (int b = 0; b < kMaxB; ++b) {
+      if (b >= a.B) break;
+#pragma unroll
+      for (int c = 0; c < kGroup; ++c) {
+        float v = acc[b][c];
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (lane == 0) red[(warp * kMaxB + b) * kGroup + c] = v;
+      }
+    }
     __syncthreads();
-    float* t = src;
-    src = dst;
-    dst = t;
+    if (tid < a.B * kGroup) {
+      const int b = tid / kGroup, c = tid % kGroup, j = j0 + c0 + c;
+      if (c0 + c < ncol) {
+        float v = 0.f;
+        for (int wi = 0; wi < kWarps; ++wi) v += red[(wi * kMaxB + b) * kGroup + c];
+        v += bias[j];
+        v = (fmaxf(v, 0.f) + 0.2f * fminf(v, 0.f)) * kSqrt2;
+        if (last)
+          a.out[b * a.W + j] = a.wavg[j] + (v - a.wavg[j]) * a.psi;
+        else
+          __stcg(xout + b * a.W + j, ggd::bf16r(v));
+      }
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) mapping_kernel(MapArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int B = a.B, Z = a.Z, Cd = a.Cd, W = a.W;
+  const int IN = Z + (Cd > 0 ? W : 0);
+  float* x0 = smem;                                  // B x IN: layer 0's input
+  float* red = x0 + B * IN;                          // kWarps x kMaxB x kGroup
+  // the block's weight columns, layer after layer, from a 16-byte boundary
+  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem + base_floats(B * IN));
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * a.Cb;
+  const int ncol = min(a.Cb, W - j0);
+
+  // the block's weight columns of every layer, in flight while the norms
+  // and the embed are computed
+  if (a.resident) {
+    copy_columns(wsm, a.w0, IN, W, a.Cb, j0, ncol, a.unit);
+    for (int l = 1; l <= a.n_rest; ++l)
+      copy_columns(wsm + (size_t)(IN + (l - 1) * W) * a.Cb, a.wr + (size_t)(l - 1) * W * W, W, W,
+                   a.Cb, j0, ncol, a.unit);
+    ggd::cp_async_commit();
+  }
+
+  const float eps = 1e-8f;
+  for (int b = 0; b < B; ++b) {
+    float ss = 0.f;
+    for (int i = tid; i < Z; i += kThreads) {
+      const float v = a.z[b * Z + i];
+      ss += v * v;
+    }
+    const float r = rsqrtf(ggd::block_sum(ss, red) / Z + eps);
+    for (int i = tid; i < Z; i += kThreads) x0[b * IN + i] = ggd::bf16r(a.z[b * Z + i] * r);
+  }
+  if (Cd > 0) {
+    for (int j = tid; j < W; j += kThreads) {
+      float acc[kMaxB];
+#pragma unroll
+      for (int b = 0; b < kMaxB; ++b) acc[b] = 0.f;
+      for (int i = 0; i < Cd; ++i) {
+        const float wv = ggd::bf16f(a.we[(size_t)i * W + j]);
+#pragma unroll
+        for (int b = 0; b < kMaxB; ++b)
+          if (b < B) acc[b] += ggd::bf16r(a.c[b * Cd + i]) * wv;
+      }
+#pragma unroll
+      for (int b = 0; b < kMaxB; ++b)
+        if (b < B) x0[b * IN + Z + j] = acc[b] + a.be[j];
+    }
+    for (int b = 0; b < B; ++b) {
+      float ss = 0.f;
+      for (int j = tid; j < W; j += kThreads) {
+        const float v = x0[b * IN + Z + j];
+        ss += v * v;
+      }
+      const float r = rsqrtf(ggd::block_sum(ss, red) / W + eps);
+      for (int j = tid; j < W; j += kThreads)
+        x0[b * IN + Z + j] = ggd::bf16r(x0[b * IN + Z + j] * r);
+    }
+  }
+  ggd::cp_async_wait_all();
+  __syncthreads();
+
+  cg::grid_group grid = cg::this_grid();
+  for (int l = 0; l <= a.n_rest; ++l) {
+    const int K = l == 0 ? IN : W;
+    const __nv_bfloat16* w;
+    int ldw;
+    if (a.resident) {
+      w = wsm + (size_t)(l == 0 ? 0 : IN + (l - 1) * W) * a.Cb;
+      ldw = a.Cb;
+    } else {
+      w = (l == 0 ? a.w0 : a.wr + (size_t)(l - 1) * W * W) + j0;
+      ldw = W;
+    }
+    const float* bias = l == 0 ? a.b0 : a.br + (size_t)(l - 1) * W;
+    float* xout = a.act + (size_t)(l & 1) * B * W;
+    const bool last = l == a.n_rest;
+    if (l == 0)
+      layer<false>(a, x0, IN, K, w, ldw, bias, xout, last, j0, ncol, red);
+    else
+      layer<true>(a, a.act + (size_t)((l - 1) & 1) * B * W, W, K, w, ldw, bias, xout, last, j0,
+                  ncol, red);
+    if (!last) grid.sync();   // every block's columns of this layer are written
   }
 }
 
 }  // namespace
 
+// act: 2 x B x W f32 scratch. One cooperative launch of ceil(W / Cb)
+// blocks, at most one per SM; refused (cudaErrorCooperativeLaunchTooLarge)
+// when they cannot all be resident at once.
 extern "C" int ggd_mapping_forward(const void* z, const void* c, const void* we,
                                    const void* be, const void* w0, const void* b0,
                                    const void* wr, const void* br, const void* wavg,
-                                   float psi, void* out, int B, int Z, int Cd, int W,
+                                   float psi, void* out, void* act, int B, int Z, int Cd, int W,
                                    int n_rest, void* stream) {
   if (B < 1 || B > kMaxB || Z < 1 || W < 1 || n_rest < 0) return (int)cudaErrorInvalidValue;
-  const int IN = Z + (Cd > 0 ? W : 0);
-  const int LDA = IN > W ? IN : W;
-  const size_t smem = (2 * (size_t)B * LDA + 32) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(mapping_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev, n_sm, smem_max, coop;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  mapping_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)z, (const float*)c, (const __nv_bfloat16*)we, (const float*)be,
-      (const __nv_bfloat16*)w0, (const float*)b0, (const __nv_bfloat16*)wr,
-      (const float*)br, (const float*)wavg, psi, (float*)out, B, Z, Cd, W, n_rest);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return (int)cudaErrorNotSupported;
+  MapArgs a{(const float*)z, (const float*)c, (const __nv_bfloat16*)we, (const float*)be,
+            (const __nv_bfloat16*)w0, (const float*)b0, (const __nv_bfloat16*)wr,
+            (const float*)br, (const float*)wavg, psi, (float*)out, (float*)act,
+            B, Z, Cd, W, n_rest, 0, 1, 0};
+  // columns a block: W over the SMs, even (or a multiple of 4) where W
+  // allows copies of 4 (8) bytes
+  a.Cb = (W + n_sm - 1) / n_sm;
+  if (W % 2 == 0) a.Cb += a.Cb % 2;
+  if (W % 4 == 0 && a.Cb > 2) a.Cb += (4 - a.Cb % 4) % 4;
+  a.unit = (W % 4 == 0 && a.Cb % 4 == 0) ? 4 : ((W % 2 == 0 && a.Cb % 2 == 0) ? 2 : 1);
+  const int nblk = (W + a.Cb - 1) / a.Cb;
+  const int IN = Z + (Cd > 0 ? W : 0);
+  const size_t base = (size_t)base_floats(B * IN) * sizeof(float);
+  const size_t weights = (size_t)(IN + n_rest * W) * a.Cb * sizeof(__nv_bfloat16);
+  a.resident = base + weights <= (size_t)smem_max;
+  const size_t smem = base + (a.resident ? weights : 0);
+  if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(mapping_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mapping_kernel, kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm * n_sm < nblk) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel((void*)mapping_kernel, dim3(nblk), dim3(kThreads), args, smem,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

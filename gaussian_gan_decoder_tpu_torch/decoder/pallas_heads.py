@@ -151,6 +151,10 @@ def pack_chain_f32(heads: Dict[str, torch.nn.Module], chain_spec: Sequence[Tuple
     for name, out_dim in chain_spec:
         seq = heads[name].backbone
         n_in = seq[0].weight.shape[1]
+        if n_in > stage_col:
+            # K6 multiplies the staging prefix only: w1's rows past it are zero
+            raise ValueError(f"head {name!r} takes {n_in} inputs, past its staging prefix "
+                             f"({stage_col} columns)")
         ws["w1"].append(F.pad(seq[0].weight.t(), (0, 0, 0, STAGE - n_in)))
         ws["w2"].append(seq[2].weight.t())
         ws["w3"].append(seq[4].weight.t())
@@ -513,13 +517,19 @@ decode_project_slab.launches = 0
 # ---------------------------------------------------------------------------
 # Kernel K6, csrc/heads_train.cu::heads_fwd_kernel, replaces the TPU kernel
 # decoder/pallas_heads.py::decode_heads_pallas (_heads_kernel) in f32. What
-# bounds it on the H100: operations, ~5.1e5 FLOPs per point, as f32 FMAs on
-# the CUDA cores (csrc/chain.cuh::hidden_layer): one block per 64 points,
-# the staging and hidden activations and the current layer's f32 weights
-# in shared memory.
-
-FWD_POINTS_PER_BLOCK = 64   # K6 block; K7 walks BWD_TILE-point tiles
-
+# bounds it on the H100: operations, ~5.1e5 FLOPs per point, whose least
+# time at f32 accuracy is 3xTF32 on the tensor cores (each f32 operand split
+# into TF32 high and low parts, three mma.sync products): 1.16 ms for the
+# train step's 500,000 points, against 2.86 ms as f32 FMAs on the CUDA
+# cores, where K6 ran before (64-point blocks, 16 KB of weights a point from
+# L2, activations through shared memory). Its design: one block of 8 warps
+# per 128 points, each warp keeping its 16
+# points' activations in registers through all 20 layers (the accumulator
+# fragment of a layer is the next layer's A fragment), the staging in shared
+# memory, the weights split into TF32 (hi, lo) pairs once per call and
+# streamed by cp.async into a two-slot ring, half a layer a slot, while the
+# stage before computes (12.5 KB a point from L2); layer 1 skips w1's zero
+# rows past each head's staging prefix. A ragged last block is masked.
 
 def build_staging_f32(feats_mean, cond0, init_position):
     """(M, 128) f32 staging of the training chain (the JAX package's
@@ -578,22 +588,25 @@ def check_chain_f32(cw: ChainWeights):
 
 def decode_heads(staging: torch.Tensor, cw: ChainWeights) -> torch.Tensor:
     """The f32 training chain -> (Mpad, 16) packed transformed outputs.
-    staging (Mpad, 128) f32 with Mpad a multiple of 64; cw from
-    pack_chain_f32. CPU tensors take the plain version, CUDA tensors
-    kernel K6."""
+    staging (Mpad, 128) f32, Mpad > 0; cw from pack_chain_f32. CPU tensors
+    take the plain version, CUDA tensors kernel K6 (after a small kernel
+    that splits w1..w3 into TF32 (hi, lo) pairs, 2 MB of scratch)."""
     if not kernel_lib.use_kernel(staging, cw.w1):
         return decode_heads_plain(staging, cw)
     lib = kernel_lib.library()
     Mpad = staging.shape[0]
-    if Mpad % FWD_POINTS_PER_BLOCK:
-        raise ValueError(f"Mpad {Mpad} is not a multiple of {FWD_POINTS_PER_BLOCK}")
+    if Mpad <= 0:
+        raise ValueError(f"Mpad {Mpad}: no points")
     kernel_lib.check(staging, "staging", torch.float32, (Mpad, STAGE))
     check_chain_f32(cw)
+    H_ = cw.w1.shape[0]
     out = torch.empty((Mpad, OUT_W), dtype=torch.float32, device=staging.device)
+    wsplit = torch.empty((H_, 3, STAGE, STAGE, 2), dtype=torch.float32, device=staging.device)
     code = lib.ggd_heads_fwd(
         staging.data_ptr(), *[getattr(cw, n).data_ptr() for n in
                               ("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4")],
-        cw.meta.data_ptr(), out.data_ptr(), Mpad, cw.scale_offset, kernel_lib.stream())
+        cw.meta.data_ptr(), out.data_ptr(), wsplit.data_ptr(), Mpad, H_, _GELU_IDS[cw.gelu],
+        cw.scale_offset, kernel_lib.stream())
     kernel_lib.raise_on_error(code, "heads_fwd_kernel")
     decode_heads.launches += 1
     return out

@@ -27,7 +27,7 @@ import torch
 
 from .. import kernel_lib
 from .pallas_heads import (
-    FWD_POINTS_PER_BLOCK, GELUS, INIT_COL, OUT_W, STAGE, ChainWeights, _erf,
+    GELUS, INIT_COL, OUT_W, STAGE, ChainWeights, _erf,
     build_staging_f32, check_chain_f32, decode_heads, pack_chain_f32)
 
 BWD_TILE = 64          # K7 points per tile; a ragged last tile is masked in the kernel
@@ -142,21 +142,18 @@ class _HeadsChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, staging, w1, b1, w2, b2, w3, b3, w4, b4, spec):
         cw = ChainWeights(w1, b1, w2, b2, w3, b3, w4, b4, *spec)
-        M = staging.shape[0]
-        Mpad = -(-M // FWD_POINTS_PER_BLOCK) * FWD_POINTS_PER_BLOCK
-        st = torch.nn.functional.pad(staging, (0, 0, 0, Mpad - M)).contiguous()
+        st = staging.contiguous()
         out = decode_heads(st, cw)
         ctx.save_for_backward(st, out, w1, b1, w2, b2, w3, b3, w4, b4)
-        ctx.spec, ctx.M = spec, M
-        return out[:M]
+        ctx.spec = spec
+        return out
 
     @staticmethod
     def backward(ctx, dout):
         st, out, *ws = ctx.saved_tensors
         cw = ChainWeights(*ws, *ctx.spec)
-        dpad = torch.nn.functional.pad(dout.float(), (0, 0, 0, st.shape[0] - ctx.M))
-        dstage, grads = decode_heads_bwd(st, out, dpad.contiguous(), cw)
-        return (dstage[:ctx.M], *grads, None)
+        dstage, grads = decode_heads_bwd(st, out, dout.float().contiguous(), cw)
+        return (dstage, *grads, None)
 
 
 def decode_heads_pallas_diff(heads: Dict[str, torch.nn.Module],

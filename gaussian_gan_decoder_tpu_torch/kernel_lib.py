@@ -39,7 +39,7 @@ _F = ctypes.c_float
 # C entry points (csrc/*.cu) -> argtypes; every one returns cudaGetLastError()
 _SIGNATURES = {
     # mapping.cu
-    "ggd_mapping_forward": [_P] * 9 + [_F, _P] + [_I] * 5 + [_P],
+    "ggd_mapping_forward": [_P] * 9 + [_F, _P, _P] + [_I] * 5 + [_P],
     # slab_decode.cu
     "ggd_slab_decode": [_P] * 17 + [_I] * 7 + [_F, _F, _P],
     # blend.cu
@@ -48,7 +48,7 @@ _SIGNATURES = {
     "ggd_blend_train_fwd": [_P, _P, _P] + [_I] * 5 + [_P],
     "ggd_blend_train_bwd": [_P] * 5 + [_I] * 5 + [_P],
     # heads_train.cu
-    "ggd_heads_fwd": [_P] * 11 + [_I, _F, _P],
+    "ggd_heads_fwd": [_P] * 12 + [_I, _I, _I, _F, _P],
     "ggd_heads_bwd": [_P] * 15 + [_I, _I, _F, _P],
     # brick_table.cu
     "ggd_brick_table": [_P, _P] + [_I] * 6 + [_P],

@@ -49,8 +49,8 @@ def variants(src: str):
                    ("      for (int j = 0; j < 8; ++j) old[hr][j] = row[hr][4 * j];",
                     "      for (int j = 0; j < 8; ++j) old[hr][j] = make_float2(0.f, 0.f);")],
         "no_wgrad": [(wgrad, wgrad + "  return;\n")],
-        "no_gelu": [("a[j][e] = gelu_and_grad(z[j][e], unused);", "a[j][e] = z[j][e];"),
-                    ("a[j][e] = gelu_and_grad(z[j][e], z[j][e]);", "a[j][e] = z[j][e];")],
+        "no_gelu": [("a[j][e] = ggd::gelu_and_grad(z[j][e], unused);", "a[j][e] = z[j][e];"),
+                    ("a[j][e] = ggd::gelu_and_grad(z[j][e], z[j][e]);", "a[j][e] = z[j][e];")],
         "no_l4": [(l4, l4.replace("      for (int e", "      if (Mpad < 0) for (int e"))],
         "no_xw_gwt": [(mma_f, keep_f), (mma_d, keep_d)],
     }

@@ -118,3 +118,18 @@ def test_heads_bwd_is_the_gradient_of_the_forward(chain):
     assert _relerr(dst.numpy(), st.grad.numpy()) <= 1e-5
     for n, g in zip(("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4"), grads):
         assert _relerr(g.numpy(), getattr(cw, n).grad.numpy()) <= 1e-5, n
+
+
+def test_chain_packing_leaves_w1_zero_past_each_prefix(chain):
+    """K6's layer 1 multiplies only the rows of w1 within each head's
+    staging prefix (meta stage column): the packing must leave the rest
+    zero, and refuses a head with inputs past its prefix."""
+    _, heads, _, _ = chain
+    cw = pack_chain_f32(heads, CHAIN, 3, -2.5, "exact")
+    for h, (name, od, sc, oc) in enumerate(cw.chain):
+        assert int(cw.meta[6 + h]) == sc
+        assert bool((cw.w1[h, sc:] == 0).all())
+        assert bool((cw.w1[h, :sc] != 0).any(dim=1).all())
+    wide = dict(heads, color=DecoderHead(40, 3))
+    with pytest.raises(ValueError, match="past its staging prefix"):
+        pack_chain_f32(wide, CHAIN, 3, -2.5, "exact")

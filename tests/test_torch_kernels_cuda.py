@@ -34,19 +34,38 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("batch,c_dim", [(1, 25), (3, 25), (2, 0)])
-def test_mapping_kernel(cuda, batch, c_dim):
+@pytest.mark.parametrize("batch,c_dim,width", [
+    (1, 25, 96), (3, 25, 96), (2, 0, 96), (8, 25, 96), (4, 25, 96), (2, 25, 97),
+    (1, 25, 512), (4, 25, 512), (2, 25, 1536)])
+def test_mapping_kernel(cuda, batch, c_dim, width):
+    """K1 against its plain version. Width 96 runs 48 blocks of 2 columns
+    (4-byte copies), 97 97 blocks of 1 (plain loads), the flagship's 512
+    (z 512, c 25, 8 layers) 128 blocks of 4 (8-byte copies); at 1536 the
+    weight columns pass shared memory and are read from device memory.
+    Batch 4 is the frame stream's batch, 8 the most the kernel takes. Two
+    launches give the same bits (fixed-order sums). From width 512 on, c is
+    the zeroed camera, the c every frame gives K1: there the chain can carry
+    an f32 summation-order difference through its bf16 roundings to ~3e-3
+    of the output (the plain version's own distance, on the CPU, from the
+    same arithmetic with each sum taken in float64: 2.9e-3 with a random c
+    at batch 1 and width 512, and with the zeroed camera at batch 1 and
+    width 1536; at most 3.2e-4 for the cases here)."""
     g = torch.Generator().manual_seed(batch)
-    mn = MappingNetwork(64, c_dim, 96, num_ws=5, generator=g)
+    z_dim = 64 if width < 512 else 512
+    mn = MappingNetwork(z_dim, c_dim, width, num_ws=5, generator=g)
     with torch.no_grad():
         mn.w_avg.normal_(generator=g)
     fm = pallas_mapping.fold_mapping(mn.to(cuda))
-    z = torch.randn(batch, 64, generator=g).to(cuda)
+    z = torch.randn(batch, z_dim, generator=g).to(cuda)
     c = torch.randn(batch, c_dim, generator=g).to(cuda) if c_dim else None
+    if width >= 512:
+        c = torch.zeros_like(c)
     out = pallas_mapping.mapping_forward(z, c, fm, 0.7)[:, 0]
+    again = pallas_mapping.mapping_forward(z, c, fm, 0.7)[:, 0]
     ref = pallas_mapping.mapping_forward_plain(z, c, fm, 0.7)
     torch.cuda.synchronize()
     assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-3
+    assert torch.equal(out, again)
 
 
 def _small_frame(cuda, block=256):
@@ -216,26 +235,17 @@ def test_blend_train_kernels(cuda, max_k):
 def test_heads_train_kernels(cuda, M):
     """K6 and K7 against decode_heads_plain / decode_heads_bwd_plain on the
     exact-GELU sequential_reversed chain: outputs within 1e-5 and gradients
-    within 1e-4 of their max (f32 on the CUDA cores, 3xTF32 on the tensor
-    cores: summation order only). 16448 points give K7 more 64-point tiles
-    than blocks; 8224 end in a half tile, masked inside K7. Two launches of
-    K7 give bit-identical results (fixed-order partial sums, no atomics)."""
+    within 1e-4 of their max (3xTF32 on the tensor cores: summation order
+    only). 16448 points give K7 more 64-point tiles than blocks; 8224 end in
+    a half tile of K7 and a quarter block of K6 (128 points), masked inside
+    both. Two launches
+    of K7 give bit-identical results (fixed-order partial sums, no atomics)."""
     from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads_vjp
-    from gaussian_gan_decoder_tpu_torch.decoder.heads import CHAIN, DecoderHead
 
-    g = torch.Generator().manual_seed(0)
-    heads, cond = {}, 3
-    for name, od in CHAIN:
-        heads[name] = DecoderHead(32 + cond, od, generator=g).to(cuda)
-        cond += od
-    feats = (torch.randn(M, 32, generator=g) * 2).to(cuda)
-    pos = (torch.rand(M, 3, generator=g) - 0.5).to(cuda)
+    cw, st = _train_chain(cuda, M, "exact")
+    g = torch.Generator().manual_seed(1)
     with torch.no_grad():
-        cw = pallas_heads.pack_chain_f32(heads, CHAIN, 3, -2.5, "exact")
-        st = pallas_heads.build_staging_f32(feats, pos, pos)
-        pad = -M % pallas_heads.FWD_POINTS_PER_BLOCK
-        out = pallas_heads.decode_heads(torch.nn.functional.pad(st, (0, 0, 0, pad)), cw)
-        out = out[:M].contiguous()
+        out = pallas_heads.decode_heads(st, cw)
         ref = pallas_heads.decode_heads_plain(st, cw)
         dout = torch.randn(M, 16, generator=g).to(cuda)
         dst, grads = pallas_heads_vjp.decode_heads_bwd(st, out, dout, cw)
@@ -248,3 +258,33 @@ def test_heads_train_kernels(cuda, M):
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
     assert torch.equal(dst, dst2)
     assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+@pytest.mark.parametrize("gelu", ["tanh", "poly", "poly6", "none"])
+def test_heads_fwd_gelu_kinds(cuda, gelu):
+    """K6 with every other GELU the chain takes (the train step uses the
+    exact one), on a ragged 1000-point staging, within 1e-5 of its max."""
+    cw, st = _train_chain(cuda, 1000, gelu)
+    with torch.no_grad():
+        out = pallas_heads.decode_heads(st, cw)
+        ref = pallas_heads.decode_heads_plain(st, cw)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-5
+
+
+def _train_chain(cuda, M, gelu):
+    """The sequential_reversed chain with seeded heads and an (M, 128) f32
+    staging of seeded features and positions."""
+    from gaussian_gan_decoder_tpu_torch.decoder.heads import CHAIN, DecoderHead
+
+    g = torch.Generator().manual_seed(0)
+    heads, cond = {}, 3
+    for name, od in CHAIN:
+        heads[name] = DecoderHead(32 + cond, od, generator=g).to(cuda)
+        cond += od
+    feats = (torch.randn(M, 32, generator=g) * 2).to(cuda)
+    pos = (torch.rand(M, 3, generator=g) - 0.5).to(cuda)
+    with torch.no_grad():
+        cw = pallas_heads.pack_chain_f32(heads, CHAIN, 3, -2.5, gelu)
+        st = pallas_heads.build_staging_f32(feats, pos, pos)
+    return cw, st
