@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / H100 port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--dump FILE]
 
 Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
 (nvcc, sm_90a, into gaussian_gan_decoder_tpu_torch/_build/), then:
 
-  1. requires TF32 HMMA in K6's SASS (cuobjdump -sass of the built
-     library; every kernel's HMMA counts are printed), then checks each
-     kernel against its plain PyTorch version on the card, at the flagship
-     frame's own shapes, and times both; K1 at batch 1 and at the stream's
-     batch 4, its time read from the profiler; the training blend
-     kernels (K4, K5) are held on the frame's pairs too, and on those pairs
-     widened and made more opaque until pixels saturate;
+  1. requires TF32 HMMA in K6's SASS and LDS.128 in K3's (cuobjdump -sass
+     of the built library; every kernel's HMMA, SHFL and LDS.128 counts are
+     printed), then checks each kernel against its plain PyTorch version on
+     the card, at the flagship frame's own shapes, and times both; K1 at
+     batch 1 and at the stream's batch 4 with a random camera; K1 and K3-K5
+     timed by CUDA events around calls queued behind a device sleep (their
+     device time, not the wrappers' host time); the training blend kernels
+     (K4, K5) are held on the
+     frame's pairs too, and on those pairs widened and made more opaque
+     until pixels saturate (K4's chunk entries against the plain forward's
+     cumulative product, K5 launched twice: the same bits); each pair set's
+     per-tile pair statistics are printed;
   2. drives the port's main path — flagship.decode_and_render on the slab
      route of the PanoHead flagship (z/w 512, 256^2 tri-grid of depth 3,
      500k seeded template Gaussians, 512^2 frame, seeded random weights,
@@ -58,7 +63,9 @@ quantile of the first latent's sigma grid (the JAX CLI's level 10 crosses
 no cube of a random field).
 
 It exits non-zero, printing no result, when no CUDA device is present or a
-phase fails. It never imports jax.
+phase fails. It never imports jax. --dump FILE saves the frame's and the
+warm-up train step's blend inputs (torch.save) for scripts/blend_time.py,
+which times K3-K5 of this or another checkout on them.
 """
 from __future__ import annotations
 
@@ -90,9 +97,10 @@ PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12, "tf32x3": 495e12 / 3, "bf16": 989e12
 PEAK_NAMES = {"f32": "f32 CUDA cores 67 TFLOP/s", "tf32": "TF32 495 TFLOP/s",
               "tf32x3": "3xTF32 165 TFLOP/s", "bf16": "bf16 989 TFLOP/s"}
 # FLOPs of one (pair, pixel) evaluation of a blend: the falloff, alpha and
-# the blend (K3, K4), and the training replay with its 9 gradient terms
-# and their pixel sums (K5)
-BLEND_EVAL_FLOPS = {"blend": 20, "blend_train_fwd": 25, "blend_train_bwd": 70}
+# the blend (K3, K4), and the training replay with its gradient terms and
+# their pixel sums (K5: with the 8 pixels of a column sharing dx, the 5
+# conic and position terms come from 3 running sums)
+BLEND_EVAL_FLOPS = {"blend": 20, "blend_train_fwd": 25, "blend_train_bwd": 45}
 
 # kernel name -> (source, TPU kernel it replaces: file:line of its pallas_call)
 KERNELS = {
@@ -142,43 +150,57 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def profiled_ms(torch, fn, iters, kernel):
-    """Mean device ms per call of fn of the kernels whose name holds
-    `kernel`, over iters calls under torch.profiler (after one warm-up):
-    the kernel's own time, where events around the calls of a kernel of
-    tens of microseconds read the host's launch path."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def queued_ms(torch, fn, iters):
+    """Mean device ms per call of fn, a kernel wrapper that never waits on
+    the device: CUDA events around iters calls queued behind a ~10 ms
+    device sleep, so that the device runs them back to back whatever the
+    host's launch path costs (events around calls on an idle device read
+    that path where it is the longer)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and kernel in e.key]
-    n = sum(e.count for e in ev)
-    require(n == iters, f"the profiler saw {n} launches of {kernel} in {iters} calls")
-    return sum(e.self_device_time_total for e in ev) / 1e3 / iters
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
-def sass_hmma(so):
-    """HMMA instructions of each kernel of the built library, from
-    cuobjdump -sass -> {kernel: {mnemonic: count}}."""
+def sass_counts(so):
+    """The instructions that show each kernel's design, from cuobjdump -sass
+    of the built library -> {kernel: {mnemonic: count}}: HMMA (tensor
+    cores), SHFL (warp shuffles) and LDS.128 (16-byte shared loads)."""
     import re
     from gaussian_gan_decoder_tpu_torch import kernel_lib
     tool = os.path.join(os.path.dirname(kernel_lib._nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
                           check=True).stdout
     counts, fn = {}, None
+    pattern = re.compile(r"\b(HMMA\.[\w.]+|SHFL\.\w+|LDS\.128)\b")
     for line in text.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-        elif fn is not None and "HMMA" in line:
-            op = re.search(r"HMMA\.[\w.]+", line).group(0)
-            counts.setdefault(fn, {}).setdefault(op, 0)
-            counts[fn][op] += 1
+            counts.setdefault(fn, {})
+        elif fn is not None and (m := pattern.search(line)):
+            counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
     return counts
+
+
+def tile_stats(torch, starts, max_k, label):
+    """Pairs per tile of one binning: the largest count, the mean and p99
+    within max_k, the tiles at max_k and the empty ones. Printed."""
+    counts = (starts[1:] - starts[:-1]).long()
+    within = torch.clamp(counts, max=max_k).float()
+    st = dict(tiles=int(counts.numel()), largest=int(counts.max()), mean=float(within.mean()),
+              p99=float(torch.quantile(within, 0.99)), at_max_k=int((counts >= max_k).sum()),
+              empty=int((counts == 0).sum()), pairs=int(within.sum()))
+    print(f"tile pairs ({label}, max_k {max_k}): {st['pairs']} pairs within max_k over "
+          f"{st['tiles']} tiles; largest {st['largest']}, mean {st['mean']:.2f}, p99 "
+          f"{st['p99']:.1f}; {st['at_max_k']} tiles at max_k, {st['empty']} empty")
+    return st
 
 
 def paired_ms(torch, kernel_fn, plain_fn, iters):
@@ -338,9 +360,9 @@ def train_path(torch, run, steps):
     originals = {k: getattr(mod, fn) for k, (mod, fn) in wrappers.items()}
 
     def recording(key, fn):
-        def rec(*a):
+        def rec(*a, **kw):
             captured.setdefault(key, tuple(_detached(torch, x) for x in a))
-            return fn(*a)
+            return fn(*a, **kw)
         # a wrapper that counts itself through its module's global name
         # counts on the recorder while it stands in that name
         rec.launches = 0
@@ -391,11 +413,15 @@ def train_path(torch, run, steps):
                 zs=zs, draws=draws)
 
 
-def blend_train_evaluations(torch, starts, attrs, grid, max_k):
-    """(pair, pixel) evaluations the training rule needs: per pixel, the
-    pairs of its tile (up to max_k) until T falls below 1e-4."""
+def blend_evaluations(torch, starts, attrs, grid, max_k, training):
+    """(pair, pixel) evaluations of a blend -> (blended, live): blended, the
+    pairs of each pixel's tile (up to max_k), for the training rule only
+    until T falls below 1e-4; live, those of them whose alpha reaches the
+    1/255 cut, the evaluations whose result the output needs (the bounds
+    count these: a blend may skip the others, as K3 and K5 do beyond a
+    pair's reach)."""
     from gaussian_gan_decoder_tpu_torch.splat import pallas_blend as pb
-    T, n, dev = grid * grid, 0, attrs.device
+    T, blended, live_n, dev = grid * grid, 0, 0, attrs.device
     for t0 in range(0, T, pb.PLAIN_TILES_PER_CHUNK):
         t1 = min(T, t0 + pb.PLAIN_TILES_PER_CHUNK)
         pairs = pb._pairs_of_tiles(starts, t0, t1, max_k, dev)
@@ -404,70 +430,98 @@ def blend_train_evaluations(torch, starts, attrs, grid, max_k):
         valid, idx = pairs
         *_, alpha, live = pb._falloff_plain(attrs, idx, valid, torch.arange(t0, t1, device=dev),
                                             grid, 16)
-        _, _, t_i, _ = pb._train_mask(alpha, live)
-        n += int(((t_i >= 1e-4) & valid[:, None, :]).sum())
-    return n
+        if training:
+            _, live, t_i, _ = pb._train_mask(alpha, live)
+            blended += int(((t_i >= 1e-4) & valid[:, None, :]).sum())
+        else:
+            blended += 256 * int(valid.sum())
+        live_n += int(live.sum())
+    return blended, live_n
 
 
 def blend_train_kernels(torch, starts, attrs, gx, gy, ts, max_k, dout, label):
-    """Hold K4 and K5 against their plain versions on one blend's sorted
-    pairs and a cotangent dout (T, 256, 4) of K4's output; time both in
-    turns; work out each bound. -> {kernel name: readings}."""
+    """Hold K4 (with its chunk entries) and K5 against their plain versions
+    on one blend's sorted pairs and a cotangent dout (T, 256, 4) of K4's
+    output, K5 launched twice (the same bits); time both in turns; work out
+    each bound. -> {kernel name: readings}."""
     from gaussian_gan_decoder_tpu_torch.splat import pallas_blend as pb
     readings = {}
-    # -- K4: training blend forward ---------------------------------------
-    out = pb.blend_train(starts, attrs, gx, gy, ts, max_k)
+    tile_stats(torch, starts, max_k, label)
+    # -- K4: training blend forward, with the chunk entries K5 starts from --
+    out, ent = pb.blend_train(starts, attrs, gx, gy, ts, max_k, entries=True)
     acc_p, tr_p = pb.blend_train_plain(starts, attrs, gx, gy, ts, max_k)
+    ent_p = pb.blend_train_entries_plain(starts, attrs, gx, gy, ts, max_k)
+    _, _, slot = pb.entry_slots(starts, max_k)
     torch.cuda.synchronize()
     dpix = torch.maximum((out[..., :3] - acc_p).abs().amax(dim=2), (out[..., 3] - tr_p).abs())
     err, frac = float(dpix.max()), float((dpix <= 1e-5).float().mean())
-    ms, plain_ms = paired_ms(
-        torch, lambda: pb.blend_train(starts, attrs, gx, gy, ts, max_k),
+    dent = (ent[slot] - ent_p[slot]).abs().amax(dim=2)
+    e_err, e_frac = float(dent.max()), float((dent <= 1e-5).float().mean())
+    e_exact = float((ent[slot][..., 3] == ent_p[slot][..., 3]).float().mean())
+    del ent_p
+    ev_ms, plain_ms = paired_ms(
+        torch, lambda: pb.blend_train(starts, attrs, gx, gy, ts, max_k, entries=True),
         lambda: pb.blend_train_plain(starts, attrs, gx, gy, ts, max_k), 5)
-    evals = blend_train_evaluations(torch, starts, attrs, gx, max_k)
+    ms = queued_ms(torch, lambda: pb.blend_train(starts, attrs, gx, gy, ts, max_k, entries=True),
+                   20)
+    evals, live = blend_evaluations(torch, starts, attrs, gx, max_k, True)
     blended = int(torch.clamp(starts[1:] - starts[:-1], max=max_k).sum())
     saturated = float((out[..., 3] < 1e-4).float().mean())
-    b4 = bound(blended * 9 * 4 + nbytes(starts, out),
-               BLEND_EVAL_FLOPS["blend_train_fwd"] * evals, "f32")
+    ent_bytes = int(slot.numel()) * 256 * 4 * 4
+    b4 = bound(blended * 9 * 4 + nbytes(starts, out) + ent_bytes,
+               BLEND_EVAL_FLOPS["blend_train_fwd"] * live, "f32")
     print(f"K4 blend train fwd ({label}): {attrs.shape[1]} pairs, {blended} within max_k "
           f"{max_k}; {evals} (pair, pixel) evaluations before saturation of {256 * blended} "
-          f"({evals / max(1, 256 * blended):.4f}); {saturated:.5f} of pixels end below "
-          f"T 1e-4; max|d| {err:.3e}, within 1e-5 on {frac:.5f} of pixels; kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {b4[0]:.4f} ms")
+          f"({evals / max(1, 256 * blended):.4f}), {live} of them live (alpha >= 1/255); "
+          f"{saturated:.5f} of pixels end below "
+          f"T 1e-4; max|d| {err:.3e}, within 1e-5 on {frac:.5f} of pixels; chunk entries "
+          f"({slot.numel()} chunks of {pb.ENTRY_CHUNK}) against the plain forward's "
+          f"cumulative product and sum: max|d| {e_err:.3e}, within 1e-5 on {e_frac:.5f}, T "
+          f"bit-exact on {e_exact:.5f}; kernel {ms:.4f} ms device (queued events), {ev_ms:.4f} ms "
+          f"a call (events), plain {plain_ms:.3f} ms, bound {b4[0]:.4f} ms")
     # a pixel whose T crosses 1e-4 at another pair in the plain version's
     # cumprod differs by that pair's weight (< 1e-4 times its colour)
     require(frac >= 0.999 and err <= 1e-3, f"K4 disagrees ({label}): max {err}, frac {frac}")
+    require(e_frac >= 0.999 and e_err <= 1e-3,
+            f"K4's entries disagree ({label}): max {e_err}, frac {e_frac}")
     readings["blend_train_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b4,
                                        saturated=saturated,
                                        eval_share=evals / max(1, 256 * blended))
 
-    # -- K5: training blend backward ----------------------------------------
-    d_k = pb.blend_train_bwd(starts, attrs, out, dout, gx, gy, ts, max_k)
+    # -- K5: training blend backward, from K4's entries ------------------------
+    d_k = pb.blend_train_bwd(starts, attrs, out, dout, gx, gy, ts, max_k, ent)
+    d_2 = pb.blend_train_bwd(starts, attrs, out, dout, gx, gy, ts, max_k, ent)
     d_p = pb.blend_train_bwd_plain(starts, attrs, out[..., :3], out[..., 3], dout[..., :3],
                                    dout[..., 3], gx, gy, ts, max_k)
     torch.cuda.synchronize()
     require(bool(torch.isfinite(d_k).all()), f"K5 wrote non-finite gradients ({label})")
+    same = torch.equal(d_k, d_2)
+    del d_2
     rel = ((d_k - d_p).abs().amax(dim=1) / d_p.abs().amax(dim=1).clamp(min=1e-30))
     err = float((d_k - d_p).abs().max())
     # a pair gets no gradient from a pixel past that pixel's stop, so none
     # at all behind a saturated tile (and none past max_k)
     zero_k, zero_p = (d_k == 0).all(dim=0), (d_p == 0).all(dim=0)
     zero, zero_agree = float(zero_p.float().mean()), float((zero_k == zero_p).float().mean())
-    ms, plain_ms = paired_ms(
-        torch, lambda: pb.blend_train_bwd(starts, attrs, out, dout, gx, gy, ts, max_k),
+    ev_ms, plain_ms = paired_ms(
+        torch, lambda: pb.blend_train_bwd(starts, attrs, out, dout, gx, gy, ts, max_k, ent),
         lambda: pb.blend_train_bwd_plain(starts, attrs, out[..., :3], out[..., 3],
                                          dout[..., :3], dout[..., 3], gx, gy, ts, max_k), 2)
-    b5 = bound(2 * blended * 9 * 4 + nbytes(starts, out, dout),
-               BLEND_EVAL_FLOPS["blend_train_bwd"] * evals, "f32")
+    ms = queued_ms(torch,
+                   lambda: pb.blend_train_bwd(starts, attrs, out, dout, gx, gy, ts, max_k, ent), 20)
+    b5 = bound(2 * blended * 9 * 4 + nbytes(starts, out, dout) + ent_bytes,
+               BLEND_EVAL_FLOPS["blend_train_bwd"] * live, "f32")
     print(f"K5 blend train bwd ({label}): per-field max|d| / max|plain| "
           f"{', '.join(f'{v:.2e}' for v in rel.tolist())}; zero gradient on {zero:.5f} of "
-          f"the pairs (kernel and plain agree on {zero_agree:.6f}); kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {b5[0]:.4f} ms")
-    # S_i = accum . dC - prefix_i (K5) against the plain version's cumsum,
-    # divided by 1 - alpha >= 0.01: f32 rounding read up to ~1e-5 of a
-    # field's largest gradient, saturation flips below 1e-4
+          f"the pairs (kernel and plain agree on {zero_agree:.6f}); two launches "
+          f"bit-identical: {same}; kernel {ms:.4f} ms device (queued events), {ev_ms:.4f} ms a "
+          f"call (events), plain {plain_ms:.3f} ms, bound {b5[0]:.4f} ms")
+    # S_i = (accum - accum_entry) . dC - local_i (K5) against the plain
+    # version's cumsum, divided by 1 - alpha >= 0.01: f32 rounding read up
+    # to ~1e-5 of a field's largest gradient, saturation flips below 1e-4
     require(float(rel.max()) <= 1e-3, f"K5 disagrees ({label}): {rel.tolist()}")
     require(zero_agree >= 0.999, f"K5 zero-gradient pairs disagree ({label}): {zero_agree}")
+    require(same, f"K5 is not bit-identical from launch to launch ({label})")
     readings["blend_train_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b5)
     return readings
 
@@ -478,7 +532,7 @@ def train_kernels(torch, captured, results):
     from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads, pallas_heads_vjp
     with torch.no_grad():
         # -- K4 / K5 on the step's own pairs and cotangent ------------------
-        starts, attrs, _, dout, gx, gy, ts, max_k = captured["blend_train_bwd"]
+        starts, attrs, _, dout, gx, gy, ts, max_k, _ = captured["blend_train_bwd"]
         results.update(blend_train_kernels(torch, starts, attrs, gx, gy, ts, max_k, dout,
                                            "train step"))
 
@@ -842,6 +896,8 @@ def brick_phase(torch, dec, weights, planes, rows_slab, ctx, template, cam, cp, 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dump", default=None,
+                    help="save the frame's and the train step's blend inputs to this file")
     args = ap.parse_args(argv)
 
     import torch
@@ -877,14 +933,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernel_lib.library()
     print(f"build: kernels ready in {time.perf_counter() - t0:.1f} s")
-    # the tensor-core kernels, by their SASS: K6's 128 x 128 products must be
-    # TF32 HMMA (mma.sync), not FMAs
-    hmma = sass_hmma(kernel_lib.build())
-    for fn, ops in sorted(hmma.items()):
-        print(f"SASS {fn[:90]}: " + ", ".join(f"{op} x {n}" for op, n in sorted(ops.items())))
-    k6_sass = [ops for fn, ops in hmma.items() if "heads_fwd_kernel" in fn]
+    # the kernels' designs, by their SASS: K6's 128 x 128 products must be
+    # TF32 HMMA (mma.sync), not FMAs; K3 reads each staged pair by 16-byte
+    # shared loads; K5 reduces a pair's 9 sums with one reduce-scatter
+    sass = sass_counts(kernel_lib.build())
+    for fn, ops in sorted(sass.items()):
+        if ops:
+            print(f"SASS {fn[:90]}: " + ", ".join(f"{op} x {n}" for op, n in sorted(ops.items())))
+    k6_sass = [ops for fn, ops in sass.items() if "heads_fwd_kernel" in fn]
     require(k6_sass and all(any("TF32" in op for op in ops) for ops in k6_sass),
             "heads_fwd_kernel has no TF32 HMMA in its SASS")
+    k3_sass = [ops for fn, ops in sass.items() if "blend_kernel" in fn]
+    require(k3_sass and all(ops.get("LDS.128", 0) > 0 for ops in k3_sass),
+            "blend_kernel has no LDS.128 in its SASS")
 
     # -- the flagship model, template and camera ---------------------------
     rng = torch.Generator().manual_seed(args.seed)
@@ -907,30 +968,37 @@ def main(argv=None) -> int:
 
     with torch.inference_mode():
         # -- K1: mapping at B = 1 (the frames) and B = 4 (the stream) --------
-        # Events around 50 back-to-back wrapper calls read the host's launch
-        # path at tens of microseconds: the kernels line takes the
-        # profiler's device time of mapping_kernel.
+        # Events around 50 wrapper calls on an idle device read the host's
+        # launch path at tens of microseconds: the kernels line takes the
+        # calls queued behind a device sleep. (torch.profiler's device time,
+        # used before, has been seen to miss launches: 42 of 50, 0 of 20.)
+        # A random camera (the frames give K1 the zeroed one): both sides
+        # sum in float64, so the order of the sums does not show.
         fm = weights.mapping
+        cams = torch.tensor(nprng.randn(STREAM_BATCH, 25).astype(np.float32), device=dev)
         for B in (1, STREAM_BATCH):
-            zb = zs[:B, 0]
-            cb = torch.zeros((B, 25), dtype=torch.float32, device=dev)
+            zb, cb = zs[:B, 0], cams[:B]
             ws_k = pallas_mapping.mapping_forward(zb, cb, fm)[:, 0]
+            ws_2 = pallas_mapping.mapping_forward(zb, cb, fm)[:, 0]
             ws_p = pallas_mapping.mapping_forward_plain(zb, cb, fm)
             torch.cuda.synchronize()
             err = float((ws_k - ws_p).abs().max())
             rel = err / float(ws_p.abs().max())
+            exact = float((ws_k == ws_p).float().mean())
+            same = torch.equal(ws_k, ws_2)
             ev_ms, plain_ms = paired_ms(
                 torch, lambda: pallas_mapping.mapping_forward(zb, cb, fm),
                 lambda: pallas_mapping.mapping_forward_plain(zb, cb, fm), 50)
-            ms = profiled_ms(torch, lambda: pallas_mapping.mapping_forward(zb, cb, fm), 50,
-                             "mapping_kernel")
+            ms = queued_ms(torch, lambda: pallas_mapping.mapping_forward(zb, cb, fm), 50)
             b1 = bound(nbytes(fm.we, fm.be, fm.w0, fm.b0, fm.wr, fm.br, fm.w_avg, zb, cb, ws_k),
                        2 * B * sum(w.numel() for w in (fm.we, fm.w0, fm.wr) if w is not None),
                        "bf16")
-            print(f"K1 mapping (B {B}): max|d| {err:.3e} (rel {rel:.3e}), kernel {ms:.4f} ms "
-                  f"device (profiler), {ev_ms:.4f} ms a call (events around 50 calls), plain "
-                  f"{plain_ms:.4f} ms, bound {b1[0]:.4f} ms")
+            print(f"K1 mapping (B {B}, random camera): max|d| {err:.3e} (rel {rel:.3e}), "
+                  f"bit-exact on {exact:.5f} of the outputs, two launches bit-identical: "
+                  f"{same}; kernel {ms:.4f} ms device (queued events), {ev_ms:.4f} ms a call "
+                  f"(events), plain {plain_ms:.4f} ms, bound {b1[0]:.4f} ms")
             require(rel <= 1e-3, f"K1 disagrees with its plain version at B {B}: rel {rel:.3e}")
+            require(same, f"K1 is not bit-identical from launch to launch at B {B}")
             if B == 1:
                 results["mapping"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b1)
         z = zs[0]
@@ -964,25 +1032,30 @@ def main(argv=None) -> int:
         g = IMAGE // 16
         starts, attrs = fast_raster.bin_pairs(rows_k, g, g, 16)
         cap = flagship.flagship_raster_config().tile_capacity
+        tile_stats(torch, starts, cap, "frame pairs")
         acc_k, tr_k = pallas_blend.blend_tiles(starts, attrs, g, g, 16, cap)
         acc_p, tr_p = pallas_blend.blend_tiles_plain(starts, attrs, g, g, 16, cap)
         torch.cuda.synchronize()
         dpix = torch.maximum((acc_k - acc_p).abs().amax(dim=2), (tr_k - tr_p).abs())
         err = float(dpix.max())
         frac = float((dpix <= 1e-4).float().mean())
-        ms, plain_ms = paired_ms(
+        ev_ms, plain_ms = paired_ms(
             torch, lambda: pallas_blend.blend_tiles(starts, attrs, g, g, 16, cap),
             lambda: pallas_blend.blend_tiles_plain(starts, attrs, g, g, 16, cap), 5)
-        print(f"K3 blend: {attrs.shape[1]} pairs; max|d| {err:.3e}, within 1e-4 on "
-              f"{frac:.5f} of pixels; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        ms = queued_ms(torch, lambda: pallas_blend.blend_tiles(starts, attrs, g, g, 16, cap), 20)
+        # the inference rule keeps T decaying past the stop, so no pixel
+        # stops early; the bound counts the live evaluations
+        evals, live = blend_evaluations(torch, starts, attrs, g, cap, False)
+        print(f"K3 blend: {attrs.shape[1]} pairs; {evals} (pair, pixel) evaluations, {live} "
+              f"of them live (alpha >= 1/255); max|d| {err:.3e}, within 1e-4 on {frac:.5f} of "
+              f"pixels; kernel {ms:.4f} ms device (queued events), {ev_ms:.4f} ms a call "
+              f"(events), plain {plain_ms:.3f} ms")
         require(frac >= 0.999 and err <= 1e-2, f"K3 disagrees: max {err}, frac {frac}")
-        # the inference rule keeps T decaying past the stop: every blended
-        # pair is evaluated at every pixel of its tile
         blended = int(torch.clamp(starts[1:] - starts[:-1], max=cap).sum())
         results["blend"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound=bound(blended * 9 * 4 + nbytes(starts, acc_k, tr_k),
-                        BLEND_EVAL_FLOPS["blend"] * 256 * blended, "f32"))
+                        BLEND_EVAL_FLOPS["blend"] * live, "f32"))
 
         # -- K4 / K5 on the frame's pairs (max_k 1024, a seeded cotangent),
         # then on the same pairs 4x wider and more opaque: the random heads'
@@ -992,6 +1065,7 @@ def main(argv=None) -> int:
         # keeps the train step's readings.
         dout = torch.randn((g * g, 256, 4), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(args.seed))
+        dump = {"frame": (starts, attrs, dout)}
         blend_train_kernels(torch, starts, attrs, g, g, 16, 1024, dout, "frame pairs")
         wide = attrs.clone()
         wide[2:5] /= 16.0
@@ -1001,7 +1075,7 @@ def main(argv=None) -> int:
         sat = sat["blend_train_fwd"]
         require(sat["saturated"] >= 0.01 and sat["eval_share"] <= 0.9,
                 f"the widened frame pairs do not saturate: {sat}")
-        del dout, wide
+        del wide
 
         # -- reference frame: the plain versions, stage by stage -------------
         def plain_frame(z):
@@ -1077,6 +1151,11 @@ def main(argv=None) -> int:
     del run, tr
     torch.cuda.empty_cache()
     train_kernels(torch, captured, results)
+    if args.dump:
+        st, at, _, dt, *_ = captured["blend_train_bwd"]
+        dump["step"] = (st, at, dt)
+        torch.save({k: tuple(x.cpu() for x in v) for k, v in dump.items()}, args.dump)
+        print(f"blend inputs saved to {args.dump}")
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -1,5 +1,5 @@
 // Shared helpers of the port's CUDA kernels (plain C interface, sm_90a):
-// bf16 rounding, a block sum, and the tensor-core building blocks
+// bf16 rounding, the blends' falloff, and the tensor-core building blocks
 // (cp.async, ldmatrix, mma.sync in bf16; the split-TF32 ones are in
 // tf32.cuh).
 #pragma once
@@ -28,23 +28,57 @@ __device__ __forceinline__ float sgn(float x) { return (float)((x > 0.f) - (x < 
 // blends (K3, K4, K5), rounded op by op in the order the plain versions
 // evaluate it: with FMA contraction a (pair, pixel) whose alpha lies within
 // an ulp of the 1/255 cut is skipped on one side and blended on the other
-__device__ __forceinline__ float falloff_power(float ca, float cb, float cc, float dx, float dy) {
-  const float quad =
-      __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx), __fmul_rn(__fmul_rn(cc, dy), dy));
-  return __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(cb, dx), dy));
+//
+// A thread whose pixels share one column (one dx) takes the dx terms once a
+// pair (falloff_x) and each pixel's power from them (falloff_power_y): the
+// same operations and roundings as falloff_power.
+struct FalloffX {
+  float cadx2, cbdx;   // (ca dx) dx, cb dx
+};
+
+__device__ __forceinline__ FalloffX falloff_x(float ca, float cb, float dx) {
+  return {__fmul_rn(__fmul_rn(ca, dx), dx), __fmul_rn(cb, dx)};
 }
 
-// deterministic block-wide sum (every thread gets the total); red holds
-// one float per warp. blockDim.x must be a multiple of 32.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int nw = blockDim.x >> 5;
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int i = 0; i < nw; ++i) s += red[i];
-  __syncthreads();
-  return s;
+__device__ __forceinline__ float falloff_power_y(FalloffX fx, float cc, float dy) {
+  const float quad = __fadd_rn(fx.cadx2, __fmul_rn(__fmul_rn(cc, dy), dy));
+  return __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(fx.cbdx, dy));
+}
+
+__device__ __forceinline__ float falloff_power(float ca, float cb, float cc, float dx, float dy) {
+  return falloff_power_y(falloff_x(ca, cb, dx), cc, dy);
+}
+
+// A pair's reach: half-widths (ex, ey) about its centre beyond which no
+// pixel's alpha reaches the 1/255 cut as the blends compute it
+// (falloff_power, expf, the cut), so that a pixel, or a region of pixels,
+// at |dx| > ex or |dy| > ey may skip the pair: alpha would be 0 there, T and
+// the sums would not change. alpha >= 1/255 needs q = -2 power <= L =
+// 2 ln(255 op), and the ellipse q <= L spans |dx| <= sqrt(L cc / det),
+// |dy| <= sqrt(L ca / det), det = ca cc - cb^2. Margins: L is taken 1 %
+// larger plus 0.01 (the falloff's rounding, for a correlation |cb| /
+// sqrt(ca cc) <= 0.999, moves q by less than 0.08 %; expf's by 2 ulp), the
+// half-widths 0.1 % larger plus 0.01 px (their own rounding, and that of a
+// caller's dx, relative). -inf: no pixel anywhere (opacity below the cut);
+// +inf: any pixel (a conic not safely positive definite, or not finite).
+__device__ __forceinline__ float2 pair_reach(float ca, float cb, float cc, float op) {
+  const float kInf = __int_as_float(0x7f800000);
+  if (op < (1.f / 255.f) * 0.99999f) return make_float2(-kInf, -kInf);
+  const float L = 2.02f * logf(255.f * op) + 0.01f;
+  if (ca > 0.f && cc > 0.f && cb * cb <= 0.998f * (ca * cc)) {
+    const float det = ca * cc - cb * cb;
+    const float ex = sqrtf(L * cc / det) * 1.001f + 0.01f;
+    const float ey = sqrtf(L * ca / det) * 1.001f + 0.01f;
+    if (ex < kInf && ey < kInf) return make_float2(ex, ey);
+  }
+  return make_float2(kInf, kInf);
+}
+
+// whether the pixels [x0, x1] x [y0, y1] all lie beyond the reach r of a
+// pair centred at (gx, gy) (false for NaN)
+__device__ __forceinline__ bool beyond_reach(float2 r, float gx, float gy, float x0, float x1,
+                                             float y0, float y1) {
+  return x0 - gx > r.x || gx - x1 > r.x || y0 - gy > r.y || gy - y1 > r.y;
 }
 
 // ---- tensor-core building blocks (sm_80+ mma.sync, used on sm_90a) -------
@@ -57,10 +91,17 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// 4-byte asynchronous copy global -> shared (through L1)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src));
 }
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
 
 // four 8x8 b16 matrices; lane i gives the row address of matrix i / 8,
 // row i % 8. The .trans form hands each lane a column pair instead.

@@ -6,12 +6,26 @@
 //   y = bf16(c) @ we + be ; y *= rsqrt(mean(y^2) + 1e-8) ; x = [x, y]
 //   x = lrelu(bf16(x) @ w_l + b_l) * sqrt(2)   for the 8 layers
 //   out = w_avg + (x - w_avg) * psi
-// with bf16 weights (lr_mult/gain folded in by the host), activations
-// rounded to bf16 before each product and f32 accumulation.
+// with bf16 weights (lr_mult/gain folded in by the host) and activations
+// rounded to bf16 before each product.
+//
+// Sums: every sum (each layer's and the embed's dot products, both norms'
+// sums of squares) is taken in float64 and rounded once to f32 where the
+// TPU kernel holds an f32. A product of two bf16 values, or an f32 squared,
+// is exact in float64, so each sum is exact or within 1e-16 of it in any
+// order, and its f32 rounding does not depend on the order: the plain
+// version (models/pallas_mapping.py::mapping_forward_plain) takes the same
+// sums through float64 matmuls and gets the same bits. With f32 sums the
+// two orders flipped a bf16 rounding now and then, which 9 layers carried
+// to 2.9e-3 of the output at width 512 with a random camera. Each norm's
+// factor is 1 / sqrt in float64 rounded to f32 (both IEEE, correctly
+// rounded); bias, lrelu, the bf16 roundings and the truncation lerp are f32
+// operations in the plain version's order (no FMA contraction).
 //
 // Bound on the H100: the latency of 8 dependent layers; the bytes (4.7 MB
 // of bf16 weights at the flagship's width 512) take 1.4 us at 3.35 TB/s and
-// the FLOPs are ~8 MFLOP at batch 1. Design: one cooperative launch of up to
+// the FLOPs are ~8 MFLOP at batch 1 (float64 FMAs run at half the f32 rate,
+// ~16k a block a layer). Design: one cooperative launch of up to
 // one block per SM (132 on the H100). Block i owns Cb = W / nblk output
 // columns (4 at W 512) of every layer and at its start copies all of its
 // weight columns (fc0's rows and fc1..fc7's, 37 KB at W 512) into shared
@@ -39,12 +53,31 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxB = 8;
-constexpr int kGroup = 8;   // output columns a thread sums per pass
+constexpr int kGroup = 4;   // output columns a thread sums per pass
+constexpr int kRed = kWarps * kMaxB * kGroup;   // float64 partials of a pass
 
-// floats of shared memory before the weight columns: layer 0's input
-// (B x IN), the reduction buffer, padded to 16 bytes
+// floats of shared memory before the weight columns: the float64
+// reduction buffer, layer 0's input (B x IN), padded to 16 bytes
 __host__ __device__ __forceinline__ int base_floats(int x0_floats) {
-  return (x0_floats + kWarps * kMaxB * kGroup + 3) / 4 * 4;
+  return (2 * kRed + x0_floats + 3) / 4 * 4;
+}
+
+// deterministic block-wide float64 sum (every thread gets the total)
+__device__ __forceinline__ double block_sum64(double v, double* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  double s = 0.0;
+  for (int i = 0; i < kWarps; ++i) s += red[i];
+  __syncthreads();
+  return s;
+}
+
+// a norm's factor: 1 / sqrt(sum / n + eps) with the sum rounded to f32, the
+// mean and eps in f32, 1 / sqrt in float64 rounded once to f32
+__device__ __forceinline__ float norm_factor(double sum_sq, int n) {
+  const float m = __fadd_rn(__fdiv_rn((float)sum_sq, (float)n), 1e-8f);
+  return (float)(1.0 / sqrt((double)m));
 }
 
 struct MapArgs {
@@ -87,7 +120,8 @@ __device__ __forceinline__ void copy_columns(__nv_bfloat16* dst, const __nv_bflo
   }
 }
 
-// One layer: v[b][j] = sum_k x[b][k] w[k][j] for the block's columns, then
+// One layer: v[b][j] = sum_k x[b][k] w[k][j] (float64, rounded to f32) for
+// the block's columns, then
 // + bias, lrelu * sqrt 2, and either the bf16-rounded activation to xout
 // or (last) the truncation lerp to out. x is (B, K) with row stride ldx, in
 // shared memory (layer 0) or global memory written by other blocks
@@ -96,20 +130,20 @@ __device__ __forceinline__ void copy_columns(__nv_bfloat16* dst, const __nv_bflo
 template <bool kGlobalX>
 __device__ __forceinline__ void layer(const MapArgs& a, const float* x, int ldx, int K,
                                       const __nv_bfloat16* w, int ldw, const float* bias,
-                                      float* xout, bool last, int j0, int ncol, float* red) {
+                                      float* xout, bool last, int j0, int ncol, double* red) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float kSqrt2 = 1.41421356237309515f;
   for (int c0 = 0; c0 < ncol; c0 += kGroup) {
-    float acc[kMaxB][kGroup];
+    double acc[kMaxB][kGroup];
 #pragma unroll
     for (int b = 0; b < kMaxB; ++b)
 #pragma unroll
-      for (int c = 0; c < kGroup; ++c) acc[b][c] = 0.f;
+      for (int c = 0; c < kGroup; ++c) acc[b][c] = 0.0;
     for (int k = tid; k < K; k += kThreads) {
-      float xv[kMaxB];
+      double xv[kMaxB];
 #pragma unroll
       for (int b = 0; b < kMaxB; ++b) {
-        xv[b] = 0.f;
+        xv[b] = 0.0;
         if (b < a.B) {
           if constexpr (kGlobalX)
             xv[b] = __ldcg(x + b * ldx + k);
@@ -121,9 +155,10 @@ __device__ __forceinline__ void layer(const MapArgs& a, const float* x, int ldx,
 #pragma unroll
       for (int c = 0; c < kGroup; ++c) {
         if (c0 + c < ncol) {
-          const float wv = ggd::bf16f(wk[c]);
+          const double wv = ggd::bf16f(wk[c]);
+          // bf16 x bf16 is exact in float64: the FMA adds the exact product
 #pragma unroll
-          for (int b = 0; b < kMaxB; ++b) acc[b][c] += xv[b] * wv;
+          for (int b = 0; b < kMaxB; ++b) acc[b][c] = fma(xv[b], wv, acc[b][c]);
         }
       }
     }
@@ -132,7 +167,7 @@ __device__ __forceinline__ void layer(const MapArgs& a, const float* x, int ldx,
       if (b >= a.B) break;
 #pragma unroll
       for (int c = 0; c < kGroup; ++c) {
-        float v = acc[b][c];
+        double v = acc[b][c];
         for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
         if (lane == 0) red[(warp * kMaxB + b) * kGroup + c] = v;
       }
@@ -141,12 +176,13 @@ __device__ __forceinline__ void layer(const MapArgs& a, const float* x, int ldx,
     if (tid < a.B * kGroup) {
       const int b = tid / kGroup, c = tid % kGroup, j = j0 + c0 + c;
       if (c0 + c < ncol) {
-        float v = 0.f;
-        for (int wi = 0; wi < kWarps; ++wi) v += red[(wi * kMaxB + b) * kGroup + c];
-        v += bias[j];
-        v = (fmaxf(v, 0.f) + 0.2f * fminf(v, 0.f)) * kSqrt2;
+        double s = 0.0;
+        for (int wi = 0; wi < kWarps; ++wi) s += red[(wi * kMaxB + b) * kGroup + c];
+        float v = __fadd_rn((float)s, bias[j]);
+        // one of the two terms is 0: exact, contracted or not
+        v = __fmul_rn(fmaxf(v, 0.f) + 0.2f * fminf(v, 0.f), kSqrt2);
         if (last)
-          a.out[b * a.W + j] = a.wavg[j] + (v - a.wavg[j]) * a.psi;
+          a.out[b * a.W + j] = __fadd_rn(a.wavg[j], __fmul_rn(__fsub_rn(v, a.wavg[j]), a.psi));
         else
           __stcg(xout + b * a.W + j, ggd::bf16r(v));
       }
@@ -159,8 +195,8 @@ __global__ void __launch_bounds__(kThreads) mapping_kernel(MapArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int B = a.B, Z = a.Z, Cd = a.Cd, W = a.W;
   const int IN = Z + (Cd > 0 ? W : 0);
-  float* x0 = smem;                                  // B x IN: layer 0's input
-  float* red = x0 + B * IN;                          // kWarps x kMaxB x kGroup
+  double* red = reinterpret_cast<double*>(smem);     // kWarps x kMaxB x kGroup
+  float* x0 = smem + 2 * kRed;                       // B x IN: layer 0's input
   // the block's weight columns, layer after layer, from a 16-byte boundary
   __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem + base_floats(B * IN));
   const int tid = threadIdx.x;
@@ -177,40 +213,41 @@ __global__ void __launch_bounds__(kThreads) mapping_kernel(MapArgs a) {
     ggd::cp_async_commit();
   }
 
-  const float eps = 1e-8f;
+  // an f32 squared is exact in float64
   for (int b = 0; b < B; ++b) {
-    float ss = 0.f;
+    double ss = 0.0;
     for (int i = tid; i < Z; i += kThreads) {
-      const float v = a.z[b * Z + i];
-      ss += v * v;
+      const double v = a.z[b * Z + i];
+      ss = fma(v, v, ss);
     }
-    const float r = rsqrtf(ggd::block_sum(ss, red) / Z + eps);
-    for (int i = tid; i < Z; i += kThreads) x0[b * IN + i] = ggd::bf16r(a.z[b * Z + i] * r);
+    const float r = norm_factor(block_sum64(ss, red), Z);
+    for (int i = tid; i < Z; i += kThreads)
+      x0[b * IN + i] = ggd::bf16r(__fmul_rn(a.z[b * Z + i], r));
   }
   if (Cd > 0) {
     for (int j = tid; j < W; j += kThreads) {
-      float acc[kMaxB];
+      double acc[kMaxB];
 #pragma unroll
-      for (int b = 0; b < kMaxB; ++b) acc[b] = 0.f;
+      for (int b = 0; b < kMaxB; ++b) acc[b] = 0.0;
       for (int i = 0; i < Cd; ++i) {
-        const float wv = ggd::bf16f(a.we[(size_t)i * W + j]);
+        const double wv = ggd::bf16f(a.we[(size_t)i * W + j]);
 #pragma unroll
         for (int b = 0; b < kMaxB; ++b)
-          if (b < B) acc[b] += ggd::bf16r(a.c[b * Cd + i]) * wv;
+          if (b < B) acc[b] = fma((double)ggd::bf16r(a.c[b * Cd + i]), wv, acc[b]);
       }
 #pragma unroll
       for (int b = 0; b < kMaxB; ++b)
-        if (b < B) x0[b * IN + Z + j] = acc[b] + a.be[j];
+        if (b < B) x0[b * IN + Z + j] = __fadd_rn((float)acc[b], a.be[j]);
     }
     for (int b = 0; b < B; ++b) {
-      float ss = 0.f;
+      double ss = 0.0;
       for (int j = tid; j < W; j += kThreads) {
-        const float v = x0[b * IN + Z + j];
-        ss += v * v;
+        const double v = x0[b * IN + Z + j];
+        ss = fma(v, v, ss);
       }
-      const float r = rsqrtf(ggd::block_sum(ss, red) / W + eps);
+      const float r = norm_factor(block_sum64(ss, red), W);
       for (int j = tid; j < W; j += kThreads)
-        x0[b * IN + Z + j] = ggd::bf16r(x0[b * IN + Z + j] * r);
+        x0[b * IN + Z + j] = ggd::bf16r(__fmul_rn(x0[b * IN + Z + j], r));
     }
   }
   ggd::cp_async_wait_all();

@@ -45,8 +45,8 @@ _SIGNATURES = {
     # blend.cu
     "ggd_blend_tiles": [_P, _P, _P] + [_I] * 5 + [_P],
     # blend_train.cu
-    "ggd_blend_train_fwd": [_P, _P, _P] + [_I] * 5 + [_P],
-    "ggd_blend_train_bwd": [_P] * 5 + [_I] * 5 + [_P],
+    "ggd_blend_train_fwd": [_P] * 4 + [_I] * 6 + [_P],
+    "ggd_blend_train_bwd": [_P] * 6 + [_I] * 6 + [_P],
     # heads_train.cu
     "ggd_heads_fwd": [_P] * 12 + [_I, _I, _I, _F, _P],
     "ggd_heads_bwd": [_P] * 15 + [_I, _I, _F, _P],

@@ -17,9 +17,16 @@ K dependent 2-byte weight loads per column (1.76 ms on the H100).
 
 Numerics (both the kernel and mapping_forward_plain): bf16 weights with the
 lr_mult/gain folded in once on the host (fold_mapping), activations rounded
-to bf16 before every product, f32 accumulation — the TPU kernel's policy.
-The kernel sums each column over K in a fixed order: the same bits from
-run to run.
+to bf16 before every product — the TPU kernel's policy. Every sum (the
+layers' and the embed's dot products, the norms' sums of squares) is taken
+in float64 and rounded once to f32 where the TPU kernel holds an f32; a
+product of two bf16 values (or an f32 squared) is exact in float64, so the
+result does not depend on the order of the sum, and kernel and plain
+version agree to the last bit or nearly, at any width and camera. Each
+norm's factor is 1 / sqrt in float64 rounded to f32. Bias, lrelu, the bf16
+roundings and the truncation lerp are f32 operations in the same order on
+both sides. The kernel sums each column over K in a fixed order: the same
+bits from run to run.
 """
 from __future__ import annotations
 
@@ -80,19 +87,27 @@ def _lrelu(v):
     return (v.clamp(min=0) + 0.2 * v.clamp(max=0)) * math.sqrt(2.0)
 
 
+def _dot64(x, w):
+    """bf16(x) @ w summed in float64 (each product exact), rounded to f32."""
+    return (_bf16r(x).double() @ w.double()).float()
+
+
 def _norm(x, eps=1e-8):
-    return x * torch.rsqrt((x * x).mean(dim=1, keepdim=True) + eps)
+    """x * 1/sqrt(mean(x^2) + eps): the sum of squares in float64 rounded to
+    f32, the mean and eps in f32, 1/sqrt in float64 rounded to f32."""
+    ss = (x.double() ** 2).sum(dim=1, keepdim=True).float()
+    return x * (1.0 / torch.sqrt((ss / x.shape[1] + eps).double())).float()
 
 
 def mapping_forward_plain(z, c, fm: FoldedMapping, truncation_psi=1.0):
     """Plain PyTorch version of K1 -> (B, W) f32 (before the num_ws repeat)."""
     x = _norm(z.float())
     if fm.we is not None:
-        y = _bf16r(c.float()) @ fm.we.float() + fm.be
+        y = _dot64(c.float(), fm.we) + fm.be
         x = torch.cat([x, _norm(y)], dim=1)
-    x = _lrelu(_bf16r(x) @ fm.w0.float() + fm.b0)
+    x = _lrelu(_dot64(x, fm.w0) + fm.b0)
     for k in range(fm.wr.shape[0]):
-        x = _lrelu(_bf16r(x) @ fm.wr[k].float() + fm.br[k])
+        x = _lrelu(_dot64(x, fm.wr[k]) + fm.br[k])
     return fm.w_avg + (x - fm.w_avg) * truncation_psi
 
 

@@ -3,14 +3,20 @@
 
 Kernel K3, csrc/blend.cu::blend_kernel, replaces the TPU kernel
 splat/pallas_blend.py::pallas_blend (`_blend_kernel`, payload_format
-'f32'). What bounds it on the H100: per pair and pixel an exp and ~15 FLOPs
-of FMA work, with the pair stream of a tile read once — compute on the
-CUDA cores and the serial per-pixel dependency through the transmittance.
-Its design: one block per 16x16 tile, one thread per pixel; the tile's
-depth-sorted pairs are staged through shared memory in chunks of 256 (each
-thread loads one pair's 9 fields, coalesced along the field-major rows),
-then every thread walks the chunk in order. The blend is the sequential
-form of the TPU kernel's in-chunk cumprod.
+'f32'). What bounds it on the H100: the issue rate of the CUDA cores. T
+keeps decaying past the stop, so no pixel stops early: each blended pair is
+evaluated at every pixel of its tile within the pair's reach, each
+evaluation a chain of ~28 f32 operations and an exp (the falloff is rounded
+op by op, without FMAs); the pair stream of a tile is read once. Its design: one block of 128 threads per 16x16 tile, each
+warp 4 of the tile's rows, each thread two pixels of one column, so a pair
+read from shared memory and the falloff's dx terms serve two pixels and two
+independent transmittance chains overlap their latencies; the tile's
+depth-sorted pairs are staged pair-major (three 16-byte loads a pair),
+double-buffered by cp.async in chunks of 64, so the next chunk's loads
+overlap this chunk's blend; a warp skips a pair whose reach (the ellipse
+beyond which its alpha is below 1/255, with margins for rounding) misses its
+rows of the tile, as its alpha would be 0 at each pixel there. The blend is
+the sequential form of the TPU kernel's in-chunk cumprod.
 
 Semantics (kernel and blend_tiles_plain): pixel coords are the integers
 tx + p % ts, ty + p // ts (no +0.5); pairs [start, start + min(end-start,
@@ -29,6 +35,7 @@ from .. import kernel_lib
 
 ROWS = 9
 PLAIN_TILES_PER_CHUNK = 64   # tiles per step of the plain version
+ENTRY_CHUNK = 32             # pairs of a training chunk: K4's entries, K5's unit of work
 
 
 def blend_tiles_plain(tile_starts, attrs, grid_x: int, grid_y: int,
@@ -82,8 +89,8 @@ def blend_tiles(tile_starts: torch.Tensor, attrs: torch.Tensor, grid_x: int,
     lib = kernel_lib.library()
     T = grid_x * grid_y
     P = tile_size * tile_size
-    if P % 32 or P > 1024:
-        raise ValueError(f"tile_size {tile_size}: the kernel runs one thread per pixel")
+    if tile_size != 16:
+        raise ValueError(f"tile_size {tile_size}: the kernel blends 16x16 tiles")
     kernel_lib.check(tile_starts, "tile_starts", torch.int32, (T + 1,))
     kernel_lib.check(attrs, "attrs", torch.float32)
     if attrs.shape[0] != ROWS:
@@ -105,13 +112,19 @@ blend_tiles.launches = 0
 # ---------------------------------------------------------------------------
 # Kernels K4 and K5 replace the TPU kernels splat/pallas_blend.py::
 # _blend_train_fwd and _blend_train_bwd_call. What bounds them on the H100:
-# operations — an exp and ~20 FLOPs per (pair, pixel) forward, ~60 plus the
-# per-pair sums over the tile's pixels backward, serial per pixel through
-# the transmittance. Design (csrc/blend_train.cu): one block per tile, one
-# thread per pixel, the tile's pairs staged through shared memory in chunks
-# of 128; the forward exits once every pixel saturated; the backward replays
-# front to back with the forward's arithmetic and reduces each pair's
-# gradient over the tile's pixels with warp shuffles, no atomics.
+# operations — an exp and ~20 FLOPs per (pair, pixel) forward, ~45 plus the
+# per-pair sums over the tile's pixels backward — and the serial walk per
+# pixel through the transmittance: the train step's heaviest tiles hold
+# max_k pairs, its mean tile ~45. Design (csrc/blend_train.cu): K4 runs one
+# block per tile, one thread per pixel, exits once every pixel saturated,
+# and saves each pixel's state (accum rgb, T) at the start of every chunk
+# of ENTRY_CHUNK pairs (the entries, one slot per chunk; entry_slots). K5
+# runs one warp per chunk, so a heavy tile's walk is split over its
+# chunks: each replays its pairs front to back from K4's entry state with
+# the forward's arithmetic, each lane blending 8 pixels, skips the pairs
+# whose reach misses the tile (their alpha is 0 at every pixel), and
+# reduces each pair's gradient over the tile's pixels with one warp
+# reduce-scatter, no atomics.
 #
 # Training rule (kernels and plain versions): as the inference blend, but a
 # pair blends only while the transmittance T before it is >= 1e-4; after
@@ -119,7 +132,8 @@ blend_tiles.launches = 0
 # Backward: dalpha_i = T_i (c_i . dC) - S_i / (1 - a_i) - T_final dT / (1 - a_i)
 # with S_i = sum_{j > i} w_j (c_j . dC), zero where alpha was clamped
 # (op exp(power) >= 0.99), skipped or masked; S_i = accum . dC - prefix_i
-# from the forward's own accumulation.
+# from the forward's own accumulation (K5: (accum - accum_entry) . dC less
+# the chunk's running sum).
 
 def _pairs_of_tiles(tile_starts, t0, t1, max_k, dev):
     """-> (valid (nt, K), idx (nt, K)) of tiles [t0, t1): pair slots within
@@ -235,47 +249,111 @@ def _check_blend(tile_starts, attrs, grid_x, grid_y, tile_size):
         raise ValueError(f"attrs: expected {ROWS} field rows, got {attrs.shape[0]}")
 
 
+def entry_slot_count(n_tiles: int, n_pairs: int, chunk: int = ENTRY_CHUNK) -> int:
+    """Entry slots of K4's entries for n_tiles tiles over n_pairs sorted
+    pairs: enough for every chunk of every tile."""
+    return n_tiles + n_pairs // chunk + 1
+
+
+def entry_slots(tile_starts, max_k: int, chunk: int = ENTRY_CHUNK):
+    """-> (tile, chunk, slot) int64 of every chunk the tiles hold: tile t's
+    ceil(min(count, max_k) / chunk) chunks take the slots from
+    t + (start_t - start_0) // chunk on."""
+    s = tile_starts.long()
+    n_tiles, dev = s.shape[0] - 1, s.device
+    n_chunks = (torch.clamp(s[1:] - s[:-1], min=0, max=max_k) + chunk - 1) // chunk
+    tiles = torch.arange(n_tiles, device=dev)
+    first = tiles + (s[:-1] - s[0]) // chunk
+    tile = torch.repeat_interleave(tiles, n_chunks)
+    local = (torch.arange(tile.shape[0], device=dev)
+             - torch.repeat_interleave(torch.cumsum(n_chunks, 0) - n_chunks, n_chunks))
+    return tile, local, first[tile] + local
+
+
+def blend_train_entries_plain(tile_starts, attrs, grid_x: int, grid_y: int,
+                              tile_size: int = 16, max_k: int = 1024,
+                              chunk: int = ENTRY_CHUNK) -> torch.Tensor:
+    """Plain version of K4's entries -> (entry_slot_count, P, 4) f32: at
+    every chunk's slot, each pixel's (accum rgb, T) before the chunk's first
+    pair, from the plain forward's cumulative product and sum; NaN in the
+    slots no chunk takes."""
+    dev = attrs.device
+    T, P = grid_x * grid_y, tile_size * tile_size
+    ent = torch.full((entry_slot_count(T, attrs.shape[1], chunk), P, 4), float("nan"),
+                     dtype=torch.float32, device=dev)
+    tile, local, slot = entry_slots(tile_starts, max_k, chunk)
+    for t0 in range(0, T, PLAIN_TILES_PER_CHUNK):
+        t1 = min(T, t0 + PLAIN_TILES_PER_CHUNK)
+        pairs = _pairs_of_tiles(tile_starts, t0, t1, max_k, dev)
+        if pairs is None:
+            continue
+        valid, idx = pairs
+        a, _, _, _, _, alpha, live = _falloff_plain(
+            attrs, idx, valid, torch.arange(t0, t1, device=dev), grid_x, tile_size)
+        alpha, _, t_i, _ = _train_mask(alpha, live)
+        acc = torch.cumsum((alpha * t_i)[..., None] * a[6:9].permute(1, 2, 0)[:, None], dim=2)
+        acc = torch.cat([torch.zeros_like(acc[:, :, :1]), acc[:, :, :-1]], dim=2)
+        sel = (tile >= t0) & (tile < t1)
+        tt, kk = tile[sel] - t0, local[sel] * chunk
+        ent[slot[sel]] = torch.cat([acc[tt, :, kk], t_i[tt, :, kk][..., None]], dim=2)
+    return ent
+
+
 def blend_train(tile_starts: torch.Tensor, attrs: torch.Tensor, grid_x: int, grid_y: int,
-                tile_size: int = 16, max_k: int = 1024) -> torch.Tensor:
+                tile_size: int = 16, max_k: int = 1024, entries: bool = False):
     """Training blend forward -> out (T, P, 4) f32: accumulated rgb and the
-    final transmittance per pixel. CPU tensors take the plain version, CUDA
-    tensors kernel K4."""
+    final transmittance per pixel; with entries, (out, ent): ent (
+    entry_slot_count(T, Ptot), P, 4) holds each pixel's (accum rgb, T) at
+    the start of every ENTRY_CHUNK pairs of its tile (entry_slots; the
+    kernel leaves the other slots unwritten), which K5 starts from. CPU
+    tensors take the plain versions, CUDA tensors kernel K4."""
     if not kernel_lib.use_kernel(tile_starts, attrs):
         accum, trans = blend_train_plain(tile_starts, attrs, grid_x, grid_y, tile_size, max_k)
-        return torch.cat([accum, trans[..., None]], dim=2)
+        out = torch.cat([accum, trans[..., None]], dim=2)
+        if not entries:
+            return out
+        return out, blend_train_entries_plain(tile_starts, attrs, grid_x, grid_y, tile_size,
+                                              max_k)
     lib = kernel_lib.library()
     _check_blend(tile_starts, attrs, grid_x, grid_y, tile_size)
-    T = grid_x * grid_y
-    out = torch.empty((T, tile_size * tile_size, 4), dtype=torch.float32, device=attrs.device)
+    T, P = grid_x * grid_y, tile_size * tile_size
+    out = torch.empty((T, P, 4), dtype=torch.float32, device=attrs.device)
+    ent = torch.empty((entry_slot_count(T, attrs.shape[1]), P, 4), dtype=torch.float32,
+                      device=attrs.device)
     code = lib.ggd_blend_train_fwd(
-        tile_starts.data_ptr(), attrs.data_ptr(), out.data_ptr(), attrs.shape[1], grid_x,
-        T, tile_size, max_k, kernel_lib.stream())
+        tile_starts.data_ptr(), attrs.data_ptr(), out.data_ptr(), ent.data_ptr(),
+        attrs.shape[1], grid_x, T, tile_size, max_k, ENTRY_CHUNK, kernel_lib.stream())
     kernel_lib.raise_on_error(code, "blend_train_fwd_kernel")
     blend_train.launches += 1
-    return out
+    return (out, ent) if entries else out
 
 
 def blend_train_bwd(tile_starts: torch.Tensor, attrs: torch.Tensor, out: torch.Tensor,
                     dout: torch.Tensor, grid_x: int, grid_y: int, tile_size: int = 16,
-                    max_k: int = 1024) -> torch.Tensor:
-    """Training blend backward: out (T, P, 4) from blend_train and its
-    cotangent dout -> dattrs (9, Ptot). CPU tensors take the plain version,
-    CUDA tensors kernel K5."""
+                    max_k: int = 1024, ent: torch.Tensor | None = None) -> torch.Tensor:
+    """Training blend backward: out (T, P, 4) and ent from
+    blend_train(..., entries=True) and out's cotangent dout -> dattrs (9,
+    Ptot). CPU tensors take the plain version (which needs no ent), CUDA
+    tensors kernel K5."""
     if not kernel_lib.use_kernel(tile_starts, attrs, out, dout):
         return blend_train_bwd_plain(tile_starts, attrs, out[..., :3], out[..., 3],
                                      dout[..., :3], dout[..., 3], grid_x, grid_y,
                                      tile_size, max_k)
     lib = kernel_lib.library()
     _check_blend(tile_starts, attrs, grid_x, grid_y, tile_size)
-    T = grid_x * grid_y
-    shape = (T, tile_size * tile_size, 4)
+    T, P = grid_x * grid_y, tile_size * tile_size
+    shape = (T, P, 4)
     kernel_lib.check(out, "out", torch.float32, shape)
     kernel_lib.check(dout, "dout", torch.float32, shape)
+    if ent is None:
+        raise ValueError("ent: K5 replays each chunk from K4's entries "
+                         "(blend_train(..., entries=True))")
+    kernel_lib.check(ent, "ent", torch.float32, (entry_slot_count(T, attrs.shape[1]), P, 4))
     dattrs = torch.zeros_like(attrs)
     code = lib.ggd_blend_train_bwd(
         tile_starts.data_ptr(), attrs.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        dattrs.data_ptr(), attrs.shape[1], grid_x, T, tile_size, max_k,
-        kernel_lib.stream())
+        ent.data_ptr(), dattrs.data_ptr(), attrs.shape[1], grid_x, T, tile_size, max_k,
+        ENTRY_CHUNK, kernel_lib.stream())
     kernel_lib.raise_on_error(code, "blend_train_bwd_kernel")
     blend_train_bwd.launches += 1
     return dattrs
@@ -288,15 +366,19 @@ blend_train_bwd.launches = 0
 class _BlendTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, attrs, tile_starts, grid_x, grid_y, tile_size, max_k):
-        out = blend_train(tile_starts, attrs, grid_x, grid_y, tile_size, max_k)
-        ctx.save_for_backward(tile_starts, attrs, out)
+        # the plain backward needs no entries
+        if kernel_lib.use_kernel(tile_starts, attrs):
+            out, ent = blend_train(tile_starts, attrs, grid_x, grid_y, tile_size, max_k, True)
+        else:
+            out, ent = blend_train(tile_starts, attrs, grid_x, grid_y, tile_size, max_k), None
+        ctx.save_for_backward(tile_starts, attrs, out, ent)
         ctx.geom = (grid_x, grid_y, tile_size, max_k)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        tile_starts, attrs, out = ctx.saved_tensors
-        dattrs = blend_train_bwd(tile_starts, attrs, out, dout.contiguous(), *ctx.geom)
+        tile_starts, attrs, out, ent = ctx.saved_tensors
+        dattrs = blend_train_bwd(tile_starts, attrs, out, dout.contiguous(), *ctx.geom, ent)
         return dattrs, None, None, None, None, None
 
 

@@ -38,18 +38,17 @@ def cuda():
     (1, 25, 96), (3, 25, 96), (2, 0, 96), (8, 25, 96), (4, 25, 96), (2, 25, 97),
     (1, 25, 512), (4, 25, 512), (2, 25, 1536)])
 def test_mapping_kernel(cuda, batch, c_dim, width):
-    """K1 against its plain version. Width 96 runs 48 blocks of 2 columns
-    (4-byte copies), 97 97 blocks of 1 (plain loads), the flagship's 512
-    (z 512, c 25, 8 layers) 128 blocks of 4 (8-byte copies); at 1536 the
-    weight columns pass shared memory and are read from device memory.
-    Batch 4 is the frame stream's batch, 8 the most the kernel takes. Two
-    launches give the same bits (fixed-order sums). From width 512 on, c is
-    the zeroed camera, the c every frame gives K1: there the chain can carry
-    an f32 summation-order difference through its bf16 roundings to ~3e-3
-    of the output (the plain version's own distance, on the CPU, from the
-    same arithmetic with each sum taken in float64: 2.9e-3 with a random c
-    at batch 1 and width 512, and with the zeroed camera at batch 1 and
-    width 1536; at most 3.2e-4 for the cases here)."""
+    """K1 against its plain version, with a random camera at every width.
+    Width 96 runs 48 blocks of 2 columns (4-byte copies), 97 97 blocks of 1
+    (plain loads), the flagship's 512 (z 512, c 25, 8 layers) 128 blocks of
+    4 (8-byte copies); at 1536 the weight columns pass shared memory and are
+    read from device memory. Batch 4 is the frame stream's batch, 8 the most
+    the kernel takes. Both sides take every sum in float64 (exact products,
+    so the order of the sums does not show) and round it to f32 at the same
+    points, so they agree to the last bit or nearly; with f32 sums the
+    flagship chain carried the two orders' difference through its bf16
+    roundings to ~3e-3. Two launches give the same bits (fixed-order
+    sums)."""
     g = torch.Generator().manual_seed(batch)
     z_dim = 64 if width < 512 else 512
     mn = MappingNetwork(z_dim, c_dim, width, num_ws=5, generator=g)
@@ -58,8 +57,6 @@ def test_mapping_kernel(cuda, batch, c_dim, width):
     fm = pallas_mapping.fold_mapping(mn.to(cuda))
     z = torch.randn(batch, z_dim, generator=g).to(cuda)
     c = torch.randn(batch, c_dim, generator=g).to(cuda) if c_dim else None
-    if width >= 512:
-        c = torch.zeros_like(c)
     out = pallas_mapping.mapping_forward(z, c, fm, 0.7)[:, 0]
     again = pallas_mapping.mapping_forward(z, c, fm, 0.7)[:, 0]
     ref = pallas_mapping.mapping_forward_plain(z, c, fm, 0.7)
@@ -215,20 +212,101 @@ def test_blend_train_kernels(cuda, max_k):
     plain version's cumulative products round in another order)."""
     st, at = _train_pairs(0, max_k=max_k)
     starts, attrs = torch.tensor(st, device=cuda), torch.tensor(at, device=cuda)
-    out = pallas_blend.blend_train(starts, attrs, 4, 4, 16, max_k)
+    out, ent = pallas_blend.blend_train(starts, attrs, 4, 4, 16, max_k, entries=True)
     acc_p, tr_p = pallas_blend.blend_train_plain(starts, attrs, 4, 4, 16, max_k)
     torch.cuda.synchronize()
     assert float((out[..., :3] - acc_p).abs().max()) <= 1e-5
     assert float((out[..., 3] - tr_p).abs().max()) <= 1e-5
     g = torch.Generator(device="cpu").manual_seed(1)
     dout = torch.randn(out.shape, generator=g).to(cuda)
-    d_k = pallas_blend.blend_train_bwd(starts, attrs, out, dout, 4, 4, 16, max_k)
+    d_k = pallas_blend.blend_train_bwd(starts, attrs, out, dout, 4, 4, 16, max_k, ent)
     d_p = pallas_blend.blend_train_bwd_plain(starts, attrs, acc_p, tr_p, dout[..., :3],
                                              dout[..., 3], 4, 4, 16, max_k)
     torch.cuda.synchronize()
     err = (d_k - d_p).abs().amax(dim=1) / d_p.abs().amax(dim=1).clamp(min=1e-12)
     assert float(err.max()) <= 1e-3, err.tolist()
     assert bool(torch.isfinite(d_k).all())
+
+
+def _step_pairs(seed, grid_x, grid_y, heavy, saturate):
+    """Per-tile pairs shaped as the train step's: one tile of `heavy`
+    pairs, the rest light, among them an empty tile and tiles of C - 1, C,
+    C + 1 and 2C + 1 pairs (C the training chunk, pallas_blend.ENTRY_CHUNK).
+    saturate: wide Gaussians of opacity 0.6-1, so that most pixels fall
+    below T 1e-4."""
+    rng = np.random.RandomState(seed)
+    C, T = pallas_blend.ENTRY_CHUNK, grid_x * grid_y
+    counts = rng.randint(3, 60, size=T)
+    counts[:6] = [heavy, 0, C - 1, C, C + 1, 2 * C + 1]
+    counts = counts[rng.permutation(T)]
+    cols = []
+    for t in range(T):
+        n = counts[t]
+        ox, oy = (t % grid_x) * 16, (t // grid_x) * 16
+        s = rng.uniform(4.0, 12.0, (2, n)) if saturate else rng.uniform(1.0, 6.0, (2, n))
+        rho = rng.uniform(-0.6, 0.6, n)
+        det = (s[0] * s[1]) ** 2 * (1 - rho ** 2)
+        op = rng.uniform(0.6, 1.0, n) if saturate else rng.uniform(0.05, 0.95, n)
+        op[rng.rand(n) < 0.1] = 0.999
+        cols.append(np.stack([ox + rng.uniform(-4, 20, n), oy + rng.uniform(-4, 20, n),
+                              s[1] ** 2 / det, -rho * s[0] * s[1] / det, s[0] ** 2 / det, op,
+                              *rng.uniform(0, 1.2, (3, n))]))
+    attrs = np.concatenate(cols, axis=1).astype(np.float32)
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return torch.tensor(starts), torch.tensor(attrs)
+
+
+def _hold_pixels(a, b, tol, limit):
+    """chip_smoke.py's blend checks: 99.9 % of pixels within tol, none past
+    limit (a pixel whose T crosses 1e-4 at another pair in the plain
+    version's cumulative product differs by that pair's weight)."""
+    d = (a - b).abs().amax(dim=-1)
+    assert float((d <= tol).float().mean()) >= 0.999 and float(d.max()) <= limit, float(d.max())
+
+
+@pytest.mark.parametrize("saturate", [False, True])
+def test_blend_kernel_step_shape(cuda, saturate):
+    """K3 against blend_tiles_plain at its cap 640, on a ragged 5 x 3 tile
+    grid with one tile past the cap, an empty tile and chunk-boundary
+    counts."""
+    starts, attrs = (x.to(cuda) for x in _step_pairs(3, 5, 3, 700, saturate))
+    acc, tr = pallas_blend.blend_tiles(starts, attrs, 5, 3, 16, 640)
+    acc_p, tr_p = pallas_blend.blend_tiles_plain(starts, attrs, 5, 3, 16, 640)
+    torch.cuda.synchronize()
+    _hold_pixels(torch.cat([acc, tr[..., None]], 2), torch.cat([acc_p, tr_p[..., None]], 2),
+                 1e-4, 1e-2)
+
+
+@pytest.mark.parametrize("saturate", [False, True])
+def test_blend_train_kernels_step_shape(cuda, saturate):
+    """K4 (with its chunk entries) and K5 against their plain versions at
+    max_k 1024, on a ragged 5 x 3 tile grid with one tile at max_k, an empty
+    tile and chunk-boundary counts: outputs and entries as chip_smoke.py
+    holds them (99.9 % of pixels within 1e-5, max 1e-3), gradients within
+    1e-3 of each field's largest with zero-gradient agreement >= 0.999; two
+    K5 launches give the same bits."""
+    starts, attrs = (x.to(cuda) for x in _step_pairs(4, 5, 3, 1100, saturate))
+    out, ent = pallas_blend.blend_train(starts, attrs, 5, 3, 16, 1024, entries=True)
+    acc_p, tr_p = pallas_blend.blend_train_plain(starts, attrs, 5, 3, 16, 1024)
+    ent_p = pallas_blend.blend_train_entries_plain(starts, attrs, 5, 3, 16, 1024)
+    _, _, slot = pallas_blend.entry_slots(starts, 1024)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+    d_k = pallas_blend.blend_train_bwd(starts, attrs, out, dout, 5, 3, 16, 1024, ent)
+    d_2 = pallas_blend.blend_train_bwd(starts, attrs, out, dout, 5, 3, 16, 1024, ent)
+    d_p = pallas_blend.blend_train_bwd_plain(starts, attrs, acc_p, tr_p, dout[..., :3],
+                                             dout[..., 3], 5, 3, 16, 1024)
+    torch.cuda.synchronize()
+    _hold_pixels(out, torch.cat([acc_p, tr_p[..., None]], 2), 1e-5, 1e-3)
+    assert not bool(torch.isnan(ent_p[slot]).any())
+    _hold_pixels(ent[slot], ent_p[slot], 1e-5, 1e-3)
+    if saturate:
+        assert float((out[..., 3] < 1e-4).float().mean()) >= 0.3
+    assert torch.equal(d_k, d_2)
+    assert bool(torch.isfinite(d_k).all())
+    err = (d_k - d_p).abs().amax(dim=1) / d_p.abs().amax(dim=1).clamp(min=1e-12)
+    assert float(err.max()) <= 1e-3, err.tolist()
+    zero_agree = ((d_k == 0).all(dim=0) == (d_p == 0).all(dim=0)).float().mean()
+    assert float(zero_agree) >= 0.999
 
 
 @pytest.mark.parametrize("M", [16384 + 64, 8192 + 32])
