@@ -16,8 +16,9 @@ Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
      (K4, K5) are held on the
      frame's pairs too, and on those pairs widened and made more opaque
      until pixels saturate (K4's chunk entries against the plain forward's
-     cumulative product, K5 launched twice: the same bits); each pair set's
-     per-tile pair statistics are printed;
+     cumulative product, K4 and K5 each launched twice: the same bits); each
+     pair set's per-tile pair statistics, and the share of (pixel, chunk)
+     entries whose chunk K4's scan replayed pair by pair, are printed;
   2. drives the port's main path — flagship.decode_and_render on the slab
      route of the PanoHead flagship (z/w 512, 256^2 tri-grid of depth 3,
      500k seeded template Gaussians, 512^2 frame, seeded random weights,
@@ -439,20 +440,39 @@ def blend_evaluations(torch, starts, attrs, grid, max_k, training):
     return blended, live_n
 
 
+def scan_replays(torch, out, ent, tile, slot):
+    """The (pixel, chunk) entries whose chunk K4's scan replayed pair by
+    pair, from K4's own entries: those that enter the chunk open (T >=
+    1e-4) and leave it below pallas_blend.FAST_T, which the product path
+    never does (a replay that ends within ~8e-6 relative above FAST_T is
+    not counted). tile, slot: entry_slots, tile by tile in chunk order."""
+    from gaussian_gan_decoder_tpu_torch.splat import pallas_blend as pb
+    t_in = ent[slot][..., 3]
+    last = torch.ones_like(tile, dtype=torch.bool)
+    last[:-1] = tile[1:] != tile[:-1]
+    t_out = torch.where(last[:, None], out[tile][..., 3], ent[torch.roll(slot, -1)][..., 3])
+    return int(((t_in >= 1e-4) & (t_out < pb.FAST_T)).sum())
+
+
 def blend_train_kernels(torch, starts, attrs, gx, gy, ts, max_k, dout, label):
     """Hold K4 (with its chunk entries) and K5 against their plain versions
     on one blend's sorted pairs and a cotangent dout (T, 256, 4) of K4's
-    output, K5 launched twice (the same bits); time both in turns; work out
-    each bound. -> {kernel name: readings}."""
+    output, each launched twice (the same bits); count the chunks K4's scan
+    replayed; time both in turns; work out each bound. -> {kernel name:
+    readings}."""
     from gaussian_gan_decoder_tpu_torch.splat import pallas_blend as pb
     readings = {}
     tile_stats(torch, starts, max_k, label)
     # -- K4: training blend forward, with the chunk entries K5 starts from --
     out, ent = pb.blend_train(starts, attrs, gx, gy, ts, max_k, entries=True)
+    out_2, ent_2 = pb.blend_train(starts, attrs, gx, gy, ts, max_k, entries=True)
     acc_p, tr_p = pb.blend_train_plain(starts, attrs, gx, gy, ts, max_k)
     ent_p = pb.blend_train_entries_plain(starts, attrs, gx, gy, ts, max_k)
-    _, _, slot = pb.entry_slots(starts, max_k)
+    tile, _, slot = pb.entry_slots(starts, max_k)
     torch.cuda.synchronize()
+    same4 = torch.equal(out, out_2) and torch.equal(ent[slot], ent_2[slot])
+    del out_2, ent_2
+    replayed = scan_replays(torch, out, ent, tile, slot)
     dpix = torch.maximum((out[..., :3] - acc_p).abs().amax(dim=2), (out[..., 3] - tr_p).abs())
     err, frac = float(dpix.max()), float((dpix <= 1e-5).float().mean())
     dent = (ent[slot] - ent_p[slot]).abs().amax(dim=2)
@@ -477,13 +497,16 @@ def blend_train_kernels(torch, starts, attrs, gx, gy, ts, max_k, dout, label):
           f"T 1e-4; max|d| {err:.3e}, within 1e-5 on {frac:.5f} of pixels; chunk entries "
           f"({slot.numel()} chunks of {pb.ENTRY_CHUNK}) against the plain forward's "
           f"cumulative product and sum: max|d| {e_err:.3e}, within 1e-5 on {e_frac:.5f}, T "
-          f"bit-exact on {e_exact:.5f}; kernel {ms:.4f} ms device (queued events), {ev_ms:.4f} ms "
+          f"bit-exact on {e_exact:.5f}; the scan replayed {replayed} of the {256 * slot.numel()} "
+          f"(pixel, chunk) entries ({replayed / max(1, 256 * slot.numel()):.6f}); two launches "
+          f"bit-identical: {same4}; kernel {ms:.4f} ms device (queued events), {ev_ms:.4f} ms "
           f"a call (events), plain {plain_ms:.3f} ms, bound {b4[0]:.4f} ms")
     # a pixel whose T crosses 1e-4 at another pair in the plain version's
     # cumprod differs by that pair's weight (< 1e-4 times its colour)
     require(frac >= 0.999 and err <= 1e-3, f"K4 disagrees ({label}): max {err}, frac {frac}")
     require(e_frac >= 0.999 and e_err <= 1e-3,
             f"K4's entries disagree ({label}): max {e_err}, frac {e_frac}")
+    require(same4, f"K4 is not bit-identical from launch to launch ({label})")
     readings["blend_train_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b4,
                                        saturated=saturated,
                                        eval_share=evals / max(1, 256 * blended))

@@ -36,6 +36,11 @@ from .. import kernel_lib
 ROWS = 9
 PLAIN_TILES_PER_CHUNK = 64   # tiles per step of the plain version
 ENTRY_CHUNK = 32             # pairs of a training chunk: K4's entries, K5's unit of work
+# K4's scan takes a chunk's product of (1 - alpha) where the T before the
+# chunk times it is at least FAST_T, 1e-4 with a margin of 1e-4 relative
+# (csrc/blend_train.cu kFastT, the same f32 value), and replays the chunk's
+# pairs elsewhere
+FAST_T = (torch.tensor(1e-4) * (1.0 + torch.tensor(1e-4))).item()
 
 
 def blend_tiles_plain(tile_starts, attrs, grid_x: int, grid_y: int,
@@ -112,17 +117,22 @@ blend_tiles.launches = 0
 # ---------------------------------------------------------------------------
 # Kernels K4 and K5 replace the TPU kernels splat/pallas_blend.py::
 # _blend_train_fwd and _blend_train_bwd_call. What bounds them on the H100:
-# operations — an exp and ~20 FLOPs per (pair, pixel) forward, ~45 plus the
-# per-pair sums over the tile's pixels backward — and the serial walk per
-# pixel through the transmittance: the train step's heaviest tiles hold
-# max_k pairs, its mean tile ~45. Design (csrc/blend_train.cu): K4 runs one
-# block per tile, one thread per pixel, exits once every pixel saturated,
-# and saves each pixel's state (accum rgb, T) at the start of every chunk
-# of ENTRY_CHUNK pairs (the entries, one slot per chunk; entry_slots). K5
-# runs one warp per chunk, so a heavy tile's walk is split over its
-# chunks: each replays its pairs front to back from K4's entry state with
-# the forward's arithmetic, each lane blending 8 pixels, skips the pairs
-# whose reach misses the tile (their alpha is 0 at every pixel), and
+# the serial walk per pixel through the transmittance: the train step's
+# heaviest tiles hold hundreds of pairs (up to max_k), its mean tile ~45,
+# and a pair of that walk is a dependent chain (the falloff, an exp, the
+# cut, T). Both split the walk into chunks of ENTRY_CHUNK pairs, each
+# chunk walked by warps whose lanes hold a column of pixels, and skip the
+# pairs whose reach misses a warp's pixels (their alpha is 0 there). K4
+# (csrc/blend_train.cu) runs one block per tile, in rounds of 8 chunks,
+# and two passes a round: each chunk's local blend from T = 1 without the
+# stop, (sum of weighted colours, product of (1 - alpha)); then a scan per
+# pixel over the round's chunks that takes a chunk's product where T times
+# it stays at least FAST_T, and replays the chunk's pairs sequentially,
+# with the stop, elsewhere; no round follows one that left every pixel of
+# the tile stopped. It saves each pixel's state (accum rgb, T) at the
+# start of every chunk (the entries, one slot per chunk; entry_slots). K5
+# replays each chunk front to back from K4's entry state with the
+# forward's arithmetic, so its mask decisions are K4's, and
 # reduces each pair's gradient over the tile's pixels with one warp
 # reduce-scatter, no atomics.
 #

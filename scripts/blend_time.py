@@ -6,12 +6,16 @@ cotangent):
 
     python3 scripts/blend_time.py --inputs FILE [--root DIR] [--save OUT]
                                   [--compare OTHER] [--iters N]
+                                  [--max_k K [K ...]]
 
 Imports gaussian_gan_decoder_tpu_torch from DIR (default: this checkout),
 so that one run can time another checkout's kernels (a parent commit
 unpacked beside this one) on the same card and the same inputs. K3 runs on
 the frame's pairs at the flagship's tile capacity 640, K4 and K5 on the
-step's pairs and on the frame's at 1024. Each is timed twice, after one
+step's pairs, on the frame's and on the frame's widened until half its
+pixels saturate (as chip_smoke.py widens them) at each of --max_k (default 1024: the
+train step's; smaller ones cap each tile's walk, to see whether the
+heaviest tile bounds a kernel). Each is timed twice, after one
 warm-up, by CUDA events around N wrapper calls: queued behind a ~10 ms
 device sleep, so that the device runs them back to back (the device time
 of a call), and on an idle device (which reads the wrapper's host time
@@ -38,6 +42,7 @@ def main(argv=None) -> int:
     ap.add_argument("--save", default=None)
     ap.add_argument("--compare", default=None)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--max_k", type=int, nargs="+", default=[1024])
     args = ap.parse_args(argv)
 
     import torch
@@ -50,6 +55,13 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     inputs = {k: tuple(x.to(dev) for x in v) for k, v in torch.load(args.inputs).items()}
+    # the frame's pairs 4x wider and more opaque, as chip_smoke.py widens
+    # them: half the pixels saturate
+    starts, attrs, dout = inputs["frame"]
+    wide = attrs.clone()
+    wide[2:5] /= 16.0
+    wide[5] = 0.6 + 0.4 * wide[5]
+    inputs["wide"] = (starts, wide, dout)
     with_entries = "ent" in inspect.signature(pb.blend_train_bwd).parameters
 
     def ms(fn):
@@ -78,28 +90,30 @@ def main(argv=None) -> int:
         outputs["K3 frame"] = torch.cat([acc, tr[..., None]], dim=2)
         print(f"K3 ({args.root}) frame pairs, max_k 640: "
               + ms(lambda: pb.blend_tiles(starts, attrs, g, g, 16, 640)))
-        for label in ("step", "frame"):
+        for label in ("step", "frame", "wide"):
             starts, attrs, dout = inputs[label]
             g = int(round((starts.numel() - 1) ** 0.5))
-            if with_entries:
-                fwd = lambda: pb.blend_train(starts, attrs, g, g, 16, 1024, entries=True)  # noqa: E731
-                out, ent = fwd()
-                bwd = lambda: pb.blend_train_bwd(starts, attrs, out, dout, g, g, 16, 1024, ent)  # noqa: E731
-            else:
-                fwd = lambda: pb.blend_train(starts, attrs, g, g, 16, 1024)  # noqa: E731
-                out = fwd()
-                bwd = lambda: pb.blend_train_bwd(starts, attrs, out, dout, g, g, 16, 1024)  # noqa: E731
-            outputs[f"K4 {label}"], outputs[f"K5 {label}"] = out, bwd()
-            print(f"K4 ({args.root}) {label} pairs, max_k 1024: "
-                  + ms(fwd))
-            print(f"K5 ({args.root}) {label} pairs, max_k 1024: "
-                  + ms(bwd))
+            for mk in args.max_k:
+                if with_entries:
+                    fwd = lambda: pb.blend_train(starts, attrs, g, g, 16, mk, entries=True)  # noqa: E731
+                    out, ent = fwd()
+                    bwd = lambda: pb.blend_train_bwd(starts, attrs, out, dout, g, g, 16, mk, ent)  # noqa: E731
+                else:
+                    fwd = lambda: pb.blend_train(starts, attrs, g, g, 16, mk)  # noqa: E731
+                    out = fwd()
+                    bwd = lambda: pb.blend_train_bwd(starts, attrs, out, dout, g, g, 16, mk)  # noqa: E731
+                key = label if mk == 1024 else f"{label} max_k {mk}"
+                outputs[f"K4 {key}"], outputs[f"K5 {key}"] = out, bwd()
+                print(f"K4 ({args.root}) {label} pairs, max_k {mk}: " + ms(fwd))
+                print(f"K5 ({args.root}) {label} pairs, max_k {mk}: " + ms(bwd))
     torch.cuda.synchronize()
     if args.save:
         torch.save({k: v.cpu() for k, v in outputs.items()}, args.save)
     if args.compare:
         other = torch.load(args.compare)
         for k, v in outputs.items():
+            if k not in other:
+                continue
             v, w = v.cpu(), other[k]
             print(f"{k} against {args.compare}: bit-identical {torch.equal(v, w)}, max|d| "
                   f"{float((v - w).abs().max()):.3e}")

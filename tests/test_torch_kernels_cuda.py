@@ -21,6 +21,7 @@ from gaussian_gan_decoder_tpu_torch.neuralfield import pallas_expand
 from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import (
     build_plane_table, build_slab_volume, sample_from_planes, sample_fused_inputs)
 from gaussian_gan_decoder_tpu_torch.splat import fast_raster, pallas_blend
+from _blend_train_cases import boundary_tiles
 
 pytestmark = pytest.mark.cuda
 
@@ -280,27 +281,47 @@ def test_blend_kernel_step_shape(cuda, saturate):
 @pytest.mark.parametrize("saturate", [False, True])
 def test_blend_train_kernels_step_shape(cuda, saturate):
     """K4 (with its chunk entries) and K5 against their plain versions at
-    max_k 1024, on a ragged 5 x 3 tile grid with one tile at max_k, an empty
-    tile and chunk-boundary counts: outputs and entries as chip_smoke.py
-    holds them (99.9 % of pixels within 1e-5, max 1e-3), gradients within
+    max_k 1024, on a ragged 5 x 4 tile grid: 5 x 3 tiles with one at max_k,
+    an empty tile and chunk-boundary counts, and a row of the boundary
+    cases of K4's scan (_blend_train_cases: a stop at the last and at the
+    first pair of a chunk, T P_c inside the margin, a product that
+    underflows, a product and a fold on either side of 1e-4). Outputs and
+    entries as chip_smoke.py holds them (99.9 % of pixels within 1e-5, max
+    1e-3), the boundary row's stops where they were built, gradients within
     1e-3 of each field's largest with zero-gradient agreement >= 0.999; two
-    K5 launches give the same bits."""
-    starts, attrs = (x.to(cuda) for x in _step_pairs(4, 5, 3, 1100, saturate))
-    out, ent = pallas_blend.blend_train(starts, attrs, 5, 3, 16, 1024, entries=True)
-    acc_p, tr_p = pallas_blend.blend_train_plain(starts, attrs, 5, 3, 16, 1024)
-    ent_p = pallas_blend.blend_train_entries_plain(starts, attrs, 5, 3, 16, 1024)
+    K4 launches and two K5 launches give the same bits."""
+    st, at = _step_pairs(4, 5, 3, 1100, saturate)
+    rows = boundary_tiles([(16 * t, 48) for t in range(5)], np.random.RandomState(6))
+    attrs = torch.cat([at, torch.tensor(np.concatenate(list(rows.values()), axis=1))], dim=1)
+    counts = torch.tensor([r.shape[1] for r in rows.values()])
+    starts = torch.cat([st, st[-1] + torch.cumsum(counts, 0).int()])
+    starts, attrs = starts.to(cuda), attrs.to(cuda)
+    out, ent = pallas_blend.blend_train(starts, attrs, 5, 4, 16, 1024, entries=True)
+    out_2, ent_2 = pallas_blend.blend_train(starts, attrs, 5, 4, 16, 1024, entries=True)
+    acc_p, tr_p = pallas_blend.blend_train_plain(starts, attrs, 5, 4, 16, 1024)
+    ent_p = pallas_blend.blend_train_entries_plain(starts, attrs, 5, 4, 16, 1024)
     _, _, slot = pallas_blend.entry_slots(starts, 1024)
     dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
-    d_k = pallas_blend.blend_train_bwd(starts, attrs, out, dout, 5, 3, 16, 1024, ent)
-    d_2 = pallas_blend.blend_train_bwd(starts, attrs, out, dout, 5, 3, 16, 1024, ent)
+    d_k = pallas_blend.blend_train_bwd(starts, attrs, out, dout, 5, 4, 16, 1024, ent)
+    d_2 = pallas_blend.blend_train_bwd(starts, attrs, out, dout, 5, 4, 16, 1024, ent)
     d_p = pallas_blend.blend_train_bwd_plain(starts, attrs, acc_p, tr_p, dout[..., :3],
-                                             dout[..., 3], 5, 3, 16, 1024)
+                                             dout[..., 3], 5, 4, 16, 1024)
     torch.cuda.synchronize()
+    assert torch.equal(out, out_2) and torch.equal(ent[slot], ent_2[slot])
     _hold_pixels(out, torch.cat([acc_p, tr_p[..., None]], 2), 1e-5, 1e-3)
     assert not bool(torch.isnan(ent_p[slot]).any())
     _hold_pixels(ent[slot], ent_p[slot], 1e-5, 1e-3)
+    # the boundary row: "last", "first" and "margin" stop every pixel at
+    # pair 31, 128 and 32, so the pairs after those get no gradient and
+    # the pairs up to them do; "straddle" at its last pair, T below 1e-4
+    ends = starts[15:].long().tolist()
+    for t, stop in ((0, 31), (1, 128), (2, 32)):
+        first = ends[t]
+        assert bool((d_k[:, first + stop + 1:ends[t + 1]] == 0).all())
+        assert bool((d_k[5:, first:first + stop + 1] != 0).all())
+    assert bool((out[19, :, 3] < 1e-4).all())
     if saturate:
-        assert float((out[..., 3] < 1e-4).float().mean()) >= 0.3
+        assert float((out[:15, :, 3] < 1e-4).float().mean()) >= 0.3
     assert torch.equal(d_k, d_2)
     assert bool(torch.isfinite(d_k).all())
     err = (d_k - d_p).abs().amax(dim=1) / d_p.abs().amax(dim=1).clamp(min=1e-12)
