@@ -53,6 +53,19 @@ Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
      step; then holds the training kernels against their plain versions on
      the inputs and cotangents the warm-up step gave them, times both, and
      profiles one more step for the device busy share;
+  5b. the snapshot phase, on the same trainer and state: checkpoint.save
+     of the train state, one more step, checkpoint.restore (every decoder
+     tensor, Adam moment and the step bit-identical to what was saved; the
+     same step from the restored state within 1e-6 of its loss);
+     save_decoder / load_decoder (decoder and frozen generator
+     bit-identical; write and read times and bytes); the ID term with a
+     seeded random IR-SE50 (non-zero and in Loss/total on a frontal draw,
+     0 on another; that step's time beside the plain step's); run_eval
+     for 4 steps at full width with the VGG16 and the IR-SE50 (six finite
+     Metrics10k, K3 and K6 launched at least 4 times each); and
+     render_with_decoder on the loaded snapshot (backend 'pallas', K3, a
+     finite 512^2 image) with save_ply of its 500k Gaussians, read back
+     bit for bit by load_ply_arrays (file size and write time);
   6. prints the per-frame and per-step times, stage splits, each kernel's
      time beside its plain version's and its bound, peak device memory,
      then a JSON line of per-kernel results, the card's name and power
@@ -627,6 +640,202 @@ def profile_step(torch, run, state, draws, z, iteration):
 
 
 
+def _timed_step(torch, step, state, draws, z, iteration):
+    """One train step -> (metrics as floats, device ms by events, host ms)."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.record()
+    _, metrics, _ = step(state, draws, z, iteration)
+    b.record()
+    torch.cuda.synchronize()
+    return ({k: float(v) for k, v in metrics.items()}, a.elapsed_time(b),
+            (time.perf_counter() - t0) * 1e3)
+
+
+def _draw_until(torch, rng, run, cfg, frontal):
+    """CPU-drawn (z, draws) whose camera is (or is not) frontal for the ID
+    term's gate."""
+    from gaussian_gan_decoder_tpu_torch.decoder.target_pipeline import TargetDraws
+    from gaussian_gan_decoder_tpu_torch.train.distill import frontal_view
+    while True:
+        z = torch.randn((1, run.gen.z_dim), generator=rng).to(run.dev)
+        draws = TargetDraws.make(rng, run.gen, run.tcfg, run.dev)
+        if frontal_view(draws, cfg, run.tcfg) == frontal:
+            return z, draws
+
+
+def snapshot_phase(torch, run, state, seed, workdir):
+    """The training slice's outputs on the flagship trainer: the train-state
+    checkpoint round trip, the decoder snapshot round trip, the ID term,
+    run_eval at full width and render_with_decoder with the .ply export.
+    -> the readings."""
+    import dataclasses
+    import math
+    from gaussian_gan_decoder_tpu_torch import flagship
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads
+    from gaussian_gan_decoder_tpu_torch.decoder.snapshot import (
+        load_decoder, render_with_decoder, save_decoder)
+    from gaussian_gan_decoder_tpu_torch.decoder.target_pipeline import TargetDraws, sample_target
+    from gaussian_gan_decoder_tpu_torch.gaussians.model import gaussian_scene_from_decoded
+    from gaussian_gan_decoder_tpu_torch.gaussians.ply import load_ply_arrays, save_ply
+    from gaussian_gan_decoder_tpu_torch.losses import random_irse50
+    from gaussian_gan_decoder_tpu_torch.splat import pallas_blend
+    from gaussian_gan_decoder_tpu_torch.train import checkpoint
+    from gaussian_gan_decoder_tpu_torch.train.distill import make_train_step
+    from gaussian_gan_decoder_tpu_torch.train.eval import run_eval
+    out = {}
+    rng = torch.Generator().manual_seed(seed + 11)
+
+    # -- 1. the train state: save, one more step, restore, the same step again
+    def clone(x):
+        if torch.is_tensor(x):
+            return x.detach().clone()
+        if isinstance(x, dict):
+            return {k: clone(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(clone(v) for v in x)
+        return x
+    path = os.path.join(workdir, "train_state")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(path, state, {"decoder": run.decoder.config, "target_cfg": run.tcfg,
+                                  "distill_cfg": run.cfg})
+    out["state_write_s"] = time.perf_counter() - t0
+    out["state_bytes"] = os.path.getsize(path)
+    saved_sd, saved_opt, saved_step = (clone(run.decoder.state_dict()),
+                                       clone(state.optimizer.state_dict()), state.step)
+    z1, d1 = _draw_until(torch, rng, run, run.cfg, False)
+    m_next, _, _ = _timed_step(torch, run.step, state, d1, z1, saved_step)
+    t0 = time.perf_counter()
+    checkpoint.restore(path, state)
+    torch.cuda.synchronize()
+    out["state_read_s"] = time.perf_counter() - t0
+    require(state.step == saved_step, f"restored step {state.step}, saved {saved_step}")
+    sd = run.decoder.state_dict()
+    require(all(torch.equal(sd[k], v) for k, v in saved_sd.items()),
+            "a restored decoder tensor differs from the saved one")
+    opt = state.optimizer.state_dict()
+    n_moments = 0
+    for i, st in saved_opt["state"].items():
+        for k, v in st.items():
+            require(torch.equal(opt["state"][i][k].to(v.device), v),
+                    f"restored optimizer state {i}/{k} differs from the saved one")
+            n_moments += k.startswith("exp_avg")
+    require(opt["param_groups"] == saved_opt["param_groups"], "optimizer groups differ")
+    m_again, _, _ = _timed_step(torch, run.step, state, d1, z1, saved_step)
+    rel = abs(m_again["Loss/total"] - m_next["Loss/total"]) / abs(m_next["Loss/total"])
+    print(f"train state: {out['state_bytes']} bytes, write {out['state_write_s']:.3f} s, "
+          f"read {out['state_read_s']:.3f} s; step {saved_step}, {len(saved_sd)} decoder "
+          f"tensors and {n_moments} Adam moments bit-identical after the round trip; the "
+          f"next step's loss {m_next['Loss/total']:.7f}, from the restored state "
+          f"{m_again['Loss/total']:.7f} (rel {rel:.2e})")
+    require(rel <= 1e-6, f"the step from the restored state differs: rel {rel:.3e}")
+    del saved_sd, saved_opt
+
+    # -- 2. the decoder snapshot -------------------------------------------------
+    snap = os.path.join(workdir, "decoder_snapshot")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_decoder(snap, run.decoder, run.gen, target_cfg=run.tcfg,
+                 extra_configs={"distill_cfg": run.cfg})
+    out["snapshot_write_s"] = time.perf_counter() - t0
+    out["snapshot_bytes"] = os.path.getsize(snap)
+    t0 = time.perf_counter()
+    loaded, configs = load_decoder(snap, device=run.dev)
+    torch.cuda.synchronize()
+    out["snapshot_read_s"] = time.perf_counter() - t0
+    for mine, theirs, what in ((run.decoder, loaded, "decoder"),
+                               (run.gen, configs["frozen_G"], "frozen generator")):
+        a, b = mine.state_dict(), theirs.state_dict()
+        require(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a),
+                f"the loaded snapshot's {what} state differs")
+    require(configs["decoder"] == run.decoder.config and configs["target_cfg"] == run.tcfg,
+            "the snapshot's configs differ")
+    print(f"decoder snapshot: {out['snapshot_bytes']} bytes, write "
+          f"{out['snapshot_write_s']:.3f} s, read (rebuild + load) "
+          f"{out['snapshot_read_s']:.3f} s; decoder and frozen generator bit-identical")
+
+    # -- 3. the ID term: a seeded random IR-SE50, frontal and non-frontal draws
+    irse = random_irse50(torch.Generator(device=run.dev).manual_seed(seed), device=run.dev)
+    cfg_id = dataclasses.replace(run.cfg, id_loss_weight=1.0)
+    step_id = make_train_step(run.decoder, run.gen, run.vgg, cfg_id, run.tcfg, run.rcfg, irse)
+    zf, df = _draw_until(torch, rng, run, cfg_id, True)
+    zn, dn = _draw_until(torch, rng, run, cfg_id, False)
+    i = state.step
+    m_f, _, _ = _timed_step(torch, step_id, state, df, zf, i)
+    m_n, _, _ = _timed_step(torch, step_id, state, dn, zn, i + 1)
+    m_f2, id_dev, id_host = _timed_step(torch, step_id, state, df, zf, i + 2)
+    _, plain_dev, plain_host = _timed_step(torch, run.step, state, df, zf, i + 3)
+    w = cfg_id
+    parts = (m_f["Loss/L1"] * w.l1_weight + m_f["Loss/L2"] * w.l2_weight
+             + m_f["Loss/LPIPS"] * w.lpips_weight + m_f["Loss/DSSIM"] * w.ssim_weight
+             + m_f["Loss/Sobel"] * w.sobel_weight)
+    print(f"ID term (seeded random IR-SE50): frontal draw Loss/id {m_f['Loss/id']:.6f}, "
+          f"total {m_f['Loss/total']:.6f} = other terms {parts:.6f} + id; non-frontal draw "
+          f"Loss/id {m_n['Loss/id']}; step with the ID term {id_dev:.3f} ms device (events), "
+          f"{id_host:.3f} ms host wall, without {plain_dev:.3f} / {plain_host:.3f} ms "
+          f"(the same frontal draw)")
+    require(math.isfinite(m_f["Loss/id"]) and m_f["Loss/id"] != 0.0, "no ID term on a frontal draw")
+    require(abs(m_f["Loss/total"] - parts - m_f["Loss/id"]) <= 1e-5 * abs(m_f["Loss/total"]),
+            "the ID term is not in Loss/total")
+    require(m_n["Loss/id"] == 0.0 and m_f2["Loss/id"] != 0.0, "the ID term's gate is wrong")
+    out.update(id_step_ms=id_dev, plain_step_ms=plain_dev)
+
+    # -- 4. run_eval at full width: 4 steps, the random VGG16 and the IR-SE50
+    pallas_blend.blend_tiles.launches = 0
+    pallas_heads.decode_heads.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = run_eval(torch.Generator().manual_seed(seed + 99), run.decoder, run.gen,
+                       run.vgg, irse, eval_steps=4, cfg=run.cfg, target_cfg=run.tcfg,
+                       raster_cfg=run.rcfg)
+    torch.cuda.synchronize()
+    out["eval_step_ms"] = (time.perf_counter() - t0) * 1e3 / 4
+    k3, k6 = pallas_blend.blend_tiles.launches, pallas_heads.decode_heads.launches
+    print(f"run_eval (4 steps, 512^2, 500k points, with the ID loop): "
+          f"{out['eval_step_ms']:.1f} ms a step (host wall); K3 launched {k3}, K6 {k6}; "
+          + json.dumps(metrics))
+    require(len(metrics) == 6 and all(math.isfinite(v) for v in metrics.values()),
+            f"eval metrics: {metrics}")
+    require(k3 >= 4 and k6 >= 4, f"eval launched K3 {k3} and K6 {k6} times in 4 steps")
+    del irse, step_id
+
+    # -- 5. render the loaded snapshot (K3) and export its 500k Gaussians -----
+    cp, c2w = flagship.default_camera_params(fov_deg=13.0, device=run.dev)
+    z = torch.randn((1, run.gen.z_dim), generator=rng).to(run.dev)
+    frozen = configs["frozen_G"]
+    target = sample_target(TargetDraws.make(rng, frozen, run.tcfg, run.dev), frozen, z,
+                           cfg=run.tcfg, camera_params=cp)
+    k3 = pallas_blend.blend_tiles.launches
+    img, decoded = render_with_decoder(loaded, z, cp, c2w, target.vertices, math.radians(13.0),
+                                       image_size=IMAGE, backend="pallas")
+    torch.cuda.synchronize()
+    require(tuple(img.shape) == (3, IMAGE, IMAGE) and bool(torch.isfinite(img).all())
+            and float(img.std()) > 0, "render_with_decoder: bad image")
+    require(pallas_blend.blend_tiles.launches == k3 + 1, "render_with_decoder did not launch K3")
+    scene = gaussian_scene_from_decoded(decoded)
+    ply_path = os.path.join(workdir, "scene.ply")
+    t0 = time.perf_counter()
+    save_ply(scene, ply_path)
+    out["ply_write_s"] = time.perf_counter() - t0
+    out["ply_bytes"] = os.path.getsize(ply_path)
+    cols = load_ply_arrays(ply_path)
+    want = {"x": ("xyz", 0), "y": ("xyz", 1), "z": ("xyz", 2), "opacity": ("opacity", 0)}
+    want.update({f"f_dc_{c}": ("color", c) for c in range(3)})
+    want.update({f"scale_{c}": ("scale", c) for c in range(3)})
+    want.update({f"rot_{c}": ("rotation", c) for c in range(4)})
+    n = len(cols["x"])
+    same = all(np.array_equal(cols[k], decoded[a][:, c].detach().cpu().numpy())
+               for k, (a, c) in want.items())
+    print(f"render_with_decoder (loaded snapshot, 512^2, K3): image mean "
+          f"{float(img.mean()):.4f}, std {float(img.std()):.4f}; .ply of {n} Gaussians: "
+          f"{out['ply_bytes']} bytes, write {out['ply_write_s']:.3f} s, read back bit for "
+          f"bit: {same}")
+    require(n == run.tcfg.num_points and same, "the .ply does not read back bit for bit")
+    return out
+
+
 def profile_frames(torch, frame, host_med, label):
     """FRAMES more frames, frame(i, stage_timer), under torch.profiler: the
     device time per frame, its share of the median host-wall frame, each
@@ -1171,6 +1380,11 @@ def main(argv=None) -> int:
           f"{busy_ms / step_host_med:.3f} of the median host-wall step; largest: "
           + "; ".join(f"{k[:48]} {t:.3f} ms ({t / busy_ms:.1%})" for t, k in on_card[:6]))
     captured = tr.pop("captured")
+
+    # -- the snapshot phase: checkpoint, snapshot, ID term, eval, render, .ply -
+    import tempfile
+    with tempfile.TemporaryDirectory() as workdir:
+        snapshot_phase(torch, run, tr["state"], args.seed, workdir)
     del run, tr
     torch.cuda.empty_cache()
     train_kernels(torch, captured, results)

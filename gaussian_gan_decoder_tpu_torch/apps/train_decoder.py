@@ -1,17 +1,29 @@
-"""Distillation training CLI — port of apps/train_decoder.py for the
-configuration it runs by default with --random_init.
+"""Distillation training CLI — port of apps/train_decoder.py.
 
     python -m gaussian_gan_decoder_tpu_torch.apps.train_decoder --random_init \\
         --num_iter N [--outdir ./results] [--force_cpu] [--smoke]
+    python -m gaussian_gan_decoder_tpu_torch.apps.train_decoder \\
+        --network_pkl easy-khair.pkl --id_weights model_ir_se50.pth
 
-Flagship PanoHead generator with seeded random weights, sequential_reversed
-heads (hidden 128, exact GELU), the trainable G copy, normal camera
-sampling, marching-tetrahedra surface points, the training rasterizer and a
-seeded random VGG16 for LPIPS. Per-step losses go to
-<outdir>/run<run_name>_<n>/stats.jsonl. --smoke swaps in the JAX CLI's tiny
-generator and shapes (CPU runs). Flags of paths the port does not run raise
-NotImplementedError naming the ROADMAP item; checkpoints, .ply export and
-the final eval are not written (ROADMAP queue A item 7).
+The PanoHead generator from a reference pickle (--network_pkl, through
+port/torch_pickle.py) or with seeded random weights (--random_init; --smoke
+swaps in the JAX CLI's tiny generator and shapes, for CPU runs), the
+sequential_reversed heads (hidden 128, exact GELU), the trainable G copy,
+normal camera sampling, marching-tetrahedra surface points, the training
+rasterizer, a VGG16 for LPIPS (seeded random without --vgg_weights) and,
+with --id_weights, the IR-SE50 ID term on frontal views.
+
+Outputs in <outdir>/run<run_name>_<n>/, as the JAX loop writes them:
+stats.jsonl (scalars every --scalars_interval steps, 50 as in the JAX
+loop, then the final eval), images/render_<step>.png (render | target every
+--logging_interval steps), decoder_<step:06d> snapshots with decoder<i>.npz
+and the reference-named decoder<i>.pt every --save_model_interval steps,
+then run_eval over min(--eval_steps, 100) steps and decoder_final.
+--load_checkpoint restores a train state written by train/checkpoint.save
+and runs on from its step (the JAX loop writes no train state itself; on
+resume, as in the JAX loop, the draws start again from the seed). Flags of
+paths the port does not run raise NotImplementedError naming the ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -19,7 +31,6 @@ import argparse
 import copy
 import json
 import os
-import time
 from types import SimpleNamespace
 
 import torch
@@ -31,7 +42,8 @@ ARCH_PRESETS = {
     "eg3d_lpff": (0.2, 0.2, 5.0, 12.0, (0.0, 0.0, 0.0), "eg3d"),
     "eg3d_cats": (0.2, 0.2, 5.0, 12.0, (0.0, 0.0, 0.0), "eg3d"),
 }
-ROADMAP_TRAIN = "ROADMAP.md queue A item 7 (training)"
+ROADMAP_DECODE = "ROADMAP.md queue A item A4"
+ROADMAP_RASTER = "ROADMAP.md queue A item A3"
 
 
 def build_argparser():
@@ -67,6 +79,8 @@ def build_argparser():
     p.add_argument("--run_name", default="test")
     p.add_argument("--save_model_interval", type=int, default=25_000)
     p.add_argument("--logging_interval", type=int, default=1_000)
+    p.add_argument("--scalars_interval", type=int, default=50,
+                   help="steps between stats.jsonl rows (the JAX loop's fixed 50)")
     p.add_argument("--use_wandb", action=bo, default=False)
     p.add_argument("--outdir", default="./results")
     p.add_argument("--num_points", type=int, default=500_000)
@@ -93,53 +107,41 @@ def build_argparser():
 def _refuse_unported(args):
     """Raise NotImplementedError for every flag whose path the port lacks."""
     unported = {
-        "--generator_arch eg3d_*": args.generator_arch != "panohead",
-        "--network_pkl": bool(args.network_pkl),
-        "--load_checkpoint": bool(args.load_checkpoint),
-        "--batch_views": args.batch_views > 0,
-        "--pallas_probe_build": args.pallas_probe_build,
-        "--int8_probe": args.int8_probe,
-        "--bf16_probe": args.bf16_probe,
-        "--id_weights": bool(args.id_weights),
-        "--bf16_lpips": args.bf16_lpips,
+        "--generator_arch eg3d_*": (args.generator_arch != "panohead", ROADMAP_DECODE),
+        "--batch_views": (args.batch_views > 0, ROADMAP_DECODE),
+        "--pallas_probe_build": (args.pallas_probe_build, ROADMAP_DECODE),
+        "--int8_probe": (args.int8_probe, ROADMAP_DECODE),
+        "--bf16_probe": (args.bf16_probe, ROADMAP_DECODE),
+        "--bf16_lpips": (args.bf16_lpips, ROADMAP_DECODE),
         "--decoder_type other than sequential_reversed":
-            args.decoder_type != "sequential_reversed",
-        "--use_pos_encoding": args.use_pos_encoding,
-        "--hidden_dim other than 128": args.hidden_dim != 128,
-        "--no-use_marching_cubes": not args.use_marching_cubes,
-        "--no-mt_two_stage": not args.mt_two_stage,
-        "--no-sigma_separable": not args.sigma_separable,
-        "--no-pallas_heads_train": not args.pallas_heads_train,
-        "--raster_backend xla": args.raster_backend != "pallas_diff",
-        "--use_wandb": args.use_wandb,
+            (args.decoder_type != "sequential_reversed", ROADMAP_DECODE),
+        "--use_pos_encoding": (args.use_pos_encoding, ROADMAP_DECODE),
+        "--hidden_dim other than 128": (args.hidden_dim != 128, ROADMAP_DECODE),
+        "--no-use_marching_cubes": (not args.use_marching_cubes, ROADMAP_DECODE),
+        "--no-mt_two_stage": (not args.mt_two_stage, ROADMAP_DECODE),
+        "--no-sigma_separable": (not args.sigma_separable, ROADMAP_DECODE),
+        "--no-pallas_heads_train": (not args.pallas_heads_train, ROADMAP_DECODE),
+        "--raster_backend xla": (args.raster_backend != "pallas_diff", ROADMAP_RASTER),
     }
-    # the final eval, the ID loss, checkpoints, the compare-image log and the
-    # decode through the frozen copy's own synthesis are not ported: their
-    # flags are accepted at their defaults only, so that none is ignored
-    defaults = build_argparser()
-    for name in ("eval_steps", "id_loss_weight", "save_model_interval", "logging_interval",
-                 "reuse_frozen_planes"):
-        if getattr(args, name) != defaults.get_default(name):
-            unported[f"--{name} away from its default"] = True
-    bad = [flag for flag, on in unported.items() if on]
+    bad = [(flag, item) for flag, (on, item) in unported.items() if on]
     if bad:
-        raise NotImplementedError(f"{', '.join(bad)}: not ported to the PyTorch trainer "
-                                  f"yet ({ROADMAP_TRAIN})")
-    if not args.random_init:
-        raise SystemExit("--random_init is required (ported weights: --network_pkl, "
-                         f"not ported yet, {ROADMAP_TRAIN})")
+        raise NotImplementedError("; ".join(f"{flag}: not ported to the PyTorch trainer yet "
+                                            f"({item})" for flag, item in bad))
+    if not (args.random_init or args.network_pkl or args.smoke):
+        raise SystemExit("--network_pkl or --random_init required")
 
 
 def build(args):
-    """Parsed flags -> SimpleNamespace(dev, gen, decoder, vgg, cfg, tcfg,
-    state, step): the frozen generator, the decoder with its trainable G
-    copy, the LPIPS VGG16, the configs, the train state and the step of
-    make_train_step. Raises for a flag whose path is not ported."""
+    """Parsed flags -> SimpleNamespace(dev, gen, decoder, vgg, irse, cfg,
+    tcfg, rcfg, state, step): the frozen generator, the decoder with its
+    trainable G copy, the LPIPS VGG16, the IR-SE50 (or None), the configs,
+    the train state and the step of make_train_step. Raises for a flag
+    whose path is not ported."""
     _refuse_unported(args)
     from ..decoder.heads import GaussianDecoder
     from ..decoder.target_pipeline import TargetSamplerConfig
     from ..flagship import flagship_generator, resolve_device
-    from ..losses import VGG16LPIPS
+    from ..losses import IRSE50, VGG16LPIPS, load_irse50_state
     from ..models.triplane import TriPlaneGenerator
     from ..port.from_jax import load_vgg16_lpips_state
     from ..splat.rasterize import RasterizeConfig
@@ -159,7 +161,13 @@ def build(args):
         args.shape_res = min(args.shape_res, 16)
         args.image_size = min(args.image_size, 16)
         args.mc_level = 0.5
+        args.id_loss_weight = 0.0
         print("smoke generator")
+    elif args.network_pkl:
+        from ..port.torch_pickle import load_generator_pkl
+
+        gen, _ = load_generator_pkl(args.network_pkl, variant=variant, device=dev)
+        print(f"ported generator from {args.network_pkl}: {gen.variant}")
     else:
         gen = flagship_generator(variant=variant, rng=rng, device=dev)
         print("random-init generator (full shapes)")
@@ -167,9 +175,10 @@ def build(args):
     cfg = DistillConfig(
         lr=args.lr, l1_weight=args.l1_weight, l2_weight=args.l2_weight,
         lpips_weight=args.lpips_weight, ssim_weight=args.ssim_weight,
-        sobel_weight=args.sobel_weight, image_size=args.image_size,
-        apply_mask_to_rendering=args.apply_mask_to_rendering, bg_color=bg,
-        use_gen_finetune=args.use_gen_finetune)
+        sobel_weight=args.sobel_weight, id_loss_weight=args.id_loss_weight,
+        image_size=args.image_size, apply_mask_to_rendering=args.apply_mask_to_rendering,
+        bg_color=bg, use_gen_finetune=args.use_gen_finetune,
+        reuse_frozen_planes=args.reuse_frozen_planes)
     tcfg = TargetSamplerConfig(
         truncation=args.truncation, init_truncation=args.init_truncation,
         truncation_ramp=args.truncation_ramp, camera_sampling=args.camera_sampling,
@@ -183,41 +192,77 @@ def build(args):
         load_vgg16_lpips_state(vgg, args.vgg_weights)
     else:
         print("WARNING: random VGG16 (supply --vgg_weights for calibrated LPIPS)")
+    irse = None
+    if args.id_loss_weight > 0 and args.id_weights:
+        irse = IRSE50(device=dev)
+        load_irse50_state(irse, args.id_weights)
+    rcfg = RasterizeConfig()
     state = init_train_state(decoder, gen, cfg)
-    step = make_train_step(decoder, gen, vgg, cfg, tcfg, RasterizeConfig())
-    return SimpleNamespace(dev=dev, gen=gen, decoder=decoder, vgg=vgg, cfg=cfg, tcfg=tcfg,
-                           state=state, step=step)
+    step = make_train_step(decoder, gen, vgg, cfg, tcfg, rcfg, irse)
+    return SimpleNamespace(dev=dev, gen=gen, decoder=decoder, vgg=vgg, irse=irse, cfg=cfg,
+                           tcfg=tcfg, rcfg=rcfg, state=state, step=step)
+
+
+def reference_state_dict(decoder):
+    """The decoder's reference-named state dict as CPU float32 tensors (the
+    reference's decoder{i}.pt, ref train_pano2gaussian_decoder.py:307; the
+    JAX package writes the same names, port/torch_export.py)."""
+    return {k: v.detach().to("cpu", torch.float32, copy=True).contiguous()
+            for k, v in decoder.state_dict().items()}
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     run = build(args)
+    from ..decoder.snapshot import save_decoder
     from ..decoder.target_pipeline import TargetDraws
+    from ..train import checkpoint
+    from ..train.eval import run_eval
+    from ..utils.loggers import TrainLogger
 
     os.makedirs(args.outdir, exist_ok=True)
     number = len(os.listdir(args.outdir))
-    outdir = os.path.join(args.outdir, f"run{args.run_name}_{number}")
+    name = f"run{args.run_name}_{number}"
+    outdir = os.path.join(args.outdir, name)
     os.makedirs(outdir, exist_ok=True)
+    logger = TrainLogger(outdir, use_wandb=args.use_wandb, run_name=name)
     with open(os.path.join(outdir, "training_options.json"), "w") as f:
         json.dump(vars(args), f, indent=2)
 
     state = run.state
+    if args.load_checkpoint:
+        state = checkpoint.restore(args.load_checkpoint, state)
+        print(f"resumed from {args.load_checkpoint} at step {state.step}")
+    snapshot_configs = dict(target_cfg=run.tcfg, extra_configs={"distill_cfg": run.cfg})
     draw_rng = torch.Generator().manual_seed(args.seed + 1)
     z, last = None, {}
-    with open(os.path.join(outdir, "stats.jsonl"), "a") as stats:
-        for i in range(args.num_iter):
-            if z is None or args.repeat_id <= 1 or i % args.repeat_id == 0:
-                z = torch.randn((1, run.gen.z_dim), generator=draw_rng).to(run.dev)
-            draws = TargetDraws.make(draw_rng, run.gen, run.tcfg, run.dev)
-            t0 = time.perf_counter()
-            state, metrics, _ = run.step(state, draws, z, i)
-            last = {k: float(v) for k, v in metrics.items()}
-            row = {"step": i, "seconds": time.perf_counter() - t0, **last}
-            stats.write(json.dumps(row) + "\n")
-            stats.flush()
-            if i % 50 == 0 or i == args.num_iter - 1:
-                print(f"[{i}] total={last['Loss/total']:.4f} L1={last['Loss/L1']:.4f}")
-    return {"outdir": outdir, "last_metrics": last}
+    for i in range(state.step, args.num_iter):
+        if z is None or args.repeat_id <= 1 or i % args.repeat_id == 0:
+            z = torch.randn((1, run.gen.z_dim), generator=draw_rng).to(run.dev)
+        draws = TargetDraws.make(draw_rng, run.gen, run.tcfg, run.dev)
+        state, metrics, aux = run.step(state, draws, z, i)
+        last = metrics
+        if i % args.scalars_interval == 0:
+            row = logger.log_scalars(i, metrics)
+            print(f"[{i}] total={row['Loss/total']:.4f} L1={row['Loss/L1']:.4f}")
+        if i % args.logging_interval == 0:
+            logger.log_compare_image(i, aux["image"], aux["target"])
+        if i % args.save_model_interval == 0 and i > 0:
+            save_decoder(os.path.join(outdir, f"decoder_{i:06d}"), run.decoder, run.gen,
+                         **snapshot_configs)
+            checkpoint.save_npz(os.path.join(outdir, f"decoder{i}.npz"),
+                                run.decoder.state_dict())
+            torch.save(reference_state_dict(run.decoder), os.path.join(outdir, f"decoder{i}.pt"))
+
+    metrics = run_eval(torch.Generator().manual_seed(args.seed + 99), run.decoder, run.gen,
+                       run.vgg, run.irse, eval_steps=min(args.eval_steps, 100), cfg=run.cfg,
+                       target_cfg=run.tcfg, raster_cfg=run.rcfg)
+    logger.write_raw({"final_eval": metrics})
+    print(json.dumps(metrics, indent=2))
+    save_decoder(os.path.join(outdir, "decoder_final"), run.decoder, run.gen, **snapshot_configs)
+    logger.close()
+    return {"final_eval": metrics, "outdir": outdir, "state": state,
+            "last_metrics": {k: float(v) for k, v in last.items()}}
 
 
 if __name__ == "__main__":

@@ -24,6 +24,9 @@ The training side (apply = synthesize_planes_train + decode_from_planes)
 keeps the autograd graph: the f32 mapping and synthesis of the trainable G
 copy, the float tri-grid sample at the surface points, and the f32 head
 chain (kernels K6 / K7, decoder/pallas_heads_vjp.py).
+
+`config` (a GaussianDecoderConfig: the generator's config, the GELU kind,
+fused_sampling) rebuilds the same decoder through from_config.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ import torch
 from torch import nn
 
 from ..models.pallas_mapping import FoldedMapping, fold_mapping, mapping_forward
-from ..models.triplane import TriPlaneGenerator
+from ..models.triplane import TriPlaneGenerator, TriPlaneGeneratorConfig
 from ..neuralfield.renderer import (build_plane_table, build_slab_volume, sample_from_planes,
                                    sample_fused_inputs)
 from .pallas_heads import (C, ChainWeights, build_brick_staging, build_staging,
@@ -94,6 +97,14 @@ class SlabContext:
     m_padded: int
 
 
+@dataclass(frozen=True)
+class GaussianDecoderConfig:
+    """The constructor arguments of a GaussianDecoder."""
+    generator: TriPlaneGeneratorConfig = TriPlaneGeneratorConfig()
+    gelu: str = "poly6"
+    fused_sampling: bool = False
+
+
 class InferenceWeights(NamedTuple):
     """Weights prepared once for the fused kernels (GaussianDecoder.fold)."""
     mapping: FoldedMapping
@@ -111,6 +122,7 @@ class GaussianDecoder(nn.Module):
         super().__init__()
         self.G = generator
         self.gelu = gelu
+        self.config = GaussianDecoderConfig(generator.config, gelu, fused_sampling)
         # brick route: the gather-fused decode K9 in place of the table
         # sample + K8 (the JAX decoder's fused_sampling)
         self.fused_sampling = fused_sampling
@@ -120,6 +132,14 @@ class GaussianDecoder(nn.Module):
             setattr(self, f"{name}_decoder", DecoderHead(32 + cond, out_dim, generator=rng,
                                                          device=device))
             cond += out_dim
+
+    @classmethod
+    def from_config(cls, config: GaussianDecoderConfig,
+                    rng: Optional[torch.Generator] = None, device=None) -> "GaussianDecoder":
+        """The decoder `config` describes, with seeded random weights."""
+        gen = TriPlaneGenerator.from_config(config.generator, generator=rng, device=device)
+        return cls(gen, gelu=config.gelu, rng=rng, device=device,
+                   fused_sampling=config.fused_sampling)
 
     def heads(self) -> Dict[str, DecoderHead]:
         return {name: getattr(self, f"{name}_decoder") for name, _ in CHAIN}

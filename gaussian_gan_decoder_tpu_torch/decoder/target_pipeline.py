@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from types import SimpleNamespace
+from typing import Optional, Tuple
 
 import torch
 
@@ -51,6 +52,15 @@ class TargetDraws:
     face_u: torch.Tensor       # (P,) uniform: face choice
     weight_u: torch.Tensor     # (P, 3) uniform: barycentric weights
     thickness_n: torch.Tensor  # (P,) normal: thickness jitter
+    # (fov_u, cam_h, cam_v) as host floats when drawn on the CPU: the step
+    # decides on them (the ID term's frontal gate) without reading the card
+    host_camera: Optional[Tuple[float, float, float]] = None
+
+    def camera_draws(self) -> Tuple[float, float, float]:
+        """(fov_u, cam_h, cam_v) on the host."""
+        if self.host_camera is not None:
+            return self.host_camera
+        return (float(self.fov_u), float(self.cam_h.reshape(())), float(self.cam_v.reshape(())))
 
     @staticmethod
     def make(generator: torch.Generator, gen, cfg: TargetSamplerConfig, device
@@ -66,10 +76,13 @@ class TargetDraws:
             return t.to(device)
 
         P = cfg.num_points
+        fov_u = torch.rand((), generator=generator, device=gdev)
+        cam_h = cam((1, 1), generator=generator, device=gdev)
+        cam_v = cam((1, 1), generator=generator, device=gdev)
+        host = ((float(fov_u), float(cam_h[0, 0]), float(cam_v[0, 0]))
+                if gdev.type == "cpu" else None)
         return TargetDraws(
-            fov_u=mv(torch.rand((), generator=generator, device=gdev)),
-            cam_h=mv(cam((1, 1), generator=generator, device=gdev)),
-            cam_v=mv(cam((1, 1), generator=generator, device=gdev)),
+            fov_u=mv(fov_u), cam_h=mv(cam_h), cam_v=mv(cam_v),
             render=RenderDraws(
                 mv(torch.rand((1, res * res, rk["depth_resolution"], 1), generator=generator,
                               device=gdev)),
@@ -77,7 +90,8 @@ class TargetDraws:
                               generator=generator, device=gdev))),
             face_u=mv(torch.rand((P,), generator=generator, device=gdev)),
             weight_u=mv(torch.rand((P, 3), generator=generator, device=gdev)),
-            thickness_n=mv(torch.randn((P,), generator=generator, device=gdev)))
+            thickness_n=mv(torch.randn((P,), generator=generator, device=gdev)),
+            host_camera=host)
 
 
 def truncation_at(cfg: TargetSamplerConfig, iteration) -> float:
@@ -89,16 +103,23 @@ def truncation_at(cfg: TargetSamplerConfig, iteration) -> float:
 
 @torch.no_grad()
 def sample_target(draws: TargetDraws, generator, z: torch.Tensor, iteration=None,
-                  cfg: TargetSamplerConfig = TargetSamplerConfig()) -> SimpleNamespace:
+                  cfg: TargetSamplerConfig = TargetSamplerConfig(),
+                  camera_params: Optional[torch.Tensor] = None) -> SimpleNamespace:
     """One target sample from the frozen generator -> namespace of img (1, 3,
     512, 512) in [0, 1], img_mask, vertices (P, 3), gan_camera_params (1, 25),
     cam2world_pose (1, 4, 4), fov_deg, cam_h, cam_v, truncation,
-    feature_planes, ws, z."""
-    fov_deg = draws.fov_u * cfg.fov_offset_scale + cfg.fov_offset
-    cp, cam2world, h, v = sample_camera_params(
-        draws.cam_h, draws.cam_v, fov_deg, camera_sampling=cfg.camera_sampling,
-        horizontal_stddev=cfg.horizontal_stddev, vertical_stddev=cfg.vertical_stddev,
-        radius=cfg.cam_radius)
+    feature_planes, ws, z. A fixed camera_params (1, 25) takes the place of
+    the drawn camera (whose draws are then unused); cam2world_pose comes
+    from it, and fov_deg, cam_h and cam_v are None (the caller's)."""
+    if camera_params is None:
+        fov_deg = draws.fov_u * cfg.fov_offset_scale + cfg.fov_offset
+        cp, cam2world, h, v = sample_camera_params(
+            draws.cam_h, draws.cam_v, fov_deg, camera_sampling=cfg.camera_sampling,
+            horizontal_stddev=cfg.horizontal_stddev, vertical_stddev=cfg.vertical_stddev,
+            radius=cfg.cam_radius)
+    else:
+        cp, fov_deg, h, v = camera_params, None, None, None
+        cam2world = cp[:, :16].reshape(-1, 4, 4)
     truncation = (truncation_at(cfg, iteration) if iteration is not None
                   else float(cfg.truncation))
     # frozen generator: ws with ZEROED camera conditioning (ref :90)

@@ -8,11 +8,17 @@ planes). t_mapping and the background synthesis are not ported: the
 reference's target render never evaluates them (it forces the background
 to -1, triplane.py:252); their weights are dropped on import
 (port/from_jax.py DROPPED_PREFIXES).
+
+Every constructor argument but the weights' seed and device is recorded in
+`config`, a TriPlaneGeneratorConfig, from which from_config rebuilds the
+same network (decoder snapshots store it as JSON, train/checkpoint.py).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, Optional
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +72,34 @@ class OSGDecoder(nn.Module):
         return {"rgb": rgb, "sigma": sigma}
 
 
+def _frozen_items(kwargs) -> Tuple:
+    """A kwargs dict (or its items) -> a tuple of (key, value) pairs with
+    every list a tuple, at every depth (hashable, JSON round-trips)."""
+    def deep(v):
+        return tuple(deep(x) for x in v) if isinstance(v, (list, tuple)) else v
+    return tuple((k, deep(v)) for k, v in dict(kwargs or {}).items())
+
+
+@dataclass(frozen=True)
+class TriPlaneGeneratorConfig:
+    """The constructor arguments of a TriPlaneGenerator; the kwargs dicts
+    as tuples of (key, value) pairs."""
+    z_dim: int = 512
+    c_dim: int = 25
+    w_dim: int = 512
+    img_resolution: int = 512
+    img_channels: int = 3
+    variant: str = "panohead"
+    channel_base: int = 32768
+    channel_max: int = 512
+    num_fp16_res: int = 0
+    sr_num_fp16_res: int = 0
+    without_sr: bool = False
+    conv_clamp: Optional[float] = None
+    mapping_kwargs: Tuple = ()
+    rendering_kwargs: Tuple = ()
+
+
 class TriPlaneGenerator(nn.Module):
     def __init__(self, z_dim=512, c_dim=25, w_dim=512, img_resolution=512,
                  img_channels=3, variant="panohead", channel_base=32768,
@@ -74,12 +108,17 @@ class TriPlaneGenerator(nn.Module):
                  rendering_kwargs: Optional[dict] = None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
+        mapping_kwargs, rendering_kwargs = dict(mapping_kwargs or {}), dict(rendering_kwargs or {})
+        self.config = TriPlaneGeneratorConfig(
+            z_dim, c_dim, w_dim, img_resolution, img_channels, variant, channel_base,
+            channel_max, num_fp16_res, sr_num_fp16_res, without_sr, conv_clamp,
+            _frozen_items(mapping_kwargs), _frozen_items(rendering_kwargs))
         self.z_dim, self.c_dim, self.w_dim = z_dim, c_dim, w_dim
         self.img_resolution = img_resolution
         self.img_channels = img_channels
         self.variant = variant
         self.rk = default_rendering_kwargs(variant)
-        self.rk.update(rendering_kwargs or {})
+        self.rk.update(rendering_kwargs)
         rk = self.rk
         self.triplane_depth = int(rk["triplane_depth"]) if variant == "panohead" else 1
         self.backbone = StyleGAN2Backbone(
@@ -98,6 +137,14 @@ class TriPlaneGenerator(nn.Module):
             rk["superresolution_module"], channels=32, sr_num_fp16_res=sr_num_fp16_res,
             sr_antialias=rk["sr_antialias"], generator=generator, device=device)
         self.renderer = ImportanceRenderer(plane_variant=variant)
+
+    @classmethod
+    def from_config(cls, config: TriPlaneGeneratorConfig,
+                    generator: Optional[torch.Generator] = None, device=None
+                    ) -> "TriPlaneGenerator":
+        """The network `config` describes, with seeded random weights."""
+        kw = {f.name: getattr(config, f.name) for f in dataclasses.fields(config)}
+        return cls(**kw, generator=generator, device=device)
 
     @property
     def plane_axes(self) -> np.ndarray:

@@ -6,8 +6,10 @@ generator_state_from_params), or the same dict as a torch .pt file
 (save_torch_state_dict). The port's modules carry those names, so after
 dropping the generator parts the port never evaluates, a dict loads with
 load_state_dict(strict=True): any other missing or unexpected key raises.
-The VGG16-LPIPS weights load under torchvision's names. This module never
-imports jax.
+The JAX package's .pt writer stores a 0-d tensor (noise_strength) with
+shape (1,) (np.ascontiguousarray): such an entry takes the module's 0-d
+shape. The VGG16-LPIPS weights load under torchvision's names. This module
+never imports jax.
 """
 from __future__ import annotations
 
@@ -34,16 +36,23 @@ def _read(state: State) -> Mapping[str, np.ndarray]:
     return state
 
 
-def _tensors(state: Mapping, drop=(), prefix: str = ""):
-    return {k[len(prefix):]: torch.tensor(np.array(v, dtype=np.float32))
-            for k, v in state.items() if k.startswith(prefix) and not k.startswith(drop)}
+def _tensors(state: Mapping, drop=(), prefix: str = "", module=None):
+    out = {k[len(prefix):]: torch.tensor(np.array(v, dtype=np.float32))
+           for k, v in state.items() if k.startswith(prefix) and not k.startswith(drop)}
+    if module is not None:
+        own = module.state_dict()
+        for k, v in out.items():
+            if k in own and own[k].ndim == 0 and tuple(v.shape) == (1,):
+                out[k] = v.reshape(())
+    return out
 
 
 def load_decoder_state(decoder: torch.nn.Module, state: State) -> None:
     """Load a reference-named decoder state dict (heads, `G.` + generator;
     a mapping of arrays or the path of a .pt file) into a GaussianDecoder,
     strictly."""
-    decoder.load_state_dict(_tensors(_read(state), DROPPED_PREFIXES), strict=True)
+    decoder.load_state_dict(_tensors(_read(state), DROPPED_PREFIXES, module=decoder),
+                            strict=True)
 
 
 def load_generator_state(generator: torch.nn.Module, state: State) -> None:
@@ -51,7 +60,7 @@ def load_generator_state(generator: torch.nn.Module, state: State) -> None:
     torgb, superresolution, ... as generator_state_from_params writes it)
     into a TriPlaneGenerator, strictly."""
     drop = tuple(p.removeprefix("G.") for p in DROPPED_PREFIXES)
-    generator.load_state_dict(_tensors(_read(state), drop), strict=True)
+    generator.load_state_dict(_tensors(_read(state), drop, module=generator), strict=True)
 
 
 def load_vgg16_lpips_state(vgg: torch.nn.Module, state: State) -> None:

@@ -20,16 +20,17 @@ Every pair that exists is kept, so n_dropped is always 0. The blend
 (splat/pallas_blend.py::blend_tiles) then truncates each tile to
 tile_capacity pairs, like the JAX kernel.
 
-rasterize_fast is the training (differentiable) rasterizer: projection
+rasterize_fast is the decoder-path rasterizer; differentiable: projection
 by autograd, binning as above on detached values, the payload gathered from
 the per-Gaussian fields by the sorted pair index (autograd of that gather
 routes each pair's gradient back to its Gaussian: the inverse permutation
 of the JAX package's _sort_pairs), and the training blend
-(pallas_blend.blend_tiles_diff: kernels K4 / K5).
+(pallas_blend.blend_tiles_diff: kernels K4 / K5); not differentiable, the
+frame blend (K3).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -61,10 +62,11 @@ def _tile_rects_ch(px, py, radius_f, grid_x, grid_y, tile_size):
 
 @torch.no_grad()
 def bin_indices(px, py, radius_f, depth, visible, grid_x: int, grid_y: int,
-                tile_size: int):
+                tile_size: int, max_k: Optional[int] = None):
     """Per-Gaussian channel vectors -> (tile_starts (T+1,) int32, pair_index
     (Ptot,) int64): the Gaussian of every (tile, Gaussian) pair, in (tile,
-    depth) order."""
+    depth) order. With max_k, only each tile's first max_k pairs, the ones
+    a blend with that budget reads."""
     T = grid_x * grid_y
     x0, y0, rw, rh = _tile_rects_ch(px, py, radius_f, grid_x, grid_y, tile_size)
     area = rw * rh
@@ -81,9 +83,14 @@ def bin_indices(px, py, radius_f, depth, visible, grid_x: int, grid_y: int,
     key = (tile << 32) | qdepth[pair_g].long()
     key_sorted, order = torch.sort(key, stable=True)
     tile_sorted = (key_sorted >> 32).contiguous()
-    tile_starts = torch.searchsorted(
-        tile_sorted, torch.arange(T + 1, device=px.device)).to(torch.int32)
-    return tile_starts, pair_g[order]
+    tile_starts = torch.searchsorted(tile_sorted, torch.arange(T + 1, device=px.device))
+    pair = pair_g[order]
+    if max_k is not None:
+        keep = torch.arange(total, device=px.device) - tile_starts[tile_sorted] < max_k
+        counts = torch.clamp(tile_starts[1:] - tile_starts[:-1], max=max_k)
+        tile_starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+        pair = pair[keep]
+    return tile_starts.to(torch.int32), pair
 
 
 def bin_pairs(rows: torch.Tensor, grid_x: int, grid_y: int, tile_size: int):
@@ -131,13 +138,15 @@ def render_rows(cam: Camera, rows: torch.Tensor, bg: torch.Tensor,
 
 def rasterize_fast(cam: Camera, means3d: torch.Tensor, scales: torch.Tensor,
                    rotations: torch.Tensor, opacities: torch.Tensor, shs: torch.Tensor,
-                   bg: torch.Tensor, config: RasterizeConfig = RasterizeConfig()
-                   ) -> Dict[str, torch.Tensor]:
-    """Differentiable tiled rasterizer of (N, ...) Gaussians with degree-0
-    SH colours (shs (N, 1, 3)) -> {render (3, H, W), alpha (1, H, W), radii,
-    visibility_filter, n_dropped, n_pairs}: the JAX package's
-    rasterize_fast(differentiable=True), blending with the training kernels
-    (K4 / K5). The frame path is render_rows."""
+                   bg: torch.Tensor, config: RasterizeConfig = RasterizeConfig(),
+                   differentiable: bool = True) -> Dict[str, torch.Tensor]:
+    """Tiled rasterizer of (N, ...) Gaussians with degree-0 SH colours (shs
+    (N, 1, 3)) -> {render (3, H, W), alpha (1, H, W), radii,
+    visibility_filter, n_dropped, n_pairs (those blended: each tile's first
+    tile_capacity)}: the JAX package's
+    rasterize_fast. differentiable blends with the training kernels (K4 /
+    K5); otherwise with the frame blend (K3, 16x16 tiles only), forward
+    only. The frame path is render_rows."""
     ts = config.tile_size
     grid_x, grid_y = cam.image_width // ts, cam.image_height // ts
     if opacities.ndim == 2:
@@ -147,13 +156,15 @@ def rasterize_fast(cam: Camera, means3d: torch.Tensor, scales: torch.Tensor,
         tuple(rotations[:, k] for k in range(4)),
         tuple(scales[:, k] for k in range(3)))
     colors = sh_to_color(0, shs.transpose(1, 2))
+    # each tile's pairs past tile_capacity are never blended: dropping them
+    # here bounds the payload and K4's entries by the budget
     tile_starts, pair = bin_indices(ch["px"], ch["py"], ch["radius_f"], ch["depth"],
-                                    ch["visible"], grid_x, grid_y, ts)
+                                    ch["visible"], grid_x, grid_y, ts, config.tile_capacity)
     fields = torch.stack([ch["px"], ch["py"], ch["conic_a"], ch["conic_b"], ch["conic_c"],
                           opacities, colors[:, 0], colors[:, 1], colors[:, 2]])
     attrs = fields[:, pair]
     img, alpha = _blend_and_assemble(tile_starts, attrs, grid_x, grid_y, ts, bg, config,
-                                     differentiable=True)
+                                     differentiable=differentiable)
     return {
         "render": img.permute(2, 0, 1),
         "alpha": alpha[None],

@@ -4,8 +4,11 @@ Per step: sample_target on the FROZEN generator (camera, truncation, the
 512^2 target image, the surface point cloud) without gradient; decode the
 surface points with the trainable G copy and the heads; render them with
 the differentiable rasterizer; loss = 0.2 L1 + 0.1 L2 + 1.0 LPIPS +
-0.5 DSSIM + 0.2 Sobel; backward; one Adam step over the heads and the G
-copy. The ID loss is not ported (it needs IR-SE50 weights).
+0.5 DSSIM + 0.2 Sobel (+ 1.0 ID on a frontal view with fov > 8 degrees,
+when an IR-SE50 is given); backward; one Adam step over the heads and the
+G copy. The frontal gate (ref :243-251) is decided on the host from the
+step's camera draws, so the IR-SE50 runs only on frontal views and the
+step reads nothing back from the card for it.
 
 The step runs eagerly; its kernels are K6 / K7 (head chain) and K4 / K5
 (training blend). A stage_timer, when given, is called with each stage's
@@ -23,7 +26,7 @@ import torch
 from ..decoder.heads import GaussianDecoder
 from ..decoder.target_pipeline import TargetDraws, TargetSamplerConfig, sample_target
 from ..gaussians.cameras import make_camera
-from ..losses import VGG16LPIPS, l1_loss, l2_loss, lpips_loss, sobel_loss, ssim
+from ..losses import IRSE50, VGG16LPIPS, id_loss, l1_loss, l2_loss, lpips_loss, sobel_loss, ssim
 from ..ops import resize_bilinear
 from ..splat.rasterize import RasterizeConfig, render_simple
 
@@ -37,10 +40,17 @@ class DistillConfig:
     lpips_weight: float = 1.0
     ssim_weight: float = 0.5
     sobel_weight: float = 0.2
+    id_loss_weight: float = 1.0
     image_size: int = 512
     apply_mask_to_rendering: bool = False
     bg_color: Tuple[float, float, float] = (0.55717, 0.52256, 0.51045)
+    id_cam_threshold: float = math.pi * 0.2
+    id_min_fov: float = 8.0
     use_gen_finetune: bool = True
+    # use_gen_finetune=False only: decode from the frozen target's planes
+    # instead of re-synthesising on the (identical, frozen) copy; False if
+    # the copy may have diverged from the frozen generator
+    reuse_frozen_planes: bool = True
 
 
 @dataclass
@@ -69,23 +79,46 @@ def init_train_state(decoder: GaussianDecoder, frozen_generator,
     return TrainState(decoder, make_optimizer(decoder, cfg), 0)
 
 
+def frontal_view(draws: TargetDraws, cfg: DistillConfig,
+                 target_cfg: TargetSamplerConfig) -> bool:
+    """The ID term's gate (ref :243-251): the drawn camera's angles within
+    id_cam_threshold of frontal and its fov above id_min_fov, computed on
+    the host from the draws in float32, as sample_camera_params computes
+    them on the device."""
+    fov_u, h_draw, v_draw = (torch.tensor(x, dtype=torch.float32)
+                             for x in draws.camera_draws())
+    hs = math.pi * target_cfg.horizontal_stddev
+    vs = math.pi * target_cfg.vertical_stddev
+    if target_cfg.camera_sampling == "normal":
+        h, v = h_draw * hs + math.pi / 2, v_draw * vs + math.pi / 2
+    else:
+        h = (h_draw * 2 - 1) * hs + math.pi / 2
+        v = (v_draw * 2 - 1) * vs + math.pi / 2
+    fov_deg = fov_u * target_cfg.fov_offset_scale + target_cfg.fov_offset
+    return bool((torch.abs(h - math.pi / 2) < cfg.id_cam_threshold)
+                & (torch.abs(v - math.pi / 2) < cfg.id_cam_threshold)
+                & (fov_deg > cfg.id_min_fov))
+
+
 def make_loss_fn(decoder: GaussianDecoder, frozen_generator, vgg: VGG16LPIPS,
                  cfg: DistillConfig = DistillConfig(),
                  target_cfg: TargetSamplerConfig = TargetSamplerConfig(),
-                 raster_cfg: RasterizeConfig = RasterizeConfig()):
+                 raster_cfg: RasterizeConfig = RasterizeConfig(),
+                 irse: Optional[IRSE50] = None):
     """-> losses_and_metrics(draws, z, iteration, stage_timer=None) ->
-    (loss, metrics, aux); metrics are detached 0-d tensors."""
+    (loss, metrics, aux); metrics are detached 0-d tensors. irse, when
+    given, adds the ID term on frontal views."""
     def losses_and_metrics(draws: TargetDraws, z: torch.Tensor, iteration,
                            stage_timer: Optional[Callable[[str], None]] = None):
         mark = stage_timer or (lambda name: None)
         target = sample_target(draws, frozen_generator, z, iteration=iteration, cfg=target_cfg)
         mark("target")
-        if cfg.use_gen_finetune:
-            decoded = decoder.apply(target.z, target.gan_camera_params, target.vertices,
-                                    truncation_psi=target.truncation)
-        else:
+        if cfg.reuse_frozen_planes and not cfg.use_gen_finetune:
             # the frozen copy equals the frozen generator: reuse its planes
             decoded = decoder.decode_from_planes(target.feature_planes, target.vertices)
+        else:
+            decoded = decoder.apply(target.z, target.gan_camera_params, target.vertices,
+                                    truncation_psi=target.truncation)
         mark("decode")
         dev = target.img.device
         fov = float(target.fov_deg) / 360.0 * 2 * math.pi
@@ -106,10 +139,14 @@ def make_loss_fn(decoder: GaussianDecoder, frozen_generator, vgg: VGG16LPIPS,
         llpips = lpips_loss(vgg, target_img[None], image[None])
         loss = (ll1 * cfg.l1_weight + ll2 * cfg.l2_weight + llpips * cfg.lpips_weight
                 + lssim * cfg.ssim_weight + lsobel * cfg.sobel_weight)
+        lid = torch.zeros((), device=dev)
+        if (irse is not None and cfg.id_loss_weight > 0
+                and frontal_view(draws, cfg, target_cfg)):
+            lid = id_loss(irse, image[None], target_img[None])
+            loss = loss + lid * cfg.id_loss_weight
         mark("losses")
-        zero = torch.zeros((), device=dev)
         metrics = {"Loss/L1": ll1, "Loss/L2": ll2, "Loss/LPIPS": llpips, "Loss/DSSIM": lssim,
-                   "Loss/Sobel": lsobel, "Loss/id": zero, "Loss/total": loss,
+                   "Loss/Sobel": lsobel, "Loss/id": lid, "Loss/total": loss,
                    "General/truncation": torch.tensor(float(target.truncation)),
                    "General/n_dropped": torch.tensor(render_out["n_dropped"]),
                    "General/n_pairs": torch.tensor(render_out["n_pairs"])}
@@ -122,12 +159,13 @@ def make_loss_fn(decoder: GaussianDecoder, frozen_generator, vgg: VGG16LPIPS,
 def make_train_step(decoder: GaussianDecoder, frozen_generator, vgg: VGG16LPIPS,
                     cfg: DistillConfig = DistillConfig(),
                     target_cfg: TargetSamplerConfig = TargetSamplerConfig(),
-                    raster_cfg: RasterizeConfig = RasterizeConfig()):
+                    raster_cfg: RasterizeConfig = RasterizeConfig(),
+                    irse: Optional[IRSE50] = None):
     """-> step(state, draws, z, iteration, stage_timer=None) -> (state,
     metrics, aux): loss, backward and one Adam update, in place on the
     state's decoder and optimizer."""
     losses_and_metrics = make_loss_fn(decoder, frozen_generator, vgg, cfg, target_cfg,
-                                      raster_cfg)
+                                      raster_cfg, irse)
 
     def step(state: TrainState, draws: TargetDraws, z: torch.Tensor, iteration,
              stage_timer: Optional[Callable[[str], None]] = None):
