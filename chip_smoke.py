@@ -66,6 +66,16 @@ Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
      render_with_decoder on the loaded snapshot (backend 'pallas', K3, a
      finite 512^2 image) with save_ply of its 500k Gaussians, read back
      bit for bit by load_ply_arrays (file size and write time);
+  5c. the EG3D phase: the EG3D tri-plane generator at full width
+     (flagship_generator("eg3d"), depth-1 256^2 planes, SR to 512^2, the
+     same template and camera, a black background): K2's bilinear form and
+     K9's tri-plane form against their plain versions and timed, each one's
+     rows bit-identical to K8's on the staging of its plain version's
+     features; 1 + EG3D_FRAMES frames on each of the slab, table and fused
+     routes (each counted kernel launched in every frame, the first frame
+     against the route's all-plain frame), FRAMES more of each under
+     torch.profiler; and apps/train_decoder.py --generator_arch eg3d_ffhq
+     --random_init for 1 + EG3D_TRAIN_STEPS steps and one profiled step;
   6. prints the per-frame and per-step times, stage splits, each kernel's
      time beside its plain version's and its bound, peak device memory,
      then a JSON line of per-kernel results, the card's name and power
@@ -101,6 +111,9 @@ TRAIN_STEPS = 3    # timed training steps, after one warm-up step
 STREAM = 8         # latents of the frame stream, at STREAM_BATCH per backbone batch
 STREAM_BATCH = 4
 SURFACE_QUANTILE = 0.9
+EG3D_FRAMES = 2       # timed EG3D frames per route, after one warm-up frame
+EG3D_TRAIN_STEPS = 2  # timed EG3D train steps, after one warm-up step
+EG3D_BG = (0.0, 0.0, 0.0)   # the eg3d presets' background (apps/train_decoder.py)
 
 # the card's published peaks (H100 SXM data sheet, dense), for the bounds.
 # "tf32x3" is f32 accuracy on the tensor cores: each f32 product as three
@@ -138,6 +151,11 @@ KERNELS = {
                      "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:615"),
     "brick_table": ("gaussian_gan_decoder_tpu_torch/csrc/brick_table.cu",
                     "gaussian_gan_decoder_tpu/neuralfield/pallas_expand.py:149"),
+    # the EG3D tri-plane forms of K2 and K9 (the EG3D phase)
+    "slab_decode_bilinear": ("gaussian_gan_decoder_tpu_torch/csrc/slab_decode.cu",
+                             "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:836"),
+    "fused_decode_triplane": ("gaussian_gan_decoder_tpu_torch/csrc/brick_decode.cu",
+                              "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:615"),
 }
 
 
@@ -293,13 +311,14 @@ def hold_decode(torch, rows_k, rows_p, real, cw, cam, label):
     return float(d[cont + [cb]].max())
 
 
-def plain_image(torch, rows, grid, cap, dev):
-    """Binning + the plain blend of decode rows -> (3, H, W) image."""
+def plain_image(torch, rows, grid, cap, dev, bg=None):
+    """Binning + the plain blend of decode rows -> (3, H, W) image, over bg
+    (the flagship's background by default)."""
     from gaussian_gan_decoder_tpu_torch import flagship
     from gaussian_gan_decoder_tpu_torch.splat import fast_raster, pallas_blend
     st, at = fast_raster.bin_pairs(rows, grid, grid, 16)
     acc, tr = pallas_blend.blend_tiles_plain(st, at, grid, grid, 16, cap)
-    bg = torch.tensor(flagship.DEFAULT_BG, device=dev)
+    bg = torch.tensor(flagship.DEFAULT_BG if bg is None else bg, device=dev)
     img = acc + tr[:, :, None] * bg
     return img.reshape(grid, grid, 16, 16, 3).permute(4, 0, 2, 1, 3).reshape(3, IMAGE, IMAGE)
 
@@ -359,7 +378,8 @@ def _detached(torch, x):
 
 def train_path(torch, run, steps):
     """Drive run.step (apps/train_decoder.build) for one warm-up step and
-    `steps` timed ones, launch counters at 0 first. The warm-up step's
+    `steps` timed ones, launch counters at 0 first; each training kernel
+    must launch in every step. The warm-up step's
     kernel inputs (and cotangents) are recorded on the way through the
     wrappers, which still launch their kernels. -> dict of the readings."""
     from gaussian_gan_decoder_tpu_torch.decoder.target_pipeline import TargetDraws
@@ -387,6 +407,7 @@ def train_path(torch, run, steps):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     state, step_ms, stage_ms, losses = run.state, [], [], []
+    seen = {k: 0 for k in originals}
     for i in range(steps + 1):           # step 0 is the warm-up
         for k, (mod, fn) in wrappers.items():
             setattr(mod, fn, recorders[k] if i == 0 else originals[k])
@@ -400,6 +421,10 @@ def train_path(torch, run, steps):
         host_ms = (time.perf_counter() - t_host) * 1e3
         loss = float(metrics["Loss/total"])
         require(np.isfinite(loss), f"train step {i}: loss {loss}")
+        for k, fn in originals.items():
+            n = fn.launches + recorders[k].launches
+            require(n > seen[k], f"{k} kernel not launched in train step {i}")
+            seen[k] = n
         require(int(metrics["General/n_dropped"]) == 0, f"train step {i}: dropped pairs")
         losses.append(loss)
         if i == 0:
@@ -893,11 +918,14 @@ def profile_frames(torch, frame, host_med, label):
 
 def frame_run(torch, decoder, weights, zs, cp, c2w, counters, frames, **route):
     """Drive flagship.decode_and_render for one warm-up frame and `frames`
-    timed ones, launch counters at 0 first. -> dict of the readings."""
+    timed ones, launch counters at 0 first; each counted kernel must launch
+    in every frame. route: slab_ctx or init_position, and bg (the
+    flagship's background by default). -> dict of the readings."""
     from gaussian_gan_decoder_tpu_torch import flagship
     dev = zs.device
     for fn in counters.values():
         fn.launches = 0
+    seen = dict.fromkeys(counters, 0)
     torch.cuda.reset_peak_memory_stats(dev)
     frame_ms, stage_ms, first = [], [], None
     for i in range(frames + 1):          # frame 0 is the warm-up
@@ -908,10 +936,14 @@ def frame_run(torch, decoder, weights, zs, cp, c2w, counters, frames, **route):
         timer("start")
         img, decoded, aux = flagship.decode_and_render(
             decoder, weights, zs[i], cp, c2w, route.get("slab_ctx"), FOV, image_size=IMAGE,
-            return_aux=True, stage_timer=timer, init_position=route.get("init_position"))
+            bg=route.get("bg", flagship.DEFAULT_BG), return_aux=True, stage_timer=timer,
+            init_position=route.get("init_position"))
         timer("end")
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t_host) * 1e3
+        for name, fn in counters.items():
+            require(fn.launches > seen[name], f"{name} kernel not launched in frame {i}")
+            seen[name] = fn.launches
         require(tuple(img.shape) == (3, IMAGE, IMAGE), f"image shape {tuple(img.shape)}")
         require(bool(torch.isfinite(img).all()), f"frame {i}: non-finite image")
         require(float(img.std()) > 1e-4, f"frame {i}: constant image")
@@ -1123,6 +1155,207 @@ def brick_phase(torch, dec, weights, planes, rows_slab, ctx, template, cam, cp, 
     del bdec, fdec, frames
     torch.cuda.empty_cache()
     return launches
+
+
+def eg3d_phase(torch, seed, results):
+    """The EG3D tri-plane generator at full width (flagship_generator("eg3d"):
+    z/w 512, 256^2 tri-planes of 3 x 32 channels, depth 1, SR to 512^2;
+    width-128 heads, "poly" GELU), seeded random weights, the 500k template
+    and the frame's camera over a black background: K2's bilinear form on
+    the bilinear slab pack and K9's tri-plane form on the bf16 gathers
+    against their plain versions, timed beside them with their bounds, and
+    each form's rows bit-identical to K8's on the staging of its plain
+    version's features (the lerp's witness); 1 +
+    EG3D_FRAMES frames on the slab (K2 bilinear), table (bf16 bilinear
+    table + K8) and fused (K9 tri-plane) routes, counters at 0 first, each
+    first frame against the all-plain frame of its route, then FRAMES more
+    under torch.profiler; then apps/train_decoder.py --generator_arch
+    eg3d_ffhq --random_init for 1 + EG3D_TRAIN_STEPS steps (marching level
+    the SURFACE_QUANTILE rule) and one profiled step. -> launches of the
+    two forms on their routes' frames."""
+    from gaussian_gan_decoder_tpu_torch import flagship
+    from gaussian_gan_decoder_tpu_torch.apps import train_decoder
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads as ph
+    from gaussian_gan_decoder_tpu_torch.decoder.heads import GaussianDecoder
+    from gaussian_gan_decoder_tpu_torch.gaussians.cameras import make_camera
+    from gaussian_gan_decoder_tpu_torch.models import pallas_mapping
+    from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import (
+        build_plane_table, build_slab_volume, sample_from_planes, sample_fused_inputs)
+    from gaussian_gan_decoder_tpu_torch.splat import pallas_blend
+    dev = torch.device("cuda:0")
+    rng = torch.Generator().manual_seed(seed + 9)
+    dec = flagship.flagship_decoder(gen=flagship.flagship_generator("eg3d", rng=rng, device=dev),
+                                    rng=rng, device=dev).eval()
+    fdec = GaussianDecoder(dec.G, gelu=dec.gelu, device=dev, fused_sampling=True).eval()
+    fdec.load_state_dict(dec.state_dict())
+    G = dec.G
+    require(G.triplane_depth == 1 and G.variant == "eg3d", "not an EG3D tri-plane generator")
+    weights = dec.fold()
+    cw = weights.chain
+    weights_of = (cw.w1, cw.b1, cw.w2, cw.b2, cw.w3, cw.b3, cw.w4, cw.b4, cw.meta)
+    nprng = np.random.RandomState(seed + 9)
+    template = ((nprng.rand(POINTS, 3) - 0.5) * 0.4).astype(np.float32)
+    pos = torch.tensor(template, device=dev)
+    M, box_warp = POINTS, float(G.rk["box_warp"])
+    t0 = time.perf_counter()
+    ctx = dec.make_slab_context(template, device=dev)
+    print(f"EG3D bilinear slab pack: {time.perf_counter() - t0:.2f} s host, "
+          f"{ctx.m_padded // ctx.block} blocks, Mpad {ctx.m_padded}")
+    cp, c2w = flagship.default_camera_params(device=dev)
+    cam = make_camera(IMAGE, FOV, c2w, device=dev)
+    zs = torch.tensor(nprng.randn(EG3D_FRAMES + 2, 1, 512).astype(np.float32), device=dev)
+    g = IMAGE // 16
+    cap = flagship.flagship_raster_config().tile_capacity
+    c0 = torch.zeros((1, 25), dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        planes, _ = dec.synthesize_planes(weights, zs[0], cp)
+        require(tuple(planes.shape[1:]) == (3, 32, 256, 256), f"planes {tuple(planes.shape)}")
+
+        # -- K2's bilinear form over the full EG3D pack ----------------------
+        vol, scales = build_slab_volume(planes, 1)
+        rows_k = ph.decode_project_slab(cw, vol, scales, ctx, cam)
+        rows_p = ph.decode_project_slab_plain(cw, vol, scales, ctx, cam)
+        torch.cuda.synchronize()
+        v = ctx.valid > 0
+        err = hold_decode(torch, rows_k, rows_p, v, cw, cam,
+                          f"K2 bilinear slab decode (vol {tuple(vol.shape)})")
+        require(bool((rows_k[16:28, ~v][[5, 10, 11]] == 0).all()),
+                "K2 bilinear: pad slots not culled")
+        ms, plain_ms = paired_ms(torch, lambda: ph.decode_project_slab(cw, vol, scales, ctx, cam),
+                                 lambda: ph.decode_project_slab_plain(cw, vol, scales, ctx, cam),
+                                 3)
+        # the kernel runs the chain on every slot of the pack: per slot the
+        # chain, 3 planes x 4 corners x 32 channels of bilinear lerp, ~150
+        # FLOPs of projection, over the pack's Mpad
+        per_slot = chain_flops(cw) + 3 * 4 * 32 * 2 + 150
+        b = bound(nbytes(vol, scales, ctx.positions, ctx.idx16, ctx.aux, ctx.inv_axes,
+                         *weights_of, rows_k), ctx.m_padded * per_slot, "bf16")
+        b_real = bound(0, M * per_slot, "bf16")[0]
+        print(f"K2 bilinear slab decode: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+              f"{b[0]:.4f} ms over Mpad {ctx.m_padded} ({b[1]}, {b[2]}), {b_real:.4f} ms over "
+              f"the {M} points")
+        results["slab_decode_bilinear"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b)
+        # the lerp's witness: K8 (chain only) on the staging of the plain
+        # version's features gives K2's rows bit for bit on the real slots,
+        # so K2's features are the plain version's and the gap above is the
+        # chain's summation order
+        st = ctx.aux.float()
+        st[:, :ph.C] = ph._bf16r(ph.slab_features_plain(
+            vol, scales, ctx.positions, ctx.idx16, st[:, ph.VALID_COL].clone(), ctx.inv_axes,
+            ctx.box_warp, ctx.sizes))
+        rows_w = ph.decode_project(cw, st.to(torch.bfloat16).contiguous(), cam, ctx.m_padded)
+        same = torch.equal(rows_k[:, v], rows_w[:, v])
+        print(f"K2 bilinear: rows bit-identical to K8's on the plain features: {same}")
+        require(same, "K2 bilinear: its features differ from the plain version's")
+        del rows_k, rows_p, rows_w, st
+
+        # -- K9's tri-plane form on the bf16 gathers -------------------------
+        aux, Mpad = ph.build_brick_staging(pos.new_zeros((M, ph.C)), pos, pos)
+        rows_in, wts, scale_rows = sample_fused_inputs(G.plane_axes, planes, pos[None], box_warp,
+                                                       1, pad_to=Mpad)
+        require(rows_in[0].dtype == torch.bfloat16 and rows_in[0].shape == (Mpad, 4 * ph.C),
+                f"tri-plane rows {rows_in[0].dtype} {tuple(rows_in[0].shape)}")
+        real = torch.arange(Mpad, device=dev) < M
+        f_k = ph.decode_project_fused(cw, aux, rows_in, wts, scale_rows, cam, M)
+        f_p = ph.decode_project_fused_plain(cw, aux, rows_in, wts, scale_rows, cam, M)
+        torch.cuda.synchronize()
+        err = hold_decode(torch, f_k, f_p, real, cw, cam, "K9 tri-plane fused decode")
+        ms, plain_ms = paired_ms(
+            torch, lambda: ph.decode_project_fused(cw, aux, rows_in, wts, scale_rows, cam, M),
+            lambda: ph.decode_project_fused_plain(cw, aux, rows_in, wts, scale_rows, cam, M), 3)
+        b = bound(nbytes(aux, *rows_in, wts, scale_rows, *weights_of, f_k),
+                  M * (chain_flops(cw) + 3 * 4 * 32 * 2 + 150), "bf16")
+        print(f"K9 tri-plane fused decode: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+              f"{b[0]:.4f} ms ({b[1]}, {b[2]})")
+        results["fused_decode_triplane"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                bound=b)
+        st, _ = ph.build_brick_staging(ph.fused_features_plain(rows_in, wts, scale_rows)[:M],
+                                       pos, pos)
+        same = torch.equal(f_k, ph.decode_project(cw, st, cam, M))
+        print(f"K9 tri-plane: rows bit-identical to K8's on the plain features: {same}")
+        require(same, "K9 tri-plane: its features differ from the plain version's")
+        del st
+        del f_k, f_p, rows_in, wts, aux, vol
+
+        # -- the all-plain frames of the three routes -------------------------
+        def plain_frame(z, route):
+            ws = pallas_mapping.mapping_forward_plain(z, c0, weights.mapping)
+            ws = ws[:, None].expand(1, weights.mapping.num_ws, ws.shape[1])
+            pl = G.synthesis_planes(ws, noise_mode="const")
+            if route == "slab":
+                vo, sc = build_slab_volume(pl, 1)
+                rows = ph.decode_project_slab_plain(cw, vo, sc, ctx, cam)
+            elif route == "table":
+                tb = build_plane_table(pl, 1, brick_dtype=torch.bfloat16)
+                ft = sample_from_planes(G.plane_axes, pl, pos[None], box_warp, 1, table=tb)[0]
+                st, _ = ph.build_brick_staging(ft.mean(0), pos, pos)
+                rows = ph.decode_project_plain(cw, st, cam, M)
+            else:
+                au, mp = ph.build_brick_staging(pos.new_zeros((M, ph.C)), pos, pos)
+                ri, wt, sr = sample_fused_inputs(G.plane_axes, pl, pos[None], box_warp, 1,
+                                                 pad_to=mp)
+                rows = ph.decode_project_fused_plain(cw, au, ri, wt, sr, cam, M)
+            return plain_image(torch, rows, g, cap, dev, bg=EG3D_BG)
+
+        ref_imgs = {route: plain_frame(zs[1], route) for route in ("slab", "table", "fused")}
+
+    # -- the EG3D main paths: slab (K2 bilinear), table (K8), fused (K9) ------
+    launches = {}
+    for route, d, kernel in (("slab", dec, ph.decode_project_slab),
+                             ("table", dec, ph.decode_project),
+                             ("fused", fdec, ph.decode_project_fused)):
+        w = weights if d is dec else fdec.fold()
+        kw = {"slab_ctx": ctx} if route == "slab" else {"init_position": pos}
+        counters = {"mapping": pallas_mapping.mapping_forward, f"{route}_decode": kernel,
+                    "blend": pallas_blend.blend_tiles}
+        run = frame_run(torch, d, w, zs[1:], cp, c2w, counters, EG3D_FRAMES, bg=EG3D_BG, **kw)
+        label = f"EG3D {route}-route"
+        _, host_med = report_frames(torch, run, label)
+        profile_frames(torch, lambda i, timer, d=d, w=w, kw=kw: flagship.decode_and_render(
+            d, w, zs[1 + i % (EG3D_FRAMES + 1)], cp, c2w, kw.get("slab_ctx"), FOV,
+            image_size=IMAGE, bg=EG3D_BG, init_position=kw.get("init_position"),
+            stage_timer=timer), host_med, label)
+        fr_psnr = psnr(run["first"][0], ref_imgs[route])
+        print(f"{label} first frame vs its all-plain frame: {fr_psnr:.2f} dB")
+        require(fr_psnr >= 30.0, f"{label} frame disagrees with the plain frame: "
+                f"{fr_psnr:.2f} dB")
+        launches[route] = run["launches"][f"{route}_decode"]
+    del dec, fdec, weights, ctx, planes, ref_imgs
+    torch.cuda.empty_cache()
+
+    # -- the EG3D train step: apps/train_decoder.py --generator_arch eg3d_ffhq -
+    gen = flagship.flagship_generator("eg3d", rng=torch.Generator().manual_seed(seed))
+    z0 = torch.randn((1, gen.z_dim), generator=torch.Generator().manual_seed(1)).to(dev)
+    level, n_faces = surface_level(torch, gen, z0, 128, 2 ** 20)
+    del gen
+    print(f"EG3D surface level {level:.4f} ({SURFACE_QUANTILE} quantile of the first latent's "
+          f"128^3 sigma grid): {n_faces} faces")
+    require(n_faces > 0, "EG3D: no surface at the chosen level")
+    run = train_decoder.build(train_decoder.build_argparser().parse_args(
+        ["--generator_arch", "eg3d_ffhq", "--random_init", "--seed", str(seed),
+         "--mc_level", repr(level)]))
+    require(run.gen.variant == "eg3d" and run.cfg.bg_color == EG3D_BG, "not the eg3d_ffhq preset")
+    tr = train_path(torch, run, EG3D_TRAIN_STEPS)
+    step_dev = sorted(d for d, _ in tr["step_ms"])
+    step_host = sorted(h for _, h in tr["step_ms"])
+    step_med, step_host_med = step_dev[len(step_dev) // 2], step_host[len(step_host) // 2]
+    print(f"EG3D train step (500k points, 512^2): median {step_med:.3f} ms device, "
+          f"{step_host_med:.3f} ms host wall; losses "
+          + ", ".join(f"{v:.5f}" for v in tr["losses"])
+          + f"; first step {tr['n_pairs']} pairs; launches {tr['launches']}")
+    print("EG3D train stage split (median ms): "
+          + ", ".join(f"{n} {t:.3f}" for n, t in stage_split(torch, tr["stage_ms"]).items()))
+    print(f"EG3D peak device memory (train path): {tr['peak'] / 2 ** 30:.3f} GiB")
+    busy_ms, on_card = profile_step(torch, run, tr["state"], tr["draws"][0], tr["zs"][0],
+                                    EG3D_TRAIN_STEPS + 1)
+    require(busy_ms > 0, "the profiler saw no device time in the EG3D train step")
+    print(f"EG3D profiler: {busy_ms:.3f} ms device time in one train step, busy "
+          f"{busy_ms / step_host_med:.3f} of the median host-wall step; largest: "
+          + "; ".join(f"{k[:48]} {t:.3f} ms ({t / busy_ms:.1%})" for t, k in on_card[:6]))
+    del run, tr
+    torch.cuda.empty_cache()
+    return {"slab_decode_bilinear": launches["slab"],
+            "fused_decode_triplane": launches["fused"]}
 
 
 def main(argv=None) -> int:
@@ -1393,6 +1626,11 @@ def main(argv=None) -> int:
         dump["step"] = (st, at, dt)
         torch.save({k: tuple(x.cpu() for x in v) for k, v in dump.items()}, args.dump)
         print(f"blend inputs saved to {args.dump}")
+    del captured, dump
+    torch.cuda.empty_cache()
+
+    # -- the EG3D phase: the tri-plane forms of K2 and K9, frames and steps ---
+    launches.update(eg3d_phase(torch, args.seed, results))
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -4,8 +4,12 @@
         --num_iter N [--outdir ./results] [--force_cpu] [--smoke]
     python -m gaussian_gan_decoder_tpu_torch.apps.train_decoder \\
         --network_pkl easy-khair.pkl --id_weights model_ir_se50.pth
+    python -m gaussian_gan_decoder_tpu_torch.apps.train_decoder \\
+        --generator_arch eg3d_ffhq --random_init --smoke --force_cpu --num_iter 3
 
-The PanoHead generator from a reference pickle (--network_pkl, through
+The generator of --generator_arch (the PanoHead tri-grid, or an EG3D
+tri-plane preset: eg3d_ffhq, eg3d_lpff, eg3d_cats, each with its camera
+stddevs and background) from a reference pickle (--network_pkl, through
 port/torch_pickle.py) or with seeded random weights (--random_init; --smoke
 swaps in the JAX CLI's tiny generator and shapes, for CPU runs), the
 sequential_reversed heads (hidden 128, exact GELU), the trainable G copy,
@@ -107,7 +111,6 @@ def build_argparser():
 def _refuse_unported(args):
     """Raise NotImplementedError for every flag whose path the port lacks."""
     unported = {
-        "--generator_arch eg3d_*": (args.generator_arch != "panohead", ROADMAP_DECODE),
         "--batch_views": (args.batch_views > 0, ROADMAP_DECODE),
         "--pallas_probe_build": (args.pallas_probe_build, ROADMAP_DECODE),
         "--int8_probe": (args.int8_probe, ROADMAP_DECODE),

@@ -8,14 +8,27 @@
 // matrix-unit contractions). Each point reads its 8 corners per plane
 // straight from the channels-last int8 volume (32 contiguous bytes each).
 //
+// Two forms, instantiated from one template (kBilinear):
+//   * the tri-grid (PanoHead, depth D > 1): volume (3, D + 2, YP, XP*32),
+//     8 corners a plane, trilinear weights;
+//   * the bilinear form (EG3D tri-plane, depth 1): volume (3, 1, YP, XP*32),
+//     4 corners a plane, no z weight (the single layer weighs its validity
+//     bit, which the bilinear pack always sets). The TPU kernel runs it
+//     with dzw=1 and a 128-row y window, sized to fill one matrix-unit
+//     tile; a point's corners need no window here.
+//
 // Per block of 128 points, 256 threads (a ragged last block is masked):
 //   1. staging X (128 x 128, bf16) <- the static aux staging (cond, init,
 //      valid at column 123), while the first layer's weights arrive;
 //   2. features: 4 threads per point, 8 channels each; per plane the
 //      corner weights come from the slot position and the host's padded
 //      indices + validity bits (align_corners=False, zeros padding), then
-//      dequant (scale / 3) and the plane mean; pad slots get 0; X[:, 0:32]
-//      <- bf16(mean);
+//      the scale row (the dequant scale with the 1/3 plane mean folded in,
+//      computed by the wrapper) and the plane sum; pad slots get 0; X[:, 0:32]
+//      <- bf16(mean). Every product and sum is rounded on its own (_rn
+//      intrinsics, no FMA contraction), in the plain version's order, so
+//      the features are the plain version's bit for bit (chip_smoke.py
+//      holds the rows against K8's on the plain features);
 //   3. the chain on the tensor cores: per head 3 x (128x128 linear + GELU,
 //      bf16-rounded) and a 128x16 linear as bf16 mma.sync with f32
 //      accumulators, each warp's 16 points kept in registers from layer to
@@ -41,8 +54,9 @@ using ggd::kXld;
 
 constexpr int kC = 32;
 
+template <bool kBilinear>
 __global__ void __launch_bounds__(kDecThreads) slab_decode_kernel(
-    const int8_t* __restrict__ vol, const float* __restrict__ scales,
+    const int8_t* __restrict__ vol, const float* __restrict__ scale_rows,
     const float* __restrict__ positions, const int16_t* __restrict__ idx16,
     const __nv_bfloat16* __restrict__ aux, const ggd::DecodeChain cw,
     const float* __restrict__ inv_axes, float* __restrict__ out,
@@ -58,7 +72,7 @@ __global__ void __launch_bounds__(kDecThreads) slab_decode_kernel(
   // 1. static staging (the first weights already in flight)
   ggd::decode_prologue(s, sMeta, cw, aux, m0, n_rows);
 
-  // 2. trilinear features, 4 threads per point x 8 channels
+  // 2. trilinear (bilinear) features, 4 threads per point x 8 channels
   for (int pt = tid >> 2; pt < n_rows; pt += kDecThreads / 4) {
     const int part = tid & 3;
     const int m = m0 + pt;
@@ -74,14 +88,22 @@ __global__ void __launch_bounds__(kDecThreads) slab_decode_kernel(
       const float* inv = inv_axes + p * 9;
       float proj[3];
 #pragma unroll
-      for (int d = 0; d < 3; ++d) proj[d] = g0 * inv[0 * 3 + d] + g1 * inv[1 * 3 + d] + g2 * inv[2 * 3 + d];
+      for (int d = 0; d < 3; ++d)
+        proj[d] = __fadd_rn(__fadd_rn(__fmul_rn(g0, inv[0 * 3 + d]), __fmul_rn(g1, inv[1 * 3 + d])),
+                            __fmul_rn(g2, inv[2 * 3 + d]));
       const int bits = idx16[m * 12 + 4 * p + 3];
       int ip[3];
       float wa[3], wb[3];
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
         ip[d] = idx16[m * 12 + 4 * p + d];
-        const float x = ((proj[d] + 1.f) * sizes[d] - 1.f) * 0.5f;
+        if (kBilinear && d == 2) {
+          // depth 1: the single z layer weighs its validity bit (1 << 4)
+          wa[d] = (float)((bits >> 4) & 1);
+          wb[d] = 0.f;
+          continue;
+        }
+        const float x = __fsub_rn(__fmul_rn(__fadd_rn(proj[d], 1.f), sizes[d]), 1.f) * 0.5f;
         const float w1f = x - ((float)ip[d] - 1.f);
         wa[d] = (1.f - w1f) * (float)((bits >> (2 * d)) & 1);
         wb[d] = w1f * (float)((bits >> (2 * d + 1)) & 1);
@@ -89,12 +111,12 @@ __global__ void __launch_bounds__(kDecThreads) slab_decode_kernel(
       // memory safety only: valid packs never leave these bounds
       const int ix = min(max(ip[0], 0), XP - 2);
       const int iy = min(max(ip[1], 0), YP - 2);
-      const int iz = min(max(ip[2], 0), DZ - 2);
+      const int iz = kBilinear ? 0 : min(max(ip[2], 0), DZ - 2);
       float sum[8];
 #pragma unroll
       for (int c = 0; c < 8; ++c) sum[c] = 0.f;
 #pragma unroll
-      for (int dz = 0; dz < 2; ++dz) {
+      for (int dz = 0; dz < (kBilinear ? 1 : 2); ++dz) {
 #pragma unroll
         for (int dy = 0; dy < 2; ++dy) {
           const float wzy = (dz ? wb[2] : wa[2]) * (dy ? wb[1] : wa[1]);
@@ -105,12 +127,13 @@ __global__ void __launch_bounds__(kDecThreads) slab_decode_kernel(
             const int2 q2 = *reinterpret_cast<const int2*>(row + (ix + dx) * kC + part * 8);
             const int8_t* q = reinterpret_cast<const int8_t*>(&q2);
 #pragma unroll
-            for (int c = 0; c < 8; ++c) sum[c] += w * (float)q[c];
+            for (int c = 0; c < 8; ++c) sum[c] = __fadd_rn(sum[c], __fmul_rn(w, (float)q[c]));
           }
         }
       }
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[c] += sum[c] * (scales[p * kC + part * 8 + c] / 3.f);
+      for (int c = 0; c < 8; ++c)
+        acc[c] = __fadd_rn(acc[c], __fmul_rn(sum[c], scale_rows[p * kC + part * 8 + c]));
     }
     const bool valid = ggd::bf16f(s.X[pt * kXld + kValidCol]) > 0.f;
 #pragma unroll
@@ -125,23 +148,28 @@ __global__ void __launch_bounds__(kDecThreads) slab_decode_kernel(
 
 }  // namespace
 
-extern "C" int ggd_slab_decode(const void* vol, const void* scales, const void* positions,
+// scale_rows (3, 32) f32: the int8 dequant scales with the 1/3 plane mean
+// folded in (pallas_heads.slab_scale_rows)
+extern "C" int ggd_slab_decode(const void* vol, const void* scale_rows, const void* positions,
                                const void* idx16, const void* aux, const void* inv_axes,
                                const void* w1, const void* b1, const void* w2, const void* b2,
                                const void* w3, const void* b3, const void* w4, const void* b4,
                                const void* cam, const void* meta, void* out, int Mpad, int D,
                                int H, int W, int DZ, int YP, int XP, float box_warp,
                                float scale_offset, void* stream) {
-  if (Mpad <= 0) return (int)cudaErrorInvalidValue;
+  // depth 1 (DZ 1) takes the bilinear form; a tri-grid has D + 2 z layers
+  const bool bilinear = D == 1;
+  if (Mpad <= 0 || D < 1 || DZ != (bilinear ? 1 : D + 2)) return (int)cudaErrorInvalidValue;
   for (const void* p : {aux, w1, w2, w3, w4})
     if (!ggd::aligned16(p)) return (int)cudaErrorMisalignedAddress;
   const size_t smem = ggd::kDecodeSmemBytes;
-  cudaError_t e = cudaFuncSetAttribute(slab_decode_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = bilinear ? slab_decode_kernel<true> : slab_decode_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const ggd::DecodeChain cw = ggd::decode_chain(w1, b1, w2, b2, w3, b3, w4, b4, cam, meta);
-  slab_decode_kernel<<<(Mpad + kDecPts - 1) / kDecPts, kDecThreads, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)vol, (const float*)scales, (const float*)positions,
+  kernel<<<(Mpad + kDecPts - 1) / kDecPts, kDecThreads, smem, (cudaStream_t)stream>>>(
+      (const int8_t*)vol, (const float*)scale_rows, (const float*)positions,
       (const int16_t*)idx16, (const __nv_bfloat16*)aux, cw, (const float*)inv_axes,
       (float*)out, Mpad, D, H, W, DZ, YP, XP, box_warp, scale_offset);
   return (int)cudaGetLastError();

@@ -13,12 +13,15 @@ package's decode_project dispatches:
   * a slab context: the int8 slab volume + the fused slab decode K2;
     make_slab_context packs the static template once on the host (same
     packing and npz disk cache as the JAX package);
-  * fused_sampling: the int8 brick table (K10), the per-plane brick-row
-    gathers (sample_fused_inputs) and the gather-fused decode K9;
-  * otherwise: the int8 brick table (K10), the table sample, the plane
-    mean and the decode K8 over the prebuilt staging.
+  * fused_sampling: the brick table, the per-plane brick-row gathers
+    (sample_fused_inputs) and the gather-fused decode K9;
+  * otherwise: the brick table, the table sample, the plane mean and the
+    decode K8 over the prebuilt staging.
 The brick routes need no per-template pack; their rows come out in template
-order, padded to a multiple of 1024 points.
+order, padded to a multiple of 1024 points. Their table is the int8 brick
+table of K10 on a PanoHead tri-grid; on an EG3D tri-plane (depth 1) it is
+the plain bf16 bilinear table, the JAX decoder's brick dtype there, and the
+slab route takes the bilinear pack and K2's bilinear form.
 
 The training side (apply = synthesize_planes_train + decode_from_planes)
 keeps the autograd graph: the f32 mapping and synthesis of the trainable G
@@ -42,12 +45,12 @@ from torch import nn
 
 from ..models.pallas_mapping import FoldedMapping, fold_mapping, mapping_forward
 from ..models.triplane import TriPlaneGenerator, TriPlaneGeneratorConfig
-from ..neuralfield.renderer import (build_plane_table, build_slab_volume, sample_from_planes,
-                                   sample_fused_inputs)
+from ..neuralfield.renderer import (build_plane_table, build_slab_volume, decode_brick_dtype,
+                                   sample_from_planes, sample_fused_inputs)
 from .pallas_heads import (C, ChainWeights, build_brick_staging, build_staging,
                            decode_project, decode_project_fused, decode_project_slab, pack_chain)
 from .pallas_heads_vjp import decode_heads_pallas_diff
-from .point_blocks import PointBlocks, build_point_blocks, compact_indices
+from .point_blocks import DZW, EY, PointBlocks, build_point_blocks, compact_indices
 
 # the reference default ('sequential_reversed'): head order, output widths;
 # each head reads the features, the position and every earlier head's output
@@ -229,7 +232,7 @@ class GaussianDecoder(nn.Module):
         pos = init_position.float()
         M = pos.shape[0]
         box_warp = float(g.rk["box_warp"])
-        table = build_plane_table(planes, D, brick_dtype=torch.int8)
+        table = build_plane_table(planes, D, brick_dtype=decode_brick_dtype(D))
         tick("table")
         if self.fused_sampling:
             aux, Mpad = build_brick_staging(pos.new_zeros((M, C)), pos, pos)
@@ -251,25 +254,32 @@ class GaussianDecoder(nn.Module):
     def make_slab_context(self, init_position, block: int = 1024,
                           cache_dir: Optional[str] = None, device=None) -> SlabContext:
         """One-time packing of a static (M, 3) template for the slab decode.
-        cache_dir persists the host products (perm, positions, origins,
-        valid, idx16) as npz keyed on the template bytes, plane axes, grid
-        dims and block geometry. The context lands on `device`, by default
-        the decoder's own."""
+        A depth-1 (EG3D) tri-plane takes the JAX package's bilinear pack
+        (2-D windows, ey = min(128, roundup(H + 2, 8))). cache_dir persists
+        the host products (perm, positions, origins, valid, idx16) as npz
+        keyed on the template bytes, plane axes, grid dims and block
+        geometry. The context lands on `device`, by default the decoder's
+        own."""
         g = self.G
         if device is None:
             device = next(self.parameters()).device
-        if g.triplane_depth < 2:
-            raise NotImplementedError("the bilinear (depth-1, EG3D) slab variant is not ported")
         sizes = (g.triplane_depth, int(g.rk["triplane_size"]), int(g.rk["triplane_size"]))
         box_warp = float(g.rk["box_warp"])
         axes = g.plane_axes
+        # the JAX package's window geometry, which sets its slot order
+        bilinear = g.triplane_depth == 1
+        if bilinear:
+            dzw, ey = 1, min(128, -(-(sizes[1] + 2) // 8) * 8)
+        else:
+            dzw, ey = DZW, EY
         pos_np = np.asarray(init_position, np.float32)
         cache_path = None
         if cache_dir:
             h = hashlib.sha256()
             h.update(pos_np.tobytes())
             h.update(np.asarray(axes, np.float32).tobytes())
-            h.update(repr((sizes, box_warp, block, "slab_pack_v1")).encode())
+            h.update(repr((sizes, box_warp, block, (dzw, ey, bilinear),
+                           "slab_pack_v1")).encode())
             cache_path = os.path.join(cache_dir, f"slab_pack_{h.hexdigest()[:24]}.npz")
         if cache_path and os.path.exists(cache_path):
             zf = np.load(cache_path)
@@ -278,8 +288,9 @@ class GaussianDecoder(nn.Module):
                              n_points=int(zf["n_points"]), block=int(zf["block"]))
             idx16 = zf["idx16"]
         else:
-            pb = build_point_blocks(pos_np, axes, box_warp=box_warp, sizes=sizes, block=block)
-            idx16 = compact_indices(pb, axes, box_warp, sizes)
+            pb = build_point_blocks(pos_np, axes, box_warp=box_warp, sizes=sizes, block=block,
+                                    ey=ey, bilinear=bilinear)
+            idx16 = compact_indices(pb, axes, box_warp, sizes, bilinear=bilinear)
             if cache_path:
                 os.makedirs(cache_dir, exist_ok=True)
                 tmp = cache_path + f".tmp{os.getpid()}.npz"

@@ -10,7 +10,11 @@ weight matrices and x-segment matrix exist only to turn the trilinear gather
 into matrix-unit contractions. On the H100 each point gathers its 8 corners
 per plane directly from the int8 channels-last volume (32 channels = 32
 contiguous bytes per corner) at the compact padded indices of the host pack,
-with the corner weights recomputed in f32 from the slot position.
+with the corner weights recomputed in f32 from the slot position. Its
+bilinear form (a second instantiation of the same kernel) takes a depth-1
+EG3D tri-plane volume (3, 1, YP, XP*32): 4 corners a plane, no z weight,
+the z validity bit always set (the TPU kernel's dzw=1, ey=128 form, whose
+128-row window exists to fill one matrix-unit tile and is not kept).
 
 What bounds it on the H100: the chain — 5 heads x 4 linears of width 128,
 5.12e5 FLOPs per point (padded), ~3e11 FLOPs per flagship frame; the
@@ -30,7 +34,11 @@ the 128 staging columns; head h reads the staging prefix. Rows 14-15 of the
 raw head block and rows 28-31 are written as zeros. Pad slots decode zero
 features and are culled through the staging's valid column (visible, opac
 and radius_f multiplied by it). The port reads the corners with f32
-weights, where the TPU kernel's (z,y) weights are int8-quantised.
+weights, where the TPU kernel's (z,y) weights are int8-quantised. The
+kernels' lerp (K2's and K9's) rounds each product and sum on its own, in
+the plain version's order, so their bf16 features equal the plain
+version's bit for bit; what remains between kernel and plain is the
+chain's summation order.
 """
 from __future__ import annotations
 
@@ -205,15 +213,26 @@ def build_staging(cond0, init_position, valid):
     return st.to(torch.bfloat16).contiguous()
 
 
+def slab_scale_rows(scales):
+    """(3, 32) int8 dequant scales -> the scale rows K2 and its plain
+    version multiply each plane's lerp by: the dequant scale with the 1/3
+    plane mean folded in, computed once by this one op for both, so that
+    their features agree bit for bit."""
+    return (scales / 3.0).contiguous()
+
+
 def slab_features_plain(vol, scales, positions, idx16, valid, inv_axes, box_warp, sizes):
     """Mean-over-planes trilinear sample of the int8 slab volume at every
     slot -> (M, 32) f32, zero at pad slots. Corner weights follow the
     align_corners=False contract from the slot position and the host's
-    padded indices + validity bits (point_blocks.compact_indices)."""
+    padded indices + validity bits (point_blocks.compact_indices). A
+    depth-1 volume (DZ == 1) is sampled bilinearly: the single z layer
+    weighs its validity bit (always set), the plane-local z is unused."""
     D, H, W = sizes
     n_planes, DZ, YP, XPC = vol.shape
     XP = XPC // C
     vflat = vol.reshape(n_planes, DZ * YP * XP, C)
+    scale_rows = slab_scale_rows(scales)
     g = (2.0 / box_warp) * positions.float()
     idx = idx16.long()
     acc = torch.zeros((positions.shape[0], C), dtype=torch.float32, device=vol.device)
@@ -231,16 +250,19 @@ def slab_features_plain(vol, scales, positions, idx16, valid, inv_axes, box_warp
         vb = [((bits >> k) & 1).float() for k in range(6)]
         wx = corner(proj[0], ix, W, vb[0], vb[1])
         wy = corner(proj[1], iy, H, vb[2], vb[3])
-        wz = corner(proj[2], iz, D, vb[4], vb[5])
+        if DZ == 1:
+            wz, dzs = (vb[4], vb[5]), (0,)
+        else:
+            wz, dzs = corner(proj[2], iz, D, vb[4], vb[5]), (0, 1)
         s = torch.zeros_like(acc)
-        for dz in (0, 1):
+        for dz in dzs:
             for dy in (0, 1):
                 wzy = wz[dz] * wy[dy]
                 base = (iz + dz) * YP + (iy + dy)
                 for dx in (0, 1):
                     w = wzy * wx[dx]
                     s += w[:, None] * vflat[p, base * XP + ix + dx].float()
-        acc += s * (scales[p] / 3.0)
+        acc += s * scale_rows[p]
     return acc * (valid.float() > 0)[:, None]
 
 
@@ -321,8 +343,11 @@ def decode_project_slab_plain(cw: ChainWeights, vol, scales, ctx, cam):
 # tail (csrc/chain.cuh::chain_project_tail) over a prebuilt bf16 staging,
 # each 128-point block loading its rows. Kernel K9, fused_decode_kernel,
 # replaces decode_project_pallas_fused: it builds the staging's feature
-# columns from the raw int8 brick rows (dequant, corner lerp and plane mean
-# in f32, rounded to bf16), then runs the same tail. The TPU kernel's default
+# columns from the raw brick rows (dequant, corner lerp and plane mean in
+# f32, rounded to bf16), then runs the same tail. Two forms, instantiated
+# from one template: the tri-grid's 8 int8 corners with per-(plane,
+# channel) dequant scales, and the EG3D tri-plane's 4 bf16 corners, whose
+# scale rows are the 1/3 plane mean alone. The TPU kernel's default
 # 'dots' lerp rounds the corner weights and products to bf16 to feed its
 # matrix unit; it is the same function at lower precision, so the port
 # implements the f32 'bcast' form only. What bounds both on the H100: the
@@ -332,6 +357,8 @@ def decode_project_slab_plain(cw: ChainWeights, vol, scales, ctx, cam):
 # culled, by column < n_points, as the TPU kernels do.
 
 DECODE_BLOCK = 1024   # the brick route's Mpad multiple (the JAX kernels' block)
+# K9's forms: corners per tap -> brick-row dtype (tri-grid int8, tri-plane bf16)
+FUSED_FORMS = {CORNERS: torch.int8, 4: torch.bfloat16}
 
 
 def build_brick_staging(feats_mean, cond0, init_position, block: int = DECODE_BLOCK):
@@ -405,14 +432,16 @@ decode_project.launches = 0
 
 
 def fused_features_plain(rows, wts, scale_rows):
-    """The plane-mean trilinear sample from raw brick rows: per plane
-    sum_c row_c * w_c in f32, times the plane's scale row, summed over the
-    planes -> (m, C) f32. rows n_planes x (m, 8*C), wts (WR, m)."""
+    """The plane-mean sample from raw brick rows: per plane sum_c row_c *
+    w_c in f32, times the plane's scale row, summed over the planes -> (m,
+    C) f32. rows n_planes x (m, K*C) (K = 8 tri-grid or 4 tri-plane
+    corners), wts (WR, m)."""
+    K = rows[0].shape[1] // C
     acc = 0.0
     for p, r in enumerate(rows):
         accp = 0.0
-        for c in range(CORNERS):
-            accp = accp + r[:, c * C:(c + 1) * C].float() * wts[p * CORNERS + c][:, None]
+        for c in range(K):
+            accp = accp + r[:, c * C:(c + 1) * C].float() * wts[p * K + c][:, None]
         acc = acc + accp * scale_rows[p][None, :]
     return acc
 
@@ -437,7 +466,9 @@ def decode_project_fused(cw: ChainWeights, aux: torch.Tensor, rows, wts: torch.T
     """Gather-fused heads + projection (inputs from renderer.
     sample_fused_inputs; aux = build_brick_staging with zero features) ->
     rows (NROWS, Mpad) f32 in point order, the contract of decode_project.
-    CPU tensors take the plain version, CUDA tensors K9."""
+    rows: 3 planes of int8 (Mpad, 8*32) tri-grid rows, or bf16 (Mpad,
+    4*32) tri-plane rows. CPU tensors take the plain version, CUDA tensors
+    K9 in the matching form."""
     if len(rows) != 3:
         raise ValueError("the fused decode takes 3 planes")
     if not kernel_lib.use_kernel(aux, wts, cw.w1, *rows):
@@ -446,17 +477,21 @@ def decode_project_fused(cw: ChainWeights, aux: torch.Tensor, rows, wts: torch.T
     Mpad = aux.shape[0]
     _check_brick_args(Mpad, n_points)
     kernel_lib.check(aux, "aux", torch.bfloat16, (Mpad, STAGE))
+    K = rows[0].shape[1] // C
+    if K not in FUSED_FORMS:
+        raise ValueError(f"rows {tuple(rows[0].shape)}: expected {sorted(FUSED_FORMS)} corners "
+                         f"of {C} channels")
     for p, r in enumerate(rows):
-        kernel_lib.check(r, f"rows[{p}]", torch.int8, (Mpad, CORNERS * C))
+        kernel_lib.check(r, f"rows[{p}]", FUSED_FORMS[K], (Mpad, K * C))
     kernel_lib.check(wts, "wts", torch.float32)
-    if wts.shape[0] < 3 * CORNERS or wts.shape[1] != Mpad:
-        raise ValueError(f"wts {tuple(wts.shape)}: expected (>= {3 * CORNERS}, {Mpad})")
+    if wts.shape[0] < 3 * K or wts.shape[1] != Mpad:
+        raise ValueError(f"wts {tuple(wts.shape)}: expected (>= {3 * K}, {Mpad})")
     kernel_lib.check(scale_rows, "scale_rows", torch.float32, (3, C))
     _check_chain_bf16(cw)
     out = torch.empty((NROWS, Mpad), dtype=torch.float32, device=aux.device)
     ptrs = _chain_ptrs(cw, _cam_consts(cam, aux.device))
     code = lib.ggd_fused_decode(aux.data_ptr(), *[r.data_ptr() for r in rows], wts.data_ptr(),
-                                scale_rows.data_ptr(), *ptrs, out.data_ptr(), Mpad, n_points,
+                                scale_rows.data_ptr(), *ptrs, out.data_ptr(), Mpad, n_points, K,
                                 cw.scale_offset, kernel_lib.stream())
     kernel_lib.raise_on_error(code, "fused_decode_kernel")
     decode_project_fused.launches += 1
@@ -480,6 +515,7 @@ def decode_project_slab(cw: ChainWeights, vol: torch.Tensor, scales: torch.Tenso
     """Fused slab decode + heads + projection -> rows (NROWS, Mpad) f32 in
     the context's slot order. vol (3, DZ, YP, XP*32) int8 and scales (3, 32)
     f32 from build_slab_volume; ctx from GaussianDecoder.make_slab_context.
+    A depth-1 context (sizes[0] == 1, DZ == 1) takes K2's bilinear form.
     CPU tensors take the plain version, CUDA tensors the kernel."""
     if not kernel_lib.use_kernel(vol, ctx.aux, cw.w1):
         return decode_project_slab_plain(cw, vol, scales, ctx, cam)
@@ -487,8 +523,9 @@ def decode_project_slab(cw: ChainWeights, vol: torch.Tensor, scales: torch.Tenso
     D, H, W = ctx.sizes
     n_planes, DZ, YP, XPC = vol.shape
     Mpad = ctx.aux.shape[0]
-    if n_planes != 3 or XPC % C or D < 2:
-        raise ValueError(f"vol {tuple(vol.shape)}: the kernel takes 3 tri-grid planes of {C} channels")
+    if n_planes != 3 or XPC % C or DZ != (1 if D == 1 else D + 2):
+        raise ValueError(f"vol {tuple(vol.shape)}: the kernel takes 3 planes of {C} channels, "
+                         f"{1 if D == 1 else D + 2} z layers for depth {D}")
     if Mpad <= 0:
         raise ValueError(f"Mpad {Mpad}: nothing to decode")
     chk = kernel_lib.check
@@ -500,7 +537,9 @@ def decode_project_slab(cw: ChainWeights, vol: torch.Tensor, scales: torch.Tenso
     chk(ctx.inv_axes, "inv_axes", torch.float32, (3, 3, 3))
     _check_chain_bf16(cw)
     rows = torch.empty((NROWS, Mpad), dtype=torch.float32, device=vol.device)
-    ptrs = [t.data_ptr() for t in (vol, scales, ctx.positions, ctx.idx16, ctx.aux, ctx.inv_axes)]
+    scale_rows = slab_scale_rows(scales)   # held until the launch is queued
+    ptrs = [t.data_ptr() for t in (vol, scale_rows, ctx.positions, ctx.idx16, ctx.aux,
+                                   ctx.inv_axes)]
     ptrs += _chain_ptrs(cw, _cam_consts(cam, vol.device)) + [rows.data_ptr()]
     code = lib.ggd_slab_decode(*ptrs, Mpad, D, H, W, DZ, YP, XPC // C, ctx.box_warp,
                                cw.scale_offset, kernel_lib.stream())

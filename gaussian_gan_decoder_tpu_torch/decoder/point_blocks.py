@@ -3,10 +3,10 @@ of gaussian_gan_decoder_tpu/decoder/point_blocks.py (host code, run once
 per template; copied, not imported, so the port never loads jax).
 
 The port keeps the packing (slot order, validity, compact indices) and
-drops build_slab_weights: its slab decode kernel reads the 8 corners of
-each plane straight from the int8 channels-last volume at the compact
-padded indices, with the corner weights recomputed in f32 from the slot
-position (decoder/pallas_heads.py).
+drops build_slab_weights: its slab decode kernel reads the 8 corners (4 on
+a depth-1 tri-plane) of each plane straight from the int8 channels-last
+volume at the compact padded indices, with the corner weights recomputed
+in f32 from the slot position (decoder/pallas_heads.py).
 
 The flagship frame decodes a FIXED template of points every frame (only
 the latent changes), so the tri-grid access pattern is static: the
@@ -109,10 +109,12 @@ class PointBlocks:
         return self.positions.shape[0]
 
 
-def compact_indices(pb: PointBlocks, plane_axes, box_warp, sizes) -> np.ndarray:
+def compact_indices(pb: PointBlocks, plane_axes, box_warp, sizes,
+                    bilinear: bool = False) -> np.ndarray:
     """(Mpad, 12) int16 compact host payload: per plane (ix, iy, iz)
     padded-axis indices + one int16 of the 6 host validity bits
-    (vx0 vx1 vy0 vy1 vz0 vz1).
+    (vx0 vx1 vy0 vy1 vz0 vz1). bilinear (depth-1 planes): no z validity
+    from the position; the single z corner's bit (1 << 4) is always set.
 
     Validity must be the HOST's, recomputed from the TRUE (unclipped)
     floor with the same math as the packer: where _corner_weights_1d's
@@ -134,13 +136,16 @@ def compact_indices(pb: PointBlocks, plane_axes, box_warp, sizes) -> np.ndarray:
         idx16[:, 4 * p + 2] = pb.idxw[c0 + 6].astype(np.int16)
         proj_h = g_h @ inv[p]
         bits = np.zeros(pb.m_padded, np.int16)
-        for ax, size in ((0, W), (1, H), (2, D)):
+        axes = ((0, W), (1, H)) if bilinear else ((0, W), (1, H), (2, D))
+        for ax, size in axes:
             x0t = np.floor(((proj_h[:, ax] + 1.0) * size - 1.0) * 0.5
                            ).astype(np.int64)
             v0 = (x0t >= 0) & (x0t < size)
             v1 = (x0t + 1 >= 0) & (x0t + 1 < size)
             bits = bits | (v0.astype(np.int16) << (2 * ax))
             bits = bits | (v1.astype(np.int16) << (2 * ax + 1))
+        if bilinear:
+            bits = bits | (1 << 4)   # the single z corner, always valid
         idx16[:, 4 * p + 3] = bits
     return idx16
 
@@ -151,16 +156,23 @@ def build_point_blocks(
     box_warp: float,
     sizes: tuple,                 # (D, H, W) tri-grid dims
     block: int = 1024,
+    ey: int = EY,
+    bilinear: bool = False,
 ) -> PointBlocks:
     """Morton-sort + greedy-pack the template into slab-fitting blocks.
 
     Per plane p the padded-axis indices (ix, iy, iz) of every point must
     fit a window: z in [zt, zt+DZW-1] (zt <= DZ-DZW), y in
-    [8*yt, 8*yt+EY-1], x in [4*xt, 4*xt+EX-1], with room for the +1
+    [8*yt, 8*yt+ey-1], x in [4*xt, 4*xt+EX-1], with room for the +1
     corner. The greedy walk binary-searches the longest sorted run that
     fits (O(1) range-min/max), so worst case it splits at Morton
-    boundary crossings; pads each block to `block` slots. The depth-1
-    (EG3D, bilinear) packing of the JAX package is not copied."""
+    boundary crossings; pads each block to `block` slots.
+
+    bilinear=True packs a depth-1 (EG3D) tri-plane: 2-D (y, x) windows
+    only, no z fit, the z index 0 and its corner weights (1, 0); the JAX
+    package pairs it with ey=128 (its kernel's matrix-unit depth). The
+    port's kernel needs no window; the pack is kept bit for bit because
+    it sets the slot order, the padding and Mpad."""
     D, H, W = sizes
     M = init_position.shape[0]
     pos = np.asarray(init_position, np.float32)
@@ -175,7 +187,10 @@ def build_point_blocks(
         proj = g @ inv[p]                               # (M, 3)
         ix[p], wts[p, 0], wts[p, 1] = _corner_1d(proj[:, 0], W)
         iy[p], wts[p, 2], wts[p, 3] = _corner_1d(proj[:, 1], H)
-        iz[p], wts[p, 4], wts[p, 5] = _corner_1d(proj[:, 2], D)
+        if bilinear:
+            wts[p, 4] = 1.0   # the single z corner at window row 0
+        else:
+            iz[p], wts[p, 4], wts[p, 5] = _corner_1d(proj[:, 2], D)
 
     # Morton order on the clamped world grid (the SAME clamped indices
     # that drive the windows, so clustering bounds the windows). Shift
@@ -202,13 +217,14 @@ def build_point_blocks(
             if xmax + 1 > x0 + EX - 1:
                 return False
             ymin, ymax = rmm[p][1].query(lo, hi)
-            y0 = min((ymin // Y_ALIGN) * Y_ALIGN, YP - EY)
-            if ymax + 1 > y0 + EY - 1:
+            y0 = min((ymin // Y_ALIGN) * Y_ALIGN, YP - ey)
+            if ymax + 1 > y0 + ey - 1:
                 return False
-            zmin, zmax = rmm[p][2].query(lo, hi)
-            zt = min(zmin, DZ - DZW)
-            if zmax + 1 > zt + DZW - 1:
-                return False
+            if not bilinear:
+                zmin, zmax = rmm[p][2].query(lo, hi)
+                zt = min(zmin, DZ - DZW)
+                if zmax + 1 > zt + DZW - 1:
+                    return False
         return True
 
     starts = []
@@ -247,8 +263,8 @@ def build_point_blocks(
             xmin = ixs[p, s:e].min()
             ymin = iys[p, s:e].min()
             x0 = min((xmin // X_ALIGN) * X_ALIGN, XP - EX)
-            y0 = min((ymin // Y_ALIGN) * Y_ALIGN, YP - EY)
-            zt = min(izs[p, s:e].min(), DZ - DZW)
+            y0 = min((ymin // Y_ALIGN) * Y_ALIGN, YP - ey)
+            zt = 0 if bilinear else min(izs[p, s:e].min(), DZ - DZW)
             origins[b, 3 * p:3 * p + 3] = (zt, y0 // Y_ALIGN, x0 // X_ALIGN)
             c0 = p * 9
             idxw[c0 + 0, sl] = ixs[p, s:e]

@@ -2,8 +2,12 @@
 the frame on the slab and brick routes, and the frame stream.
 
 The flagship is the PanoHead easy-khair deployment: tri-grid of depth 3 at
-256^2, 500k template Gaussians, a 512^2 frame. Weights are seeded random
-unless a JAX export is loaded (port/from_jax.py). The builders here, like
+256^2, 500k template Gaussians, a 512^2 frame. flagship_generator("eg3d")
+is the EG3D tri-plane generator at the same widths (256^2 planes of depth
+1, the SR stack to 512^2); its frames run on the same three routes, with
+the depth-1 forms of the decode (its presets' background is black).
+Weights are seeded random unless a JAX export is loaded (port/from_jax.py)
+or a reference pickle (port/torch_pickle.py). The builders here, like
 every entry point of the port, build on the card unless the caller asks
 for the CPU (device="cpu"); without a card they raise.
 """

@@ -54,7 +54,7 @@ _SIGNATURES = {
     "ggd_brick_table": [_P, _P] + [_I] * 6 + [_P],
     # brick_decode.cu
     "ggd_brick_decode": [_P] * 12 + [_I, _I, _F, _P],
-    "ggd_fused_decode": [_P] * 17 + [_I, _I, _F, _P],
+    "ggd_fused_decode": [_P] * 17 + [_I, _I, _I, _F, _P],
 }
 
 

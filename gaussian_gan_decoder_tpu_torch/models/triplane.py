@@ -1,13 +1,15 @@
-"""Tri-grid (PanoHead) generator — port of models/triplane.py.
+"""Tri-grid (PanoHead) and tri-plane (EG3D) generator — port of
+models/triplane.py.
 
-The config (`rk`, `triplane_depth`), the StyleGAN2 `backbone`, the OSG
-decoder (`decoder.net.{0,2}`), the raw ToRGB (`torgb`), the super-resolution
+The config (`rk`, `triplane_depth`: 1 for 'eg3d'), the StyleGAN2
+`backbone`, the OSG decoder (`decoder.net.{0,2}`; always sigmoid on
+'eg3d'), the raw ToRGB (`torgb`, PanoHead only), the super-resolution
 stack (`superresolution`, unless without_sr), `mapping`, `synthesis_planes`
 and `render_planes` (volume render + raw ToRGB + SR from precomputed
-planes). t_mapping and the background synthesis are not ported: the
-reference's target render never evaluates them (it forces the background
-to -1, triplane.py:252); their weights are dropped on import
-(port/from_jax.py DROPPED_PREFIXES).
+planes). t_mapping and the background synthesis (PanoHead) are not ported:
+the reference's target render never evaluates them (it forces the
+background to -1, triplane.py:252); their weights are dropped on import
+(port/from_jax.py DROPPED_PREFIXES). EG3D has neither.
 
 Every constructor argument but the weights' seed and device is recorded in
 `config`, a TriPlaneGeneratorConfig, from which from_config rebuilds the
@@ -168,9 +170,9 @@ class TriPlaneGenerator(nn.Module):
         """Volume render + raw ToRGB + SR from precomputed planes (the JAX
         package's render_planes, noise_mode 'const'). draws: the renderer's
         stratified and importance draws. -> {image_raw, image_depth,
-        image_mask, feature_planes[, image]}."""
-        if self.variant != "panohead":
-            raise NotImplementedError("render_planes: the EG3D tri-plane variant is not ported")
+        feature_planes[, image_mask][, image]}: PanoHead blends the
+        background forced to -1, runs the raw ToRGB and returns the mask;
+        EG3D takes the first 3 feature channels as rgb and has no mask."""
         rk = self.rk
         cam2world = c[:, :16].reshape(-1, 4, 4)
         intrinsics = c[:, 16:25].reshape(-1, 3, 3)
@@ -181,15 +183,17 @@ class TriPlaneGenerator(nn.Module):
         feature_image = feats.permute(0, 2, 1).reshape(N, feats.shape[-1], res, res)
         depth_image = depth.permute(0, 2, 1).reshape(N, 1, res, res)
         weights_image = weights.permute(0, 2, 1).reshape(N, 1, res, res)
-        if rk["use_background"]:
+        panohead = self.variant == "panohead"
+        if panohead and rk["use_background"]:
             # the reference blends a background forced to -1 (triplane.py:183-191)
             feature_image = feature_image + (1 - weights_image) * (-1.0)
         if self.torgb is not None:
             rgb_image = self.torgb(feature_image, ws[:, -1]).float()
         else:
             rgb_image = feature_image[:, :3]
-        out = {"image_raw": rgb_image, "image_depth": depth_image, "feature_planes": planes,
-               "image_mask": weights_image * (1 + 2 * 0.001) - 0.001}
+        out = {"image_raw": rgb_image, "image_depth": depth_image, "feature_planes": planes}
+        if panohead:
+            out["image_mask"] = weights_image * (1 + 2 * 0.001) - 0.001
         if self.superresolution is None:
             return out
         image, raw_alias = self.superresolution(rgb_image, feature_image, ws,

@@ -1,20 +1,27 @@
-"""Plane axes, tri-grid feature sampling, the two-pass importance renderer
-and the per-frame int8 slab volume — port of neuralfield/renderer.py.
+"""Plane axes, tri-grid and tri-plane feature sampling, the two-pass
+importance renderer and the per-frame int8 slab volume — port of
+neuralfield/renderer.py.
 
-Plain PyTorch (the JAX functions are XLA-level too), except the brick-table
-build (neuralfield/pallas_expand.py, kernel K10). build_slab_volume matches
-the JAX function bit for bit on equal f32 planes.
+Plain PyTorch (the JAX functions are XLA-level too), except the tri-grid
+brick-table build (neuralfield/pallas_expand.py, kernel K10).
+build_slab_volume matches the JAX function bit for bit on equal f32 planes.
 
-sample_from_planes has two routes. Without a table or brick dtype (the
-train step's float route) each point gathers its 8 corners from the
-zero-padded channels-last volume, with the JAX brick path's corner weights,
-validity masks and summation order (dz, dy, dx), so the result is the same
-and autograd's scatter carries the gradient back to the planes. With
-table= (the inference brick route) it is the JAX brick path itself: build_plane_table pre-expands each 2x2x2 neighbourhood into
-one table row (int8 with per-(plane, channel) absmax scales, or the float
-dtype), and _trilinear_sample_table gathers one row per point and plane and
-combines the corners. sample_fused_inputs prepares the same gathers for the
-gather-fused decode kernel K9.
+Two plane kinds: the PanoHead tri-grid (depth D > 1, trilinear taps over
+the depth-stacked sub-volumes) and the EG3D tri-plane (depth 1, 2-D
+bilinear taps, torch grid_sample semantics).
+
+sample_from_planes has two routes. Without a table (the train step's and
+the volume renderer's float route) each point gathers its 8 corners (4 on
+a tri-plane) from the zero-padded channels-last volume, with the JAX
+brick path's corner weights, validity masks and summation order, so the
+result is the same and autograd's scatter carries the gradient back to the
+planes. With table= (the inference brick route) it is the JAX brick path
+itself: build_plane_table pre-expands each 2x2x2 (2x2) neighbourhood into
+one table row (tri-grid: int8 with per-(plane, channel) absmax scales, or
+the float dtype; tri-plane: the float dtype, bf16 on the decode route), and
+_trilinear_sample_table / _bilinear_sample_table gather one row per point
+and plane and combine the corners. sample_fused_inputs prepares the same
+gathers for the gather-fused decode kernel K9.
 """
 from __future__ import annotations
 
@@ -59,24 +66,26 @@ def build_slab_volume(
     triplane_depth: int,
 ):
     """Channels-last int8 volume for the slab decode -> (vol (P, DZ, YP,
-    XP*C) int8, scales (P, C) f32), DZ = D+2, YP = roundup(H+2, Y_ALIGN),
-    XP = roundup(W+2, X_ALIGN). One zero voxel of leading pad per axis (the
-    padded-index contract of the corner weights), trailing pad up to the
-    alignment. Symmetric absmax scales per (plane, channel), the JAX
-    function's clip_quantile=0 path (percentile scales are not ported)."""
+    XP*C) int8, scales (P, C) f32), DZ = D+2 (1 for depth-1 tri-planes,
+    which have no z padding: the bilinear pack's z index is 0), YP =
+    roundup(H+2, Y_ALIGN), XP = roundup(W+2, X_ALIGN). One zero voxel of
+    leading pad per axis (the padded-index contract of the corner weights),
+    trailing pad up to the alignment. Symmetric absmax scales per (plane,
+    channel), the JAX function's clip_quantile=0 path (percentile scales
+    are not ported)."""
     N, n_planes, CD, H, W = plane_features.shape
     assert N == 1, "slab volume is a per-frame (batch-1) structure"
     D = triplane_depth
-    if D < 2:
-        raise NotImplementedError("the bilinear (depth-1, EG3D) slab variant is not ported")
     C = CD // D
     q8, scales = _quantize_int8(plane_features.float().reshape(n_planes, C, D, H, W))
     YP = -(-(H + 2) // Y_ALIGN) * Y_ALIGN
     XP = -(-(W + 2) // X_ALIGN) * X_ALIGN
-    vol = torch.zeros((n_planes, D + 2, YP, XP, C), dtype=torch.int8,
+    zp = 0 if D == 1 else 1
+    DZ = D + 2 * zp
+    vol = torch.zeros((n_planes, DZ, YP, XP, C), dtype=torch.int8,
                       device=plane_features.device)
-    vol[:, 1:D + 1, 1:H + 1, 1:W + 1] = q8.permute(0, 2, 3, 4, 1)
-    return vol.reshape(n_planes, D + 2, YP, XP * C), scales
+    vol[:, zp:zp + D, 1:H + 1, 1:W + 1] = q8.permute(0, 2, 3, 4, 1)
+    return vol.reshape(n_planes, DZ, YP, XP * C), scales
 
 
 def project_onto_planes(plane_axes: np.ndarray, coordinates: torch.Tensor) -> torch.Tensor:
@@ -109,18 +118,33 @@ def _quantize_int8(feats: torch.Tensor):
     return q8, scales
 
 
+def decode_brick_dtype(triplane_depth: int) -> torch.dtype:
+    """The brick table's dtype on the decode's brick routes (the JAX
+    decoder's _brick_dtype with int8_sampling): int8 on a tri-grid; bf16 on
+    a depth-1 tri-plane, which has no int8 table."""
+    return torch.int8 if triplane_depth > 1 else torch.bfloat16
+
+
 def build_plane_table(plane_features: torch.Tensor, triplane_depth: int, brick_dtype=None):
-    """The corner-brick table of the tri-grid (N, 3, C*D, H, W), built once
-    per frame. brick_dtype torch.int8 quantises the raw volume with
-    symmetric absmax scales per (plane, channel) and expands the int8 volume
-    -> (e, NY, scales (N*3, C) f32); a float brick_dtype (or None: the
-    planes' dtype) -> (e, NY). The expansion is pallas_expand.
+    """The corner-brick table of the planes (N, 3, C*D, H, W), built once
+    per frame. Tri-grid: brick_dtype torch.int8 quantises the raw volume
+    with symmetric absmax scales per (plane, channel) and expands the int8
+    volume -> (e, NY, scales (N*3, C) f32); a float brick_dtype (or None:
+    the planes' dtype) -> (e, NY). The expansion is pallas_expand.
     build_brick_table (K10 on the card; on the CPU its plain version, the
-    JAX package's XLA 8-slice concat with NY padded as K10 pads it)."""
+    JAX package's XLA 8-slice concat with NY padded as K10 pads it).
+    Tri-plane (depth 1): a float table only, as in the JAX package ->
+    (e,), e (N*3, (H+1)*(W+1), 4*C), built in plain PyTorch
+    (_bilinear_table)."""
     N, n_planes, CD, H, W = plane_features.shape
-    if triplane_depth < 2:
-        raise NotImplementedError("the bilinear (depth-1, EG3D) brick table is not ported")
     C, D = CD // triplane_depth, triplane_depth
+    if D == 1:
+        if brick_dtype == torch.int8:
+            raise ValueError("int8 bricks exist for the tri-grid only; a depth-1 tri-plane "
+                             "takes a float table (the decode route's bf16)")
+        if brick_dtype is not None:
+            plane_features = plane_features.to(brick_dtype)
+        return _bilinear_table(plane_features.reshape(N * n_planes, C, H, W))
     if brick_dtype == torch.int8:
         q8, scales = _quantize_int8(plane_features.float().reshape(N * n_planes, C, D, H, W))
         e, NY = build_brick_table(q8)
@@ -128,6 +152,47 @@ def build_plane_table(plane_features: torch.Tensor, triplane_depth: int, brick_d
     if brick_dtype is not None:
         plane_features = plane_features.to(brick_dtype)
     return build_brick_table(plane_features.reshape(N * n_planes, C, D, H, W))
+
+
+def _bilinear_table(feats: torch.Tensor):
+    """feats (B, C, H, W) -> (e,), e (B, (H+1)*(W+1), 4*C): each row the
+    zero-padded 2x2 neighbourhood [f(y, x), f(y, x+1), f(y+1, x),
+    f(y+1, x+1)] (the JAX package's _bilinear_table)."""
+    B, C, H, W = feats.shape
+    fcl = F.pad(feats, (1, 1, 1, 1)).permute(0, 2, 3, 1)        # (B, H+2, W+2, C)
+    e = torch.cat([fcl[:, :-1, :-1], fcl[:, :-1, 1:], fcl[:, 1:, :-1], fcl[:, 1:, 1:]],
+                  dim=-1)
+    return (e.reshape(B, (H + 1) * (W + 1), 4 * C).contiguous(),)
+
+
+def _bilinear_combine(corners, wx, wy, vx0, vx1, vy0, vy1):
+    """The 4-corner combine of the JAX package's _bilinear_sample_table:
+    corners [c00, c01, c10, c11] (M, C) -> sum_k c_k * mask_k (in the
+    corners' dtype) * x weight * y weight, in that order."""
+    m = lambda v: v[:, None].to(corners[0].dtype)  # noqa: E731
+    wx, wy = wx[:, None], wy[:, None]
+    c00, c01, c10, c11 = corners
+    return (c00 * m(vy0 & vx0) * (1 - wx) * (1 - wy)
+            + c01 * m(vy0 & vx1) * wx * (1 - wy)
+            + c10 * m(vy1 & vx0) * (1 - wx) * wy
+            + c11 * m(vy1 & vx1) * wx * wy)
+
+
+def _bilinear_sample_table(table, C: int, H: int, W: int, grid: torch.Tensor):
+    """table (e,) from _bilinear_table; grid (B, M, 2) in [-1, 1] -> (B, M,
+    C): one row gather per point and plane, then _bilinear_combine (a bf16
+    table's corners times their mask in bf16, then times the f32 weights,
+    as JAX promotes them)."""
+    (e,) = table
+    ix, wx, vx0, vx1 = _corner_weights_1d(grid[..., 0], W)
+    iy, wy, vy0, vy1 = _corner_weights_1d(grid[..., 1], H)
+    idx = iy * (W + 1) + ix
+    outs = []
+    for b in range(e.shape[0]):
+        rows = e[b][idx[b]]                                          # (M, 4C)
+        outs.append(_bilinear_combine([rows[:, k * C:(k + 1) * C] for k in range(4)],
+                                      wx[b], wy[b], vx0[b], vx1[b], vy0[b], vy1[b]))
+    return torch.stack(outs)
 
 
 def _trilinear_sample_table(table, C: int, D: int, H: int, W: int, grid: torch.Tensor):
@@ -168,22 +233,25 @@ def _trilinear_sample_table(table, C: int, D: int, H: int, W: int, grid: torch.T
 def sample_from_planes(plane_axes: np.ndarray, plane_features: torch.Tensor,
                        coordinates: torch.Tensor, box_warp: float,
                        triplane_depth: int, table=None) -> torch.Tensor:
-    """Trilinear probe of the tri-grid at world coords (torch grid_sample
-    semantics, align_corners=False, zeros padding): plane_features (N, 3,
-    C*D, H, W), coordinates (N, M, 3) -> (N, n_planes, M, C).
+    """Probe of the planes at world coords (torch grid_sample semantics,
+    align_corners=False, zeros padding): trilinear on a tri-grid (D > 1),
+    bilinear on a tri-plane (D == 1, the plane-local z ignored);
+    plane_features (N, 3, C*D, H, W), coordinates (N, M, 3) -> (N,
+    n_planes, M, C).
 
     With table (build_plane_table's output, reused across calls) it samples
     the brick table: f32 out for int8 bricks, the planes' dtype otherwise.
-    Without it it gathers the 8 corners directly, in the planes' dtype,
+    Without it it gathers the corners directly, in the planes' dtype,
     differentiably."""
     N, n_planes, CD, H, W = plane_features.shape
     M = coordinates.shape[1]
     D = triplane_depth
-    if D < 2:
-        raise NotImplementedError("the bilinear (depth-1, EG3D) tri-plane sample is not ported")
     C = CD // D
     proj = project_onto_planes(plane_axes, (2.0 / box_warp) * coordinates)
     proj = proj.reshape(N * n_planes, M, 3)
+    if D == 1:
+        return _sample_tri_plane(plane_features, proj, table).reshape(
+            N, n_planes, M, C).to(plane_features.dtype)
     if table is not None:
         out = _trilinear_sample_table(table, C, D, H, W, proj)
         out_dtype = torch.float32 if len(table) > 2 else plane_features.dtype
@@ -210,29 +278,51 @@ def sample_from_planes(plane_axes: np.ndarray, plane_features: torch.Tensor,
     return out.reshape(N, n_planes, M, C)
 
 
+def _sample_tri_plane(plane_features, proj, table=None):
+    """Bilinear probe of depth-1 planes (N, 3, C, H, W) at plane-local
+    coords proj (N*3, M, 3) -> (N*3, M, C): through the table when given,
+    else the 4 corners gathered from the zero-padded channels-last planes
+    (the same values and combine as the table: differentiable)."""
+    N, n_planes, C, H, W = plane_features.shape
+    B = N * n_planes
+    if table is not None:
+        return _bilinear_sample_table(table, C, H, W, proj[..., :2])
+    fcl = F.pad(plane_features.reshape(B, C, H, W), (1, 1, 1, 1)).permute(0, 2, 3, 1)
+    fcl = fcl.reshape(B, (H + 2) * (W + 2), C)
+    ix, wx, vx0, vx1 = _corner_weights_1d(proj[..., 0], W)
+    iy, wy, vy0, vy1 = _corner_weights_1d(proj[..., 1], H)
+    outs = []
+    for b in range(B):
+        corners = [fcl[b, (iy[b] + dy) * (W + 2) + ix[b] + dx]
+                   for dy in (0, 1) for dx in (0, 1)]
+        outs.append(_bilinear_combine(corners, wx[b], wy[b], vx0[b], vx1[b], vy0[b], vy1[b]))
+    return torch.stack(outs)
+
+
 def sample_fused_inputs(plane_axes: np.ndarray, plane_features: torch.Tensor,
                         coordinates: torch.Tensor, box_warp: float, triplane_depth: int,
                         pad_to: int, table=None):
     """Inputs of the gather-fused decode (decoder/pallas_heads.py::
-    decode_project_fused, kernel K9) for one scene, from the int8 plane
-    table (build_plane_table(..., brick_dtype=torch.int8), built here when
-    table is None): plane_features (1, 3, C*D, H, W), coordinates (1, M, 3)
-    -> (rows, wts, scale_rows):
+    decode_project_fused, kernel K9) for one scene, from the plane table
+    (built here when table is None: int8 on a tri-grid, bf16 on a depth-1
+    tri-plane, the JAX decoder's brick dtypes): plane_features (1, 3, C*D,
+    H, W), coordinates (1, M, 3) -> (rows, wts, scale_rows), with K = 8
+    corners per tap on a tri-grid and 4 on a tri-plane:
 
-      rows       - n_planes int8 brick-row gathers (Mpad, 8*C), the index
-                   padded with row 0 up to Mpad = pad_to;
-      wts        - (WR, Mpad) f32 channel-major corner weights, row p*8 + c
+      rows       - n_planes brick-row gathers (Mpad, K*C), int8 (tri-grid)
+                   or bf16 (tri-plane), the index padded with row 0 up to
+                   Mpad = pad_to;
+      wts        - (WR, Mpad) f32 channel-major corner weights, row p*K + c
                    the mask-folded weight of corner c of plane p (the
-                   products _trilinear_sample_table uses), WR =
-                   roundup(n_planes*8, 8), pad columns zero;
-      scale_rows - (n_planes, C) f32 int8 dequant scales with the
-                   1/n_planes plane mean folded in (what the JAX kernel's
-                   'bcast' lerp recovers from its segment matrices)."""
+                   products the table samplers use), WR =
+                   roundup(n_planes*K, 8), pad columns zero;
+      scale_rows - (n_planes, C) f32: the int8 dequant scales with the
+                   1/n_planes plane mean folded in, or the plane mean alone
+                   for a float table (what the JAX kernel's 'bcast' lerp
+                   recovers from its segment matrices)."""
     N, n_planes, CD, H, W = plane_features.shape
     if N != 1:
         raise ValueError("fused sampling is single-scene (the decode hot path)")
-    if triplane_depth < 2:
-        raise NotImplementedError("the bilinear (depth-1, EG3D) brick table is not ported")
     M = coordinates.shape[1]
     C, D = CD // triplane_depth, triplane_depth
     Mpad = pad_to
@@ -241,8 +331,10 @@ def sample_fused_inputs(plane_axes: np.ndarray, plane_features: torch.Tensor,
     proj = project_onto_planes(plane_axes, (2.0 / box_warp) * coordinates).reshape(
         n_planes, M, 3)
     if table is None:
-        table = build_plane_table(plane_features, triplane_depth, brick_dtype=torch.int8)
-    e, NY, scales = table
+        table = build_plane_table(plane_features, triplane_depth,
+                                  brick_dtype=decode_brick_dtype(D))
+    e = table[0]
+    K = 8 if D > 1 else 4
 
     def w01(w, v0, v1):
         zero = torch.zeros_like(w)
@@ -253,17 +345,24 @@ def sample_fused_inputs(plane_axes: np.ndarray, plane_features: torch.Tensor,
         g = proj[b]
         ix, wx, vx0, vx1 = _corner_weights_1d(g[:, 0], W)
         iy, wy, vy0, vy1 = _corner_weights_1d(g[:, 1], H)
-        iz, wz, vz0, vz1 = _corner_weights_1d(g[:, 2], D)
-        ax, ay, az = w01(wx, vx0, vx1), w01(wy, vy0, vy1), w01(wz, vz0, vz1)
-        for dz in (0, 1):
-            for dy in (0, 1):
-                for dx in (0, 1):
-                    wcols.append(az[dz] * ay[dy] * ax[dx])
-        idx = F.pad((iz * NY + iy) * (W + 1) + ix, (0, Mpad - M))
-        rows.append(e[b][idx])
-    WR = -(-(n_planes * 8) // 8) * 8
-    wts = F.pad(torch.stack([w.float() for w in wcols]), (0, Mpad - M, 0, WR - n_planes * 8))
-    return rows, wts.contiguous(), (scales / n_planes).contiguous()
+        ax, ay = w01(wx, vx0, vx1), w01(wy, vy0, vy1)
+        if K == 8:
+            iz, wz, vz0, vz1 = _corner_weights_1d(g[:, 2], D)
+            az = w01(wz, vz0, vz1)
+            wcols += [az[dz] * ay[dy] * ax[dx] for dz in (0, 1) for dy in (0, 1)
+                      for dx in (0, 1)]
+            idx = (iz * table[1] + iy) * (W + 1) + ix
+        else:
+            wcols += [ay[dy] * ax[dx] for dy in (0, 1) for dx in (0, 1)]
+            idx = iy * (W + 1) + ix
+        rows.append(e[b][F.pad(idx, (0, Mpad - M))])
+    WR = -(-(n_planes * K) // 8) * 8
+    wts = F.pad(torch.stack([w.float() for w in wcols]), (0, Mpad - M, 0, WR - n_planes * K))
+    if K == 8:
+        scale_rows = table[2] / n_planes
+    else:
+        scale_rows = torch.full((n_planes, C), 1.0 / n_planes, device=e.device)
+    return rows, wts.contiguous(), scale_rows.contiguous()
 
 
 def triplane_crop_mask(xyz: torch.Tensor, thresh: float, boxwarp: float,
@@ -328,8 +427,11 @@ class RenderDraws:
 
 @dataclass(frozen=True)
 class ImportanceRenderer:
-    """Two-pass (coarse + importance) volume renderer of the PanoHead tri-grid
-    (xyz composited beside rgb, triplane crop at 0.1)."""
+    """Two-pass (coarse + importance) volume renderer. 'panohead': the
+    tri-grid, rays limited by the box ('auto'), xyz composited beside rgb,
+    triplane crop at 0.1. 'eg3d': the tri-plane, no xyz tracking or crop,
+    the composited rgb mapped to (-1, 1) (the EG3D marcher); both take
+    explicit ray limits (EG3D's 2.25 / 3.3) as well as 'auto'."""
 
     plane_variant: str = "panohead"
 
@@ -347,23 +449,28 @@ class ImportanceRenderer:
     def __call__(self, draws: RenderDraws, planes, decoder_fn: Callable, ray_origins,
                  ray_directions, opts: Dict, triplane_crop: Optional[float] = 0.1):
         """-> (rgb (N, R, C), depth (N, R, 1), weight sum (N, R, 1))."""
-        if self.plane_variant != "panohead" or not (opts["ray_start"] == opts["ray_end"]
-                                                    == "auto"):
-            raise NotImplementedError("the port renders the PanoHead tri-grid with auto "
-                                      "ray limits only")
-        ray_start, ray_end = get_ray_limits_box(ray_origins, ray_directions,
-                                                box_side_length=opts["box_warp"])
-        ok = ray_end > ray_start
-        if bool(ok.any()):
-            inf = torch.full_like(ray_start, float("inf"))
-            rs_min = torch.where(ok, ray_start, inf).min()
-            rs_max = torch.where(ok, ray_start, -inf).max()
-            ray_start = torch.where(ok, ray_start, rs_min)
-            ray_end = torch.where(ok, ray_end, rs_max)
+        if self.plane_variant not in ("panohead", "eg3d"):
+            raise ValueError(f"unknown plane variant {self.plane_variant!r}")
+        track_xyz = self.plane_variant == "panohead"
         S = opts["depth_resolution"]
-        d = linspace_batch(ray_start, ray_end, S).permute(1, 2, 0, 3)   # (N, R, S, 1)
-        delta = (ray_end - ray_start) / (S - 1)
-        depths_coarse = d + draws.stratified * delta[..., None]
+        if opts["ray_start"] == opts["ray_end"] == "auto":
+            ray_start, ray_end = get_ray_limits_box(ray_origins, ray_directions,
+                                                    box_side_length=opts["box_warp"])
+            ok = ray_end > ray_start
+            if bool(ok.any()):
+                inf = torch.full_like(ray_start, float("inf"))
+                rs_min = torch.where(ok, ray_start, inf).min()
+                rs_max = torch.where(ok, ray_start, -inf).max()
+                ray_start = torch.where(ok, ray_start, rs_min)
+                ray_end = torch.where(ok, ray_end, rs_max)
+            d = linspace_batch(ray_start, ray_end, S).permute(1, 2, 0, 3)   # (N, R, S, 1)
+            delta = (ray_end - ray_start) / (S - 1)
+            depths_coarse = d + draws.stratified * delta[..., None]
+        else:
+            # one depth range for every ray (the JAX package's scalar limits)
+            rs, re = float(opts["ray_start"]), float(opts["ray_end"])
+            base = torch.linspace(rs, re, S, dtype=ray_origins.dtype, device=ray_origins.device)
+            depths_coarse = base.reshape(1, 1, S, 1) + draws.stratified * ((re - rs) / (S - 1))
         N, R = depths_coarse.shape[:2]
 
         def probe(depths, n):
@@ -371,7 +478,7 @@ class ImportanceRenderer:
                       ).reshape(N, -1, 3)
             out = self.run_model(planes, decoder_fn, coords, opts)
             dens = out["sigma"]
-            if triplane_crop:
+            if track_xyz and triplane_crop:
                 mask = triplane_crop_mask(out["xyz"], triplane_crop, opts["box_warp"])
                 dens = torch.where(mask, torch.full_like(dens, -1e3), dens)
             return (out["rgb"].reshape(N, R, n, -1), dens.reshape(N, R, n, 1),
@@ -384,6 +491,9 @@ class ImportanceRenderer:
         colors_f, dens_f, xyz_f = probe(depths_fine, n_imp)
         all_d, all_c, all_s, all_x = unify_samples(depths_coarse, colors_c, dens_c, xyz_c,
                                                    depths_fine, colors_f, dens_f, xyz_f)
+        if not track_xyz:
+            rgb, depth, w = mip_ray_march(all_c, all_s, all_d, rgb_to_minus1_1=True)
+            return rgb, depth, w.sum(2)
         rgb, depth, w = mip_ray_march(torch.cat([all_c, all_x], dim=-1), all_s, all_d)
         return rgb[..., :-3], depth, w.sum(2)
 

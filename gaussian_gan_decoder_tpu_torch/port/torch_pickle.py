@@ -120,17 +120,18 @@ def extract_state(obj, prefix: str = "", out: Optional[Dict[str, np.ndarray]] = 
 def generator_config_from_pickle(g_stub: PersistentStub, variant: Optional[str] = None
                                  ) -> TriPlaneGeneratorConfig:
     """The port's generator config from the pickled constructor arguments
-    (ref load_network.py:12-18). PanoHead tri-grids only: an EG3D
-    tri-plane raises (ROADMAP A4)."""
+    (ref load_network.py:12-18): a PanoHead tri-grid, or an EG3D tri-plane
+    (rendering_kwargs without a triplane_depth above 1, or variant='eg3d').
+    EG3D's OSGDecoder is not a persistent class upstream: it pickles as a
+    plain torch module, which extract_state reads as well."""
     kw = dict(g_stub.init_kwargs)
     names = ["z_dim", "c_dim", "w_dim", "img_resolution", "img_channels"]
     pos = dict(zip(names, g_stub.init_args))
     rendering_kwargs = dict(kw.get("rendering_kwargs", {}))
     if variant is None:
         variant = "panohead" if rendering_kwargs.get("triplane_depth", 1) > 1 else "eg3d"
-    if variant != "panohead":
-        raise NotImplementedError(f"{variant} tri-plane generators are not ported yet "
-                                  f"({ROADMAP_A4})")
+    if variant not in ("panohead", "eg3d"):
+        raise ValueError(f"unknown generator variant {variant!r}")
 
     def get(k, default):
         return pos.get(k, kw.get(k, default))

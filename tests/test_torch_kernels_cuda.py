@@ -168,6 +168,60 @@ def test_fused_decode_kernel(cuda):
     _hold_decode_rows(rows, ref, torch.arange(Mpad, device=cuda) < M, cw, cam)
 
 
+def _small_eg3d(cuda, block=256):
+    """An EG3D tri-plane decoder (depth 1, 32^2 planes of 3 x 32 channels)
+    on the card, its template (some points past the planes' border), its
+    slab context (the bilinear pack) and camera, and seeded planes."""
+    g = torch.Generator().manual_seed(4)
+    gen = TriPlaneGenerator(z_dim=32, c_dim=25, w_dim=32, img_resolution=64, variant="eg3d",
+                            channel_base=512, channel_max=32, without_sr=True,
+                            rendering_kwargs={"triplane_size": 32}, generator=g)
+    dec = GaussianDecoder(gen, gelu="poly", rng=g).to(cuda)
+    pos_np = ((np.random.RandomState(5).rand(3000, 3) - 0.5) * 0.4).astype(np.float32)
+    pos_np[:100] *= 3.0
+    ctx = dec.make_slab_context(pos_np, block=block, device=cuda)
+    cam = make_camera(64, 0.227, flagship.default_camera_params()[1], device=cuda)
+    planes = torch.randn(1, 3, 32, 32, 32, generator=g).to(cuda)
+    return dec, dec.fold().chain, torch.tensor(pos_np, device=cuda), ctx, cam, planes
+
+
+@pytest.mark.parametrize("block", [256, 64])
+def test_slab_decode_bilinear_kernel(cuda, block):
+    """K2's bilinear form (depth-1 volume (3, 1, YP, XP*32), 4 corners a
+    plane) against its plain version, with the tri-grid form's limits; pad
+    slots culled. Block 64 leaves a ragged last 128-point block."""
+    dec, cw, _, ctx, cam, planes = _small_eg3d(cuda, block)
+    vol, scales = build_slab_volume(planes, 1)
+    assert vol.shape[1] == 1 and ctx.sizes[0] == 1
+    before = pallas_heads.decode_project_slab.launches
+    rows = pallas_heads.decode_project_slab(cw, vol, scales, ctx, cam)
+    assert pallas_heads.decode_project_slab.launches == before + 1
+    ref = pallas_heads.decode_project_slab_plain(cw, vol, scales, ctx, cam)
+    torch.cuda.synchronize()
+    valid = ctx.valid > 0
+    _hold_decode_rows(rows, ref, valid, cw, cam)
+    for k in ("visible", "opac", "radius_f"):
+        assert not bool(rows[pallas_heads.PROJ_ROWS[k], ~valid].any()), k
+
+
+def test_fused_decode_triplane_kernel(cuda):
+    """K9's tri-plane form (3 planes of (Mpad, 4 * 32) bf16 rows, scale rows
+    the 1/3 plane mean) against its plain version on sample_fused_inputs'
+    depth-1 inputs, with the tri-grid form's limits."""
+    dec, cw, pos, _, cam, planes = _small_eg3d(cuda)
+    M = pos.shape[0]
+    aux, Mpad = pallas_heads.build_brick_staging(pos.new_zeros((M, 32)), pos, pos)
+    rows_in, wts, scale_rows = sample_fused_inputs(dec.G.plane_axes, planes, pos[None], 1.0, 1,
+                                                   pad_to=Mpad)
+    assert rows_in[0].dtype == torch.bfloat16 and rows_in[0].shape == (Mpad, 128)
+    before = pallas_heads.decode_project_fused.launches
+    rows = pallas_heads.decode_project_fused(cw, aux, rows_in, wts, scale_rows, cam, M)
+    assert pallas_heads.decode_project_fused.launches == before + 1
+    ref = pallas_heads.decode_project_fused_plain(cw, aux, rows_in, wts, scale_rows, cam, M)
+    torch.cuda.synchronize()
+    _hold_decode_rows(rows, ref, torch.arange(Mpad, device=cuda) < M, cw, cam)
+
+
 def test_blend_kernel(cuda):
     w, ctx, cam, vol, scales = _small_frame(cuda)
     rows = pallas_heads.decode_project_slab_plain(w.chain, vol, scales, ctx, cam)

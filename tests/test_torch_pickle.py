@@ -175,8 +175,9 @@ def test_load_decoder_pkl_matches_jax(pickles):
 
 def test_unpickler_is_inert_and_unported_kinds_raise(pickles):
     """The embedded source never runs and reference-internal symbols
-    resolve to inert dicts; an EG3D generator and a decoder with the xyz
-    embedding raise NotImplementedError naming the ROADMAP item."""
+    resolve to inert dicts; a generator whose rendering kwargs have depth 1
+    reads as an EG3D tri-plane; a decoder with the xyz embedding raises
+    NotImplementedError naming the ROADMAP item."""
     data = torch_pickle.load_reference_pickle(pickles[0])
     assert isinstance(data["G_ema"], torch_pickle.PersistentStub)
     assert data["training_set_kwargs"] == {"resolution": 128}
@@ -189,8 +190,8 @@ def test_unpickler_is_inert_and_unported_kinds_raise(pickles):
 
     stub = torch_pickle.PersistentStub({"state": {"_init_kwargs": {
         "rendering_kwargs": {"triplane_depth": 1}}}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_pickle.generator_config_from_pickle(stub)
+    cfg = torch_pickle.generator_config_from_pickle(stub)
+    assert cfg.variant == "eg3d" and dict(cfg.rendering_kwargs) == {"triplane_depth": 1}
     d = torch_pickle.load_reference_pickle(pickles[1])["decoder"]
     d.state["use_xyz_embedding"] = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -38,7 +38,7 @@ def test_default_device_is_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--generator_arch", "eg3d_ffhq"], ["--batch_views", "2"], ["--pallas_probe_build"],
+    ["--hidden_dim", "64"], ["--batch_views", "2"], ["--pallas_probe_build"],
     ["--int8_probe"], ["--bf16_probe"], ["--raster_backend", "xla"],
     ["--decoder_type", "parallel"], ["--use_pos_encoding"]])
 def test_unported_flags_raise(flags):
