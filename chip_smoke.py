@@ -76,6 +76,21 @@ Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
      against the route's all-plain frame), FRAMES more of each under
      torch.profiler; and apps/train_decoder.py --generator_arch eg3d_ffhq
      --random_init for 1 + EG3D_TRAIN_STEPS steps and one profiled step;
+     the f32 forms of K2's bilinear and K9's tri-plane forms against their
+     plain versions, timed;
+  5d. the decoder-options phase (decoder_options_phase): on the flagship
+     generator, D-par (parallel heads, the xyz embedding, f32 heads, exact
+     GELU) and D-seq (sequential heads: the real camera at the mapping;
+     bf16, "poly"): each route's decode kernel against its plain version
+     (the f32 forms of K2, K8, K9 for D-par; the bf16 forms on the
+     sequential chain for D-seq), 1 + OPT_FRAMES frames on the slab, table
+     and fused routes with each form's own launch counter, each first frame
+     against the route's all-plain frame, FRAMES profiled frames; D-seq's K1
+     on the real camera bit for bit; apply_packed with K6's bf16 form (the
+     flagship decoder) and K6 (D-par) against their plain versions; and
+     apps/train_decoder.py --random_init with --decoder_type parallel
+     --use_pos_encoding and with --decoder_type sequential, 1 +
+     OPT_TRAIN_STEPS steps and one profiled step each;
   6. prints the per-frame and per-step times, stage splits, each kernel's
      time beside its plain version's and its bound, peak device memory,
      then a JSON line of per-kernel results, the card's name and power
@@ -94,6 +109,7 @@ which times K3-K5 of this or another checkout on them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -114,6 +130,8 @@ SURFACE_QUANTILE = 0.9
 EG3D_FRAMES = 2       # timed EG3D frames per route, after one warm-up frame
 EG3D_TRAIN_STEPS = 2  # timed EG3D train steps, after one warm-up step
 EG3D_BG = (0.0, 0.0, 0.0)   # the eg3d presets' background (apps/train_decoder.py)
+OPT_FRAMES = 2        # timed decoder-options frames per route, after one warm-up frame
+OPT_TRAIN_STEPS = 2   # timed decoder-options train steps, after one warm-up step
 
 # the card's published peaks (H100 SXM data sheet, dense), for the bounds.
 # "tf32x3" is f32 accuracy on the tensor cores: each f32 product as three
@@ -156,6 +174,15 @@ KERNELS = {
                              "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:836"),
     "fused_decode_triplane": ("gaussian_gan_decoder_tpu_torch/csrc/brick_decode.cu",
                               "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:615"),
+    # the f32 forms of K2, K8, K9 and K6's bf16 form (the decoder-options phase)
+    "slab_decode_f32": ("gaussian_gan_decoder_tpu_torch/csrc/decode_f32.cu",
+                        "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:836"),
+    "brick_decode_f32": ("gaussian_gan_decoder_tpu_torch/csrc/decode_f32.cu",
+                         "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:533"),
+    "fused_decode_f32": ("gaussian_gan_decoder_tpu_torch/csrc/decode_f32.cu",
+                         "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:615"),
+    "heads_fwd_bf16": ("gaussian_gan_decoder_tpu_torch/csrc/heads_bf16.cu",
+                       "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:255"),
 }
 
 
@@ -259,9 +286,28 @@ def nbytes(*tensors):
 
 
 def chain_flops(cw):
-    """FLOPs of the 5-head chain for one point, at each head's true input
-    width (its staging prefix), not the kernels' zero padding."""
-    return sum(2 * (sc * 128 + 2 * 128 * 128 + 128 * od) for _, od, sc, _ in cw.chain)
+    """FLOPs of the 5-head chain for one point, at each head's input width
+    as packed (cw.n_in: its staging prefix, or 32 + P on the parallel
+    chain), not the kernels' zero padding."""
+    return sum(2 * (n_in * 128 + 2 * 128 * 128 + 128 * od)
+               for n_in, (_, od, _, _) in zip(cw.n_in, cw.chain))
+
+
+class FormCount:
+    """The launch count of one kernel form on a wrapper that launches two
+    (pallas_heads' `launches` and `launches_f32` / `launches_bf16`), as a
+    counter frame_run and train_path can set to 0 and read."""
+
+    def __init__(self, fn, attr):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n):
+        setattr(self.fn, self.attr, n)
 
 
 def hold_decode(torch, rows_k, rows_p, real, cw, cam, label):
@@ -309,6 +355,47 @@ def hold_decode(torch, rows_k, rows_p, real, cw, cam, label):
     require(vis_agree >= 0.999, f"{label}: visibility agreement {vis_agree}")
     require(not bool(vis_k[~real].any()), f"{label}: pad columns visible")
     return float(d[cont + [cb]].max())
+
+
+def hold_decode_f32(torch, rows_k, rows_p, real, cw, cam, label):
+    """Hold an f32 decode kernel's rows (K2, K8, K9 at f32: the 3xTF32 chain,
+    f32 up to the summation order) against its plain version's on the real
+    columns: the raw head rows 0:14 and the continuous screen rows within
+    1e-4 of each row's scale (conic_b, the near-cancelling off-diagonal,
+    within 1e-3 of its own), radius within one pixel and exact on 0.999 of
+    the points, the screen rows the plain projection of the kernel's own
+    head rows at 1e-4, visibility agreement >= 0.999, rows 14:16 and 28:
+    zero, pad columns not visible. -> max |d| of the rows compared."""
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads
+    pr = pallas_heads.PROJ_ROWS
+    require(bool(torch.isfinite(rows_k).all()), f"{label}: non-finite rows")
+    d = (rows_k - rows_p)[:, real].abs()
+    rel = d.amax(dim=1) / rows_p[:, real].abs().amax(dim=1).clamp(min=1e-3)
+    cb = pr["conic_b"]
+    screen = [r for r in range(16, 26) if r != cb]
+    proj = pallas_heads.project_heads(rows_k[:16].t(), cw, cam)
+    perr = ((rows_k - proj)[screen][:, real].abs().amax(dim=1)
+            / proj[screen][:, real].abs().amax(dim=1).clamp(min=1e-3))
+    rad = d[pr["radius_f"]]
+    vis_k, vis_p = rows_k[pr["visible"]] > 0.5, rows_p[pr["visible"]] > 0.5
+    vis_agree = float((vis_k == vis_p)[real].float().mean())
+    heads_w, screen_w = float(rel[:14].max()), float(rel[screen].max())
+    print(f"{label}: rows 0:14 worst row-relative {heads_w:.3e}, screen rows {screen_w:.3e}, "
+          f"conic_b {float(rel[cb]):.3e}; projection of the kernel's head rows vs its screen "
+          f"rows {float(perr.max()):.3e}; radius |d| max {float(rad.max()):.0f}, exact on "
+          f"{float((rad == 0).float().mean()):.5f}; visible agreement {vis_agree:.5f}; visible "
+          f"{int(vis_k[real].sum())}/{int(real.sum())}")
+    require(heads_w <= 1e-4 and screen_w <= 1e-4, f"{label}: rows disagree: {rel.tolist()}")
+    require(float(rel[cb]) <= 1e-3, f"{label}: conic_b disagrees: {float(rel[cb]):.3e}")
+    require(float(perr.max()) <= 1e-4, f"{label}: screen rows are not the projection of its "
+            "head rows")
+    require(float(rad.max()) <= 1.0 and float((rad == 0).float().mean()) >= 0.999,
+            f"{label}: radius rows disagree")
+    require(vis_agree >= 0.999, f"{label}: visibility agreement {vis_agree}")
+    require(not bool(rows_k[14:16].any()) and not bool(rows_k[28:].any()),
+            f"{label}: rows 14:16 or 28: not zero")
+    require(not bool(vis_k[~real].any()), f"{label}: pad columns visible")
+    return float(d[list(range(14)) + list(range(16, 26))].max())
 
 
 def plain_image(torch, rows, grid, cap, dev, bg=None):
@@ -1176,7 +1263,6 @@ def eg3d_phase(torch, seed, results):
     from gaussian_gan_decoder_tpu_torch import flagship
     from gaussian_gan_decoder_tpu_torch.apps import train_decoder
     from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads as ph
-    from gaussian_gan_decoder_tpu_torch.decoder.heads import GaussianDecoder
     from gaussian_gan_decoder_tpu_torch.gaussians.cameras import make_camera
     from gaussian_gan_decoder_tpu_torch.models import pallas_mapping
     from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import (
@@ -1186,7 +1272,7 @@ def eg3d_phase(torch, seed, results):
     rng = torch.Generator().manual_seed(seed + 9)
     dec = flagship.flagship_decoder(gen=flagship.flagship_generator("eg3d", rng=rng, device=dev),
                                     rng=rng, device=dev).eval()
-    fdec = GaussianDecoder(dec.G, gelu=dec.gelu, device=dev, fused_sampling=True).eval()
+    fdec = flagship.flagship_decoder(gen=dec.G, device=dev, fused_sampling=True).eval()
     fdec.load_state_dict(dec.state_dict())
     G = dec.G
     require(G.triplane_depth == 1 and G.variant == "eg3d", "not an EG3D tri-plane generator")
@@ -1224,16 +1310,17 @@ def eg3d_phase(torch, seed, results):
         ms, plain_ms = paired_ms(torch, lambda: ph.decode_project_slab(cw, vol, scales, ctx, cam),
                                  lambda: ph.decode_project_slab_plain(cw, vol, scales, ctx, cam),
                                  3)
-        # the kernel runs the chain on every slot of the pack: per slot the
-        # chain, 3 planes x 4 corners x 32 channels of bilinear lerp, ~150
-        # FLOPs of projection, over the pack's Mpad
-        per_slot = chain_flops(cw) + 3 * 4 * 32 * 2 + 150
+        # per point the chain, 3 planes x 4 corners x 32 channels of bilinear
+        # lerp, ~150 FLOPs of projection, over the template's points, as
+        # the flagship K2 row counts them (the kernel also runs the pack's
+        # pad slots: the Mpad figure beside it)
+        per_point = chain_flops(cw) + 3 * 4 * 32 * 2 + 150
         b = bound(nbytes(vol, scales, ctx.positions, ctx.idx16, ctx.aux, ctx.inv_axes,
-                         *weights_of, rows_k), ctx.m_padded * per_slot, "bf16")
-        b_real = bound(0, M * per_slot, "bf16")[0]
+                         *weights_of, rows_k), ctx.n_points * per_point, "bf16")
+        b_slots = bound(0, ctx.m_padded * per_point, "bf16")[0]
         print(f"K2 bilinear slab decode: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
-              f"{b[0]:.4f} ms over Mpad {ctx.m_padded} ({b[1]}, {b[2]}), {b_real:.4f} ms over "
-              f"the {M} points")
+              f"{b[0]:.4f} ms over the {ctx.n_points} points ({b[1]}, {b[2]}), {b_slots:.4f} "
+              f"ms over Mpad {ctx.m_padded}")
         results["slab_decode_bilinear"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b)
         # the lerp's witness: K8 (chain only) on the staging of the plain
         # version's features gives K2's rows bit for bit on the real slots,
@@ -1275,7 +1362,26 @@ def eg3d_phase(torch, seed, results):
         print(f"K9 tri-plane: rows bit-identical to K8's on the plain features: {same}")
         require(same, "K9 tri-plane: its features differ from the plain version's")
         del st
-        del f_k, f_p, rows_in, wts, aux, vol
+
+        # -- the f32 forms of K2's bilinear form and K9's tri-plane form, on
+        # an f32 chain of the same heads (held and timed; printed)
+        cw32 = ph.pack_chain(dec.heads(), dec.chain_spec, dec.position_dim, dec.scale_offset,
+                             dec.gelu, dtype=torch.float32)
+        ctx32 = dataclasses.replace(ctx, aux=ph.build_staging(ctx.positions, ctx.positions,
+                                                              ctx.valid, dtype=torch.float32))
+        aux32, _ = ph.build_brick_staging(pos.new_zeros((M, ph.C)), pos, pos, dtype=torch.float32)
+        for label, kern, plain, real_r in (
+                ("K2-f32 bilinear slab decode",
+                 lambda: ph.decode_project_slab(cw32, vol, scales, ctx32, cam),
+                 lambda: ph.decode_project_slab_plain(cw32, vol, scales, ctx32, cam), v),
+                ("K9-f32 tri-plane fused decode",
+                 lambda: ph.decode_project_fused(cw32, aux32, rows_in, wts, scale_rows, cam, M),
+                 lambda: ph.decode_project_fused_plain(cw32, aux32, rows_in, wts, scale_rows,
+                                                       cam, M), real)):
+            hold_decode_f32(torch, kern(), plain(), real_r, cw32, cam, label)
+            ms, plain_ms = paired_ms(torch, kern, plain, 2)
+            print(f"{label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        del f_k, f_p, rows_in, wts, aux, vol, aux32, ctx32
 
         # -- the all-plain frames of the three routes -------------------------
         def plain_frame(z, route):
@@ -1358,6 +1464,329 @@ def eg3d_phase(torch, seed, results):
             "fused_decode_triplane": launches["fused"]}
 
 
+def hold_heads_train(torch, captured, label):
+    """K6 and K7 against their plain versions on a train step's own inputs
+    and cotangent, at train_kernels' limits (K7 twice: bit-identical)."""
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads, pallas_heads_vjp
+    with torch.no_grad():
+        st, cw = captured["heads_fwd"]
+        o_k = pallas_heads.decode_heads(st, cw)
+        o_p = pallas_heads.decode_heads_plain(st, cw)
+        st, out16, dout, cw = captured["heads_bwd"]
+        dst_k, g_k = pallas_heads_vjp.decode_heads_bwd(st, out16, dout, cw)
+        dst_2, g_2 = pallas_heads_vjp.decode_heads_bwd(st, out16, dout, cw)
+        dst_p, g_p = pallas_heads_vjp.decode_heads_bwd_plain(st, out16, dout, cw)
+        torch.cuda.synchronize()
+    rel6 = float((o_k - o_p).abs().max() / o_p.abs().max())
+    same = torch.equal(dst_k, dst_2) and all(torch.equal(a, b) for a, b in zip(g_k, g_2))
+    rel7 = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+               for a, b in zip((dst_k, *g_k), (dst_p, *g_p)))
+    print(f"{label}: K6 vs plain {rel6:.3e} of max ({st.shape[0]} points, chain "
+          f"{[c[:3] for c in cw.chain]}); K7 worst {rel7:.3e} of each gradient's max, two "
+          f"launches bit-identical: {same}")
+    require(rel6 <= 1e-5, f"{label}: K6 disagrees: {rel6:.3e}")
+    require(rel7 <= 1e-3 and same, f"{label}: K7 disagrees ({rel7:.3e}) or is not repeatable")
+
+
+def decoder_options_phase(torch, seed, template, results):
+    """The decoder's other types and options at full width: the PanoHead
+    flagship generator (seeded), the 500k template, 512^2, and three
+    decoders of its weights' generator with seeded heads:
+      D-par: decoder_type 'parallel', the xyz embedding (P = 63), f32 heads
+        (the JAX GaussianDecoder's default dtype), exact GELU;
+      D-seq: 'sequential' (the real camera at the mapping, scale offset -2),
+        bf16 heads, "poly" GELU;
+      the flagship decoder ('sequential_reversed', bf16, "poly").
+    For D-par and D-seq: each route's decode kernel (K2, K8, K9: f32 forms
+    for D-par, bf16 for D-seq, the parallel chain's write-back guard)
+    against its plain version, timed; 1 + OPT_FRAMES frames on the slab,
+    table and fused routes (each counted kernel form launched in every
+    frame, each first frame against the route's all-plain frame), FRAMES
+    profiled frames each. D-seq's mapping with the real camera against its
+    plain version bit for bit. decode_packed / apply_packed on the flagship
+    decoder (K6's bf16 form) and on D-par (K6 f32) against their plain
+    versions. Then apps/train_decoder.py --random_init with --decoder_type
+    parallel --use_pos_encoding and with --decoder_type sequential for 1 +
+    OPT_TRAIN_STEPS steps each and one profiled step, K6 / K7 held on each
+    step's own inputs. -> the launches of the four new kernel forms on
+    their main paths."""
+    import tempfile
+    from gaussian_gan_decoder_tpu_torch import flagship
+    from gaussian_gan_decoder_tpu_torch.apps import train_decoder
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads as ph
+    from gaussian_gan_decoder_tpu_torch.decoder.heads import GaussianDecoder
+    from gaussian_gan_decoder_tpu_torch.gaussians.cameras import make_camera
+    from gaussian_gan_decoder_tpu_torch.models import pallas_mapping
+    from gaussian_gan_decoder_tpu_torch.neuralfield import pallas_expand as pe
+    from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import (
+        _quantize_int8, build_plane_table, build_slab_volume, sample_from_planes,
+        sample_fused_inputs)
+    from gaussian_gan_decoder_tpu_torch.splat import pallas_blend
+    dev = torch.device("cuda:0")
+    rng = torch.Generator().manual_seed(seed + 21)
+    gen = flagship.flagship_generator(rng=rng, device=dev).eval()
+    pos = torch.tensor(template, device=dev)
+    M, D, box_warp = POINTS, gen.triplane_depth, float(gen.rk["box_warp"])
+    cp, c2w = flagship.default_camera_params(device=dev)
+    # the sequential decoder maps the real camera: a non-frontal one
+    cp_real = cp.clone()
+    cp_real[0, :16] = torch.tensor(np.asarray(
+        [[0.9, 0.0, 0.4359, 1.18], [0.0, 1.0, 0.0, 0.0], [-0.4359, 0.0, 0.9, 2.43],
+         [0.0, 0.0, 0.0, 1.0]], np.float32).reshape(-1), device=dev)
+    cam = make_camera(IMAGE, FOV, c2w, device=dev)
+    nprng = np.random.RandomState(seed + 21)
+    zs = torch.tensor(nprng.randn(OPT_FRAMES + 2, 1, 512).astype(np.float32), device=dev)
+    g = IMAGE // 16
+    cap = flagship.flagship_raster_config().tile_capacity
+    launches = {}
+
+    def decoder(decoder_type, emb, bf16, gelu, fused=False):
+        d = GaussianDecoder(gen, gelu=gelu, rng=torch.Generator().manual_seed(seed + 22),
+                            device=dev, fused_sampling=fused, decoder_type=decoder_type,
+                            use_xyz_embedding=emb, heads_bf16=bf16)
+        return d.eval()
+
+    def plain_frame(d, w, ctx, z, route):
+        """The frame's stages with the plain versions: mapping on the type's
+        camera, synthesis, the route's plain decode, binning and the plain
+        blend."""
+        ws = pallas_mapping.mapping_forward_plain(z, d.mapping_condition(cp_real), w.mapping)
+        ws = ws[:, None].expand(1, w.mapping.num_ws, ws.shape[1])
+        pl = gen.synthesis_planes(ws, noise_mode="const")
+        cw, dt = w.chain, ph.chain_dtype(w.chain)
+        if route == "slab":
+            vo, sc = build_slab_volume(pl, D)
+            rows = ph.decode_project_slab_plain(cw, vo, sc, ctx, cam)
+        else:
+            n_planes, CD, H, W = pl.shape[1:]
+            q, qs = _quantize_int8(pl.float().reshape(n_planes, CD // D, D, H, W))
+            NY = pe.table_rows_ny(H, 1)
+            tb = (pe.brick_table_plain(pe.padded_channels_last(q), NY), NY, qs)
+            if route == "table":
+                ft = sample_from_planes(gen.plane_axes, pl, pos[None], box_warp, D, table=tb)[0]
+                st, _ = ph.build_brick_staging(ft.mean(0), d.cond0(pos), pos, dtype=dt)
+                rows = ph.decode_project_plain(cw, st, cam, M)
+            else:
+                au, mp = ph.build_brick_staging(pos.new_zeros((M, ph.C)), d.cond0(pos), pos,
+                                                dtype=dt)
+                ri, wt, sr = sample_fused_inputs(gen.plane_axes, pl, pos[None], box_warp, D,
+                                                 table=tb, pad_to=mp)
+                rows = ph.decode_project_fused_plain(cw, au, ri, wt, sr, cam, M)
+        return plain_image(torch, rows, g, cap, dev)
+
+    cache = tempfile.mkdtemp(prefix="slab_pack_")
+    forms = {"slab": ph.decode_project_slab, "table": ph.decode_project,
+             "fused": ph.decode_project_fused}
+    names = {"slab": "slab_decode", "table": "brick_decode", "fused": "fused_decode"}
+    for label, (decoder_type, emb, bf16, gelu) in (
+            ("D-par", ("parallel", True, False, "exact")),
+            ("D-seq", ("sequential", False, True, "poly"))):
+        dec = decoder(decoder_type, emb, bf16, gelu)
+        fdec = decoder(decoder_type, emb, bf16, gelu, fused=True)
+        fdec.load_state_dict(dec.state_dict())
+        w = dec.fold()
+        cw = w.chain
+        dt = ph.chain_dtype(cw)
+        require(dt == (torch.bfloat16 if bf16 else torch.float32), f"{label}: chain {dt}")
+        if decoder_type == "parallel":
+            require(all(sc == ph.STAGE for _, _, sc, _ in cw.chain),
+                    f"{label}: the parallel chain writes back: {cw.chain}")
+        t0 = time.perf_counter()
+        ctx = dec.make_slab_context(template, device=dev, cache_dir=cache)
+        print(f"{label}: slab context {time.perf_counter() - t0:.2f} s host (staging "
+              f"{ctx.aux.dtype}, P {dec.position_dim}); chain {cw.chain}")
+        weights_of = (cw.w1, cw.b1, cw.w2, cw.b2, cw.w3, cw.b3, cw.w4, cw.b4, cw.meta)
+        hold = hold_decode if bf16 else hold_decode_f32
+        kind = "bf16" if bf16 else "tf32x3"
+        per_point = chain_flops(cw) + 150
+        with torch.inference_mode():
+            planes, _ = dec.synthesize_planes(w, zs[0], cp_real)
+            if decoder_type == "sequential":
+                # K1 on the preconditioned real camera, bit for bit
+                c = dec.mapping_condition(cp_real)
+                require(bool(c.any()), "the flagship zeroes the camera")
+                ws_k = pallas_mapping.mapping_forward(zs[0], c, w.mapping)[:, 0]
+                ws_p = pallas_mapping.mapping_forward_plain(zs[0], c, w.mapping)
+                torch.cuda.synchronize()
+                same = torch.equal(ws_k, ws_p)
+                print(f"{label}: K1 on the real camera (c * c_scale) vs its plain version: "
+                      f"bit-identical {same}, max|d| {float((ws_k - ws_p).abs().max()):.3e}")
+                require(same, f"{label}: K1 differs from its plain version on the real camera")
+            # -- the three routes' decode kernels against their plain versions
+            vol, scales = build_slab_volume(planes, D)
+            table = build_plane_table(planes, D, brick_dtype=torch.int8)
+            feats = sample_from_planes(gen.plane_axes, planes, pos[None], box_warp, D,
+                                       table=table)[0]
+            staging, Mpad = ph.build_brick_staging(feats.mean(0), dec.cond0(pos), pos, dtype=dt)
+            aux, _ = ph.build_brick_staging(pos.new_zeros((M, ph.C)), dec.cond0(pos), pos,
+                                            dtype=dt)
+            rows_in, wts, scale_rows = sample_fused_inputs(gen.plane_axes, planes, pos[None],
+                                                           box_warp, D, table=table, pad_to=Mpad)
+            real = torch.arange(Mpad, device=dev) < M
+            calls = {
+                "slab": (lambda: ph.decode_project_slab(cw, vol, scales, ctx, cam),
+                         lambda: ph.decode_project_slab_plain(cw, vol, scales, ctx, cam),
+                         ctx.valid > 0, ctx.n_points * (per_point + 3 * 8 * 32 * 2),
+                         (vol, scales, ctx.positions, ctx.idx16, ctx.aux, ctx.inv_axes)),
+                "table": (lambda: ph.decode_project(cw, staging, cam, M),
+                          lambda: ph.decode_project_plain(cw, staging, cam, M),
+                          real, M * per_point, (staging,)),
+                "fused": (lambda: ph.decode_project_fused(cw, aux, rows_in, wts, scale_rows,
+                                                          cam, M),
+                          lambda: ph.decode_project_fused_plain(cw, aux, rows_in, wts,
+                                                                scale_rows, cam, M),
+                          real, M * (per_point + 3 * 8 * 32 * 2),
+                          (aux, *rows_in, wts, scale_rows)),
+            }
+            for route, (kern, plain, real_r, flops, ins) in calls.items():
+                rows_k, rows_p = kern(), plain()
+                torch.cuda.synchronize()
+                err = hold(torch, rows_k, rows_p, real_r, cw, cam,
+                           f"{label} {names[route]} ({'bf16' if bf16 else 'f32'})")
+                ms, plain_ms = paired_ms(torch, kern, plain, 3)
+                b = bound(nbytes(*ins, *weights_of, rows_k), flops, kind)
+                print(f"{label} {names[route]}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                      f"bound {b[0]:.4f} ms over the {M} points ({b[1]}, {b[2]})"
+                      + (f", {b[0] * ctx.m_padded / M:.4f} ms over Mpad {ctx.m_padded}"
+                         if route == "slab" and b[1] == "operations" else ""))
+                if not bf16:
+                    results[f"{names[route]}_f32"] = dict(max_abs_err=err, ms=ms,
+                                                          plain_ms=plain_ms, bound=b)
+                del rows_k, rows_p
+            ref_imgs = {route: plain_frame(dec, w, ctx, zs[1], route) for route in forms}
+            del vol, scales, table, feats, staging, aux, rows_in, wts, planes
+
+        # -- the frames: slab, table and fused routes -------------------------
+        for route, fn in forms.items():
+            d = fdec if route == "fused" else dec
+            wr = fdec.fold() if route == "fused" else w
+            kw = {"slab_ctx": ctx} if route == "slab" else {"init_position": pos}
+            form = f"{names[route]}{'' if bf16 else '_f32'}"
+            counters = {"mapping": pallas_mapping.mapping_forward,
+                        form: FormCount(fn, "launches" if bf16 else "launches_f32"),
+                        "blend": pallas_blend.blend_tiles}
+            if route != "slab":
+                counters["brick_table"] = pe.brick_table
+            run = frame_run(torch, d, wr, zs[1:], cp_real, c2w, counters, OPT_FRAMES, **kw)
+            rlabel = f"{label} {route}-route"
+            _, host_med = report_frames(torch, run, rlabel)
+            profile_frames(torch, lambda i, timer, d=d, wr=wr, kw=kw: flagship.decode_and_render(
+                d, wr, zs[1 + i % (OPT_FRAMES + 1)], cp_real, c2w, kw.get("slab_ctx"), FOV,
+                image_size=IMAGE, init_position=kw.get("init_position"), stage_timer=timer),
+                host_med, rlabel)
+            fr_psnr = psnr(run["first"][0], ref_imgs[route])
+            print(f"{rlabel} first frame vs its all-plain frame: {fr_psnr:.2f} dB")
+            require(fr_psnr >= 30.0, f"{rlabel} frame disagrees with the plain frame: "
+                    f"{fr_psnr:.2f} dB")
+            if not bf16:
+                launches[form] = run["launches"][form]
+        del ref_imgs, ctx, dec, fdec
+        torch.cuda.empty_cache()
+
+    # -- decode_packed: the flagship decoder (K6 bf16) and D-par (K6 f32) -----
+    for label, d in (("flagship decoder", flagship.flagship_decoder(gen=gen, device=dev)),
+                     ("D-par", decoder("parallel", True, False, "exact"))):
+        d = d.eval()
+        w = d.fold()
+        cw = w.chain
+        bf16 = ph.chain_dtype(cw) == torch.bfloat16
+        counter = FormCount(ph.decode_heads, "launches_bf16" if bf16 else "launches")
+        with torch.inference_mode():
+            counter.launches = 0
+            outs = [d.apply_packed(w, zs[i], cp, pos)[0] for i in range(OPT_FRAMES + 1)]
+            torch.cuda.synchronize()
+            n = counter.launches
+            require(n == OPT_FRAMES + 1, f"{label}: K6 launched {n} times in "
+                    f"{OPT_FRAMES + 1} apply_packed calls")
+            planes, _ = d.synthesize_planes(w, zs[0], cp)
+            if bf16:
+                # decode_from_planes on the flagship decoder's route
+                # (pallas_heads without pallas_heads_train): K6's bf16 form
+                # on the float sample's staging
+                require(d.pallas_heads and not d.pallas_heads_train, f"{label}: {d.config}")
+                counter.launches = 0
+                dfp = d.decode_from_planes(planes, pos)
+                n_dfp = counter.launches
+                fs = sample_from_planes(gen.plane_axes, planes, pos[None], box_warp, D)[0]
+                sf, _ = ph.build_brick_staging(fs.mean(0).float(), d.cond0(pos), pos,
+                                               dtype=torch.bfloat16)
+                of = ph.decode_heads(sf, cw)
+                torch.cuda.synchronize()
+                require(n_dfp == 1 and all(torch.equal(dfp[k], of[:M, c:c + nc])
+                                           for k, (c, nc) in d.layout.items()),
+                        f"{label}: decode_from_planes did not run K6's bf16 form once "
+                        f"({n_dfp} launches)")
+                print(f"{label} decode_from_planes (pallas_heads, bf16): K6 bf16 launched "
+                      f"{n_dfp} time, outputs equal to K6 on its staging")
+                del dfp, fs, sf, of
+            table = build_plane_table(planes, D, brick_dtype=torch.int8)
+            feats = sample_from_planes(gen.plane_axes, planes, pos[None], box_warp, D,
+                                       table=table)[0]
+            st, _ = ph.build_brick_staging(feats.mean(0), d.cond0(pos), pos,
+                                           dtype=ph.chain_dtype(cw))
+            o_k, o_p = ph.decode_heads(st, cw), ph.decode_heads_plain(st, cw)
+            torch.cuda.synchronize()
+            require(torch.equal(o_k, outs[0]), f"{label}: decode_packed is not K6 on its staging")
+            col = ((o_k - o_p)[:M, :14].abs().amax(dim=0)
+                   / o_p[:M, :14].abs().amax(dim=0).clamp(min=1e-3))
+            err = float((o_k - o_p)[:M].abs().max())
+            lim = 1e-2 if bf16 else 1e-5
+            print(f"{label} decode_packed (K6 {'bf16' if bf16 else 'f32'}): worst column-relative "
+                  f"{float(col.max()):.3e} (limit {lim}); launches {n} in {OPT_FRAMES + 1} "
+                  f"apply_packed")
+            require(float(col.max()) <= lim and not bool(o_k[:, 14:].any()),
+                    f"{label}: K6 disagrees with its plain version: {col.tolist()}")
+            ms, plain_ms = paired_ms(torch, lambda: ph.decode_heads(st, cw),
+                                     lambda: ph.decode_heads_plain(st, cw), 3)
+            weights_of = (cw.w1, cw.b1, cw.w2, cw.b2, cw.w3, cw.b3, cw.w4, cw.b4, cw.meta)
+            b = bound(nbytes(st, o_k, *weights_of), st.shape[0] * chain_flops(cw),
+                      "bf16" if bf16 else "tf32x3")
+            print(f"{label} K6 ({'bf16' if bf16 else 'f32'}) on {st.shape[0]} points: kernel "
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]}, {b[2]})")
+            if bf16:
+                results["heads_fwd_bf16"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                 bound=b)
+                launches["heads_fwd_bf16"] = n
+            del outs, planes, table, feats, st, o_k, o_p
+        del d
+    del gen
+    torch.cuda.empty_cache()
+
+    # -- the trainer with the options: 1 + OPT_TRAIN_STEPS steps each ---------
+    fgen = flagship.flagship_generator(rng=torch.Generator().manual_seed(seed))
+    z0 = torch.randn((1, fgen.z_dim), generator=torch.Generator().manual_seed(1)).to(dev)
+    level, _ = surface_level(torch, fgen, z0, 128, 2 ** 20)
+    del fgen
+    for flags in (["--decoder_type", "parallel", "--use_pos_encoding"],
+                  ["--decoder_type", "sequential"]):
+        run = train_decoder.build(train_decoder.build_argparser().parse_args(
+            ["--random_init", "--seed", str(seed), "--mc_level", repr(level)] + flags))
+        tlabel = "train " + " ".join(flags)
+        require(run.decoder.decoder_type == flags[1] and not run.decoder.heads_bf16,
+                f"{tlabel}: decoder {run.decoder.config}")
+        tr = train_path(torch, run, OPT_TRAIN_STEPS)
+        step_dev = sorted(d for d, _ in tr["step_ms"])
+        step_host = sorted(h for _, h in tr["step_ms"])
+        print(f"{tlabel} (500k points, 512^2): median {step_dev[len(step_dev) // 2]:.3f} ms "
+              f"device, {step_host[len(step_host) // 2]:.3f} ms host wall; losses "
+              + ", ".join(f"{v:.5f}" for v in tr["losses"])
+              + f"; first step {tr['n_pairs']} pairs; launches {tr['launches']}")
+        print(f"{tlabel} stage split (median ms): "
+              + ", ".join(f"{n} {t:.3f}" for n, t in stage_split(torch, tr["stage_ms"]).items()))
+        print(f"{tlabel} peak device memory: {tr['peak'] / 2 ** 30:.3f} GiB")
+        busy_ms, on_card = profile_step(torch, run, tr["state"], tr["draws"][0], tr["zs"][0],
+                                        OPT_TRAIN_STEPS + 1)
+        require(busy_ms > 0, f"{tlabel}: the profiler saw no device time")
+        print(f"{tlabel} profiler: {busy_ms:.3f} ms device time in one train step, busy "
+              f"{busy_ms / step_host[len(step_host) // 2]:.3f} of the median host-wall step; "
+              "largest: " + "; ".join(f"{k[:48]} {t:.3f} ms ({t / busy_ms:.1%})"
+                                      for t, k in on_card[:6]))
+        hold_heads_train(torch, tr["captured"], tlabel)
+        del run, tr
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1379,7 +1808,6 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads
-    from gaussian_gan_decoder_tpu_torch.decoder.heads import GaussianDecoder
     from gaussian_gan_decoder_tpu_torch.gaussians.cameras import make_camera
     from gaussian_gan_decoder_tpu_torch.models import pallas_mapping
     from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import build_slab_volume
@@ -1408,6 +1836,12 @@ def main(argv=None) -> int:
     k6_sass = [ops for fn, ops in sass.items() if "heads_fwd_kernel" in fn]
     require(k6_sass and all(any("TF32" in op for op in ops) for ops in k6_sass),
             "heads_fwd_kernel has no TF32 HMMA in its SASS")
+    f32_sass = [ops for fn, ops in sass.items() if "decode_f32_kernel" in fn]
+    require(len(f32_sass) == 5 and all(any("TF32" in op for op in ops) for ops in f32_sass),
+            "the f32 decode kernels lack TF32 HMMA in their SASS")
+    bf16_sass = [ops for fn, ops in sass.items() if "heads_bf16_kernel" in fn]
+    require(bf16_sass and all(any("BF16" in op for op in ops) for ops in bf16_sass),
+            "heads_bf16_kernel has no bf16 HMMA in its SASS")
     k3_sass = [ops for fn, ops in sass.items() if "blend_kernel" in fn]
     require(k3_sass and all(ops.get("LDS.128", 0) > 0 for ops in k3_sass),
             "blend_kernel has no LDS.128 in its SASS")
@@ -1416,8 +1850,7 @@ def main(argv=None) -> int:
     rng = torch.Generator().manual_seed(args.seed)
     # the slab route's decoder: the JAX flagship's with the "poly6" GELU the
     # JAX benchmark sets on that route
-    dec = GaussianDecoder(flagship.flagship_generator(rng=rng, device=dev), gelu="poly6",
-                          rng=rng, device=dev).eval()
+    dec = flagship.flagship_decoder(rng=rng, device=dev, gelu="poly6").eval()
     weights = dec.fold()
     nprng = np.random.RandomState(args.seed)
     template = ((nprng.rand(POINTS, 3) - 0.5) * 0.4).astype(np.float32)
@@ -1631,6 +2064,9 @@ def main(argv=None) -> int:
 
     # -- the EG3D phase: the tri-plane forms of K2 and K9, frames and steps ---
     launches.update(eg3d_phase(torch, args.seed, results))
+
+    # -- the decoder-options phase: D-par, D-seq, decode_packed, their steps --
+    launches.update(decoder_options_phase(torch, args.seed, template, results))
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

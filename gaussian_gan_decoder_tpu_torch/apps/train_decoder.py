@@ -11,8 +11,11 @@ The generator of --generator_arch (the PanoHead tri-grid, or an EG3D
 tri-plane preset: eg3d_ffhq, eg3d_lpff, eg3d_cats, each with its camera
 stddevs and background) from a reference pickle (--network_pkl, through
 port/torch_pickle.py) or with seeded random weights (--random_init; --smoke
-swaps in the JAX CLI's tiny generator and shapes, for CPU runs), the
-sequential_reversed heads (hidden 128, exact GELU), the trainable G copy,
+swaps in the JAX CLI's tiny generator and shapes, for CPU runs), the heads
+of --decoder_type (sequential_reversed, sequential or parallel; exact GELU,
+--hidden_dim wide, the xyz embedding with --use_pos_encoding; the f32
+kernel chain K6 / K7 unless --no-pallas_heads_train or a width other than
+128 takes the plain chain), the trainable G copy,
 normal camera sampling, marching-tetrahedra surface points, the training
 rasterizer, a VGG16 for LPIPS (seeded random without --vgg_weights) and,
 with --id_weights, the IR-SE50 ID term on frontal views.
@@ -116,14 +119,9 @@ def _refuse_unported(args):
         "--int8_probe": (args.int8_probe, ROADMAP_DECODE),
         "--bf16_probe": (args.bf16_probe, ROADMAP_DECODE),
         "--bf16_lpips": (args.bf16_lpips, ROADMAP_DECODE),
-        "--decoder_type other than sequential_reversed":
-            (args.decoder_type != "sequential_reversed", ROADMAP_DECODE),
-        "--use_pos_encoding": (args.use_pos_encoding, ROADMAP_DECODE),
-        "--hidden_dim other than 128": (args.hidden_dim != 128, ROADMAP_DECODE),
         "--no-use_marching_cubes": (not args.use_marching_cubes, ROADMAP_DECODE),
         "--no-mt_two_stage": (not args.mt_two_stage, ROADMAP_DECODE),
         "--no-sigma_separable": (not args.sigma_separable, ROADMAP_DECODE),
-        "--no-pallas_heads_train": (not args.pallas_heads_train, ROADMAP_DECODE),
         "--raster_backend xla": (args.raster_backend != "pallas_diff", ROADMAP_RASTER),
     }
     bad = [(flag, item) for flag, (on, item) in unported.items() if on]
@@ -174,7 +172,12 @@ def build(args):
     else:
         gen = flagship_generator(variant=variant, rng=rng, device=dev)
         print("random-init generator (full shapes)")
-    decoder = GaussianDecoder(copy.deepcopy(gen), gelu="exact", rng=rng, device=dev)
+    # the JAX trainer's decoder: exact GELU, f32 heads; --no-pallas_heads_train
+    # (and any hidden width but 128) trains the plain chain
+    decoder = GaussianDecoder(copy.deepcopy(gen), gelu="exact", rng=rng, device=dev,
+                              decoder_type=args.decoder_type, hidden_dim=args.hidden_dim,
+                              use_xyz_embedding=args.use_pos_encoding, heads_bf16=False,
+                              pallas_heads=False, pallas_heads_train=args.pallas_heads_train)
     cfg = DistillConfig(
         lr=args.lr, l1_weight=args.l1_weight, l2_weight=args.l2_weight,
         lpips_weight=args.lpips_weight, ssim_weight=args.ssim_weight,

@@ -37,29 +37,13 @@
 // the front halves (K8's staging load, K9's lerp) are this file's own; they
 // are not redesigned.
 #include "chain.cuh"
+#include "gather.cuh"
 
 namespace {
 
 using ggd::kDecPts;
 using ggd::kDecThreads;
 using ggd::kXld;
-
-constexpr int kC = 32;        // channels per plane
-
-// 8 consecutive channels of one corner as f32
-__device__ __forceinline__ void load8(const int8_t* p, float* v) {
-  const int2 q2 = *reinterpret_cast<const int2*>(p);
-  const int8_t* q = reinterpret_cast<const int8_t*>(&q2);
-#pragma unroll
-  for (int c = 0; c < 8; ++c) v[c] = (float)q[c];
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  const uint4 q4 = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat16* q = reinterpret_cast<const __nv_bfloat16*>(&q4);
-#pragma unroll
-  for (int c = 0; c < 8; ++c) v[c] = __bfloat162float(q[c]);
-}
 
 __global__ void __launch_bounds__(kDecThreads) brick_decode_kernel(
     const __nv_bfloat16* __restrict__ staging, const ggd::DecodeChain cw,
@@ -89,29 +73,9 @@ __global__ void __launch_bounds__(kDecThreads) fused_decode_kernel(
 
   for (int pt = tid >> 2; pt < n_rows; pt += kDecThreads / 4) {
     const int part = tid & 3;
-    const int m = m0 + pt;
-    const Row* rows[3] = {rows0, rows1, rows2};
     float acc[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[c] = 0.f;
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      const Row* row = rows[p] + (size_t)m * (kCorners * kC) + part * 8;
-      float accp[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) accp[c] = 0.f;
-#pragma unroll
-      for (int k = 0; k < kCorners; ++k) {
-        const float w = wts[(size_t)(p * kCorners + k) * Mpad + m];
-        float q[8];
-        load8(row + k * kC, q);
-#pragma unroll
-        for (int c = 0; c < 8; ++c) accp[c] = __fadd_rn(accp[c], __fmul_rn(q[c], w));
-      }
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        acc[c] = __fadd_rn(acc[c], __fmul_rn(accp[c], scale_rows[p * kC + part * 8 + c]));
-    }
+    ggd::fused_point_features<kCorners, Row>(rows0, rows1, rows2, wts, scale_rows, m0 + pt, part,
+                                             Mpad, acc);
 #pragma unroll
     for (int c = 0; c < 8; ++c) s.X[pt * kXld + part * 8 + c] = __float2bfloat16_rn(acc[c]);
   }

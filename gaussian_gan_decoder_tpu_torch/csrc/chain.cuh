@@ -1,9 +1,11 @@
 // Device code of the 5-head decoder chain shared by the inference decode
 // kernels K2 (slab_decode.cu), K8 and K9 (brick_decode.cu) — bf16 staging —
-// and the training kernels K6/K7 (heads_train.cu, f32): the GELU variants,
-// softplus, and the decode kernels' shared chain + EWA projection tail
-// (chain_project_tail), which runs the chain on the tensor cores: bf16
-// mma.sync with f32 accumulators.
+// K6's bf16 form (heads_bf16.cu), and the f32 kernels (K6/K7, heads_train.cu;
+// the f32 decode tails, decode_f32.cu): the GELU variants, softplus, the
+// bf16 chain on the tensor cores (chain_bf16: bf16 mma.sync with f32
+// accumulators), the EWA projection of one point (project_point, which the
+// f32 tails share) and the decode kernels' tail of the two
+// (chain_project_tail).
 //
 // The tail per point, before and after it moved to the tensor cores: the
 // same 5 x (3 x 128 x 128 + 128 x 16) MACs (5.12e5 FLOPs, the first layer
@@ -181,7 +183,7 @@ __device__ __forceinline__ void decode_prologue(const DecodeSmem& s, int* sMeta,
   fetch_w4(s, cw, 0);
   cp_async_commit();
   if (tid < 32) sMeta[tid] = cw.meta[tid];
-  if (tid < 36) s.sCam[tid] = cw.cam[tid];
+  if (tid < 36 && cw.cam != nullptr) s.sCam[tid] = cw.cam[tid];
   const int n_heads = cw.meta[0];
   for (int i = tid; i < n_heads * kBiasHead; i += kDecThreads) {
     const int h = i / kBiasHead, j = i % kBiasHead, l = j / kStage, c = j % kStage;
@@ -215,16 +217,13 @@ __device__ __forceinline__ void gelu_to_frag(const float (&acc)[16][4], const fl
   }
 }
 
-// The chain over X (features already in columns 0:32) and the projection,
-// written to out[(row) * Mpad + m0 + point] for the points below Mpad.
-// Cull: with valid_col (K2) visible, opac and radius_f are multiplied by
-// the staging's valid column; without it (K8, K9) only visible is masked,
-// by column < n_points, as the TPU kernel's decode_project_pallas does.
-__device__ __forceinline__ void chain_project_tail(const DecodeSmem& s, const int* sMeta,
-                                                   const DecodeChain& cw,
-                                                   float* __restrict__ out, int Mpad, int m0,
-                                                   float scale_offset, bool valid_col,
-                                                   int n_points) {
+// The bf16 chain over X (features already in columns 0:32): the transformed
+// head outputs land in O16 and, rounded to bf16, in the staging columns
+// later heads read, where stage_col + out_dim <= kStage (the TPU body's
+// guard: the parallel chain's stage columns are kStage, and it writes
+// none). Ends with a barrier.
+__device__ __forceinline__ void chain_bf16(const DecodeSmem& s, const int* sMeta,
+                                           const DecodeChain& cw, float scale_offset) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int lm = lane >> 3, lr = lane & 7;   // ldmatrix: this lane's matrix and row
@@ -298,108 +297,127 @@ __device__ __forceinline__ void chain_project_tail(const DecodeSmem& s, const in
           if (kind == 1) o = -softplus(o + 5.f) + scale_offset;
           else if (kind == 2) o = o * 0.01f + (col < 3 ? bf16f(s.X[r * kXld + kInitCol + col]) : 0.f);
           s.O16[r * kOutW + out_col + col] = o;
-          s.X[r * kXld + stage_col + col] = __float2bfloat16_rn(o);
+          if (stage_col + out_dim <= kStage) s.X[r * kXld + stage_col + col] = __float2bfloat16_rn(o);
         }
       }
     __syncwarp();
   }
   __syncthreads();
+}
 
-  // projection, one thread per point
-  if (tid < kDecPts && m0 + tid < Mpad) {
-    const int m = m0 + tid;
-    const float* o = s.O16 + tid * kOutW;
-    float* dst = out + m;
+// One point's rows: its raw head outputs o (16, f32) at rows [0:16), then
+// the EWA projection, opacity and SH-C0 colour, written to dst[row * Mpad].
+// valid scales opac and radius_f; vis_mask scales visible.
+__device__ __forceinline__ void project_point(const float* o, const float* sCam,
+                                              const int* sMeta, float valid, float vis_mask,
+                                              float* __restrict__ dst, int Mpad) {
 #pragma unroll
-    for (int r = 0; r < kOutW; ++r) dst[(size_t)r * Mpad] = o[r];
-    const float* wv = s.sCam;
-    const float* pj = s.sCam + 16;
-    const float tanx = s.sCam[32], tany = s.sCam[33], imw = s.sCam[34], imh = s.sCam[35];
-    const int x0 = sMeta[21], r0 = sMeta[22], s0 = sMeta[23], c0 = sMeta[24], op0 = sMeta[25];
-    const float mx = o[x0], my = o[x0 + 1], mz = o[x0 + 2];
-    const float view_x = mx * wv[0] + my * wv[4] + mz * wv[8] + wv[12];
-    const float view_y = mx * wv[1] + my * wv[5] + mz * wv[9] + wv[13];
-    const float view_z = mx * wv[2] + my * wv[6] + mz * wv[10] + wv[14];
-    const float clip_x = mx * pj[0] + my * pj[4] + mz * pj[8] + pj[12];
-    const float clip_y = mx * pj[1] + my * pj[5] + mz * pj[9] + pj[13];
-    const float clip_w = mx * pj[3] + my * pj[7] + mz * pj[11] + pj[15];
-    const float p_w = 1.f / (clip_w + 1e-7f);
-    const bool in_front = view_z > 0.2f;
-    const float px = ((clip_x * p_w + 1.f) * imw - 1.f) * 0.5f;
-    const float py = ((clip_y * p_w + 1.f) * imh - 1.f) * 0.5f;
+  for (int r = 0; r < kOutW; ++r) dst[(size_t)r * Mpad] = o[r];
+  const float* wv = sCam;
+  const float* pj = sCam + 16;
+  const float tanx = sCam[32], tany = sCam[33], imw = sCam[34], imh = sCam[35];
+  const int x0 = sMeta[21], r0 = sMeta[22], s0 = sMeta[23], c0 = sMeta[24], op0 = sMeta[25];
+  const float mx = o[x0], my = o[x0 + 1], mz = o[x0 + 2];
+  const float view_x = mx * wv[0] + my * wv[4] + mz * wv[8] + wv[12];
+  const float view_y = mx * wv[1] + my * wv[5] + mz * wv[9] + wv[13];
+  const float view_z = mx * wv[2] + my * wv[6] + mz * wv[10] + wv[14];
+  const float clip_x = mx * pj[0] + my * pj[4] + mz * pj[8] + pj[12];
+  const float clip_y = mx * pj[1] + my * pj[5] + mz * pj[9] + pj[13];
+  const float clip_w = mx * pj[3] + my * pj[7] + mz * pj[11] + pj[15];
+  const float p_w = 1.f / (clip_w + 1e-7f);
+  const bool in_front = view_z > 0.2f;
+  const float px = ((clip_x * p_w + 1.f) * imw - 1.f) * 0.5f;
+  const float py = ((clip_y * p_w + 1.f) * imh - 1.f) * 0.5f;
 
-    const float focal_x = imw / (2.f * tanx);
-    const float focal_y = imh / (2.f * tany);
-    const float tz = fabsf(view_z) < 1e-6f ? 1e-6f : view_z;
-    const float limx = 1.3f * tanx, limy = 1.3f * tany;
-    const float tx = fminf(fmaxf(view_x / tz, -limx), limx) * tz;
-    const float ty = fminf(fmaxf(view_y / tz, -limy), limy) * tz;
-    // V = W[:3, :3]^T: V[a][b] = wv[b * 4 + a]
-    const float inv_z = 1.f / tz;
-    const float j00 = focal_x * inv_z;
-    const float j02 = -(focal_x * tx) * inv_z * inv_z;
-    const float j11 = focal_y * inv_z;
-    const float j12 = -(focal_y * ty) * inv_z * inv_z;
-    const float u0 = j00 * wv[0] + j02 * wv[2];
-    const float u1 = j00 * wv[4] + j02 * wv[6];
-    const float u2 = j00 * wv[8] + j02 * wv[10];
-    const float v0 = j11 * wv[1] + j12 * wv[2];
-    const float v1 = j11 * wv[5] + j12 * wv[6];
-    const float v2 = j11 * wv[9] + j12 * wv[10];
+  const float focal_x = imw / (2.f * tanx);
+  const float focal_y = imh / (2.f * tany);
+  const float tz = fabsf(view_z) < 1e-6f ? 1e-6f : view_z;
+  const float limx = 1.3f * tanx, limy = 1.3f * tany;
+  const float tx = fminf(fmaxf(view_x / tz, -limx), limx) * tz;
+  const float ty = fminf(fmaxf(view_y / tz, -limy), limy) * tz;
+  // V = W[:3, :3]^T: V[a][b] = wv[b * 4 + a]
+  const float inv_z = 1.f / tz;
+  const float j00 = focal_x * inv_z;
+  const float j02 = -(focal_x * tx) * inv_z * inv_z;
+  const float j11 = focal_y * inv_z;
+  const float j12 = -(focal_y * ty) * inv_z * inv_z;
+  const float u0 = j00 * wv[0] + j02 * wv[2];
+  const float u1 = j00 * wv[4] + j02 * wv[6];
+  const float u2 = j00 * wv[8] + j02 * wv[10];
+  const float v0 = j11 * wv[1] + j12 * wv[2];
+  const float v1 = j11 * wv[5] + j12 * wv[6];
+  const float v2 = j11 * wv[9] + j12 * wv[10];
 
-    float qr = o[r0], qx = o[r0 + 1], qy = o[r0 + 2], qz = o[r0 + 3];
-    const float norm = sqrtf(qr * qr + qx * qx + qy * qy + qz * qz) + 1e-12f;
-    qr /= norm; qx /= norm; qy /= norm; qz /= norm;
-    const float R00 = 1.f - 2.f * (qy * qy + qz * qz), R01 = 2.f * (qx * qy - qr * qz),
-                R02 = 2.f * (qx * qz + qr * qy);
-    const float R10 = 2.f * (qx * qy + qr * qz), R11 = 1.f - 2.f * (qx * qx + qz * qz),
-                R12 = 2.f * (qy * qz - qr * qx);
-    const float R20 = 2.f * (qx * qz - qr * qy), R21 = 2.f * (qy * qz + qr * qx),
-                R22 = 1.f - 2.f * (qx * qx + qy * qy);
-    const float sc0 = expf(o[s0]), sc1 = expf(o[s0 + 1]), sc2 = expf(o[s0 + 2]);
-    const float m00 = R00 * sc0, m01 = R01 * sc1, m02 = R02 * sc2;
-    const float m10 = R10 * sc0, m11 = R11 * sc1, m12 = R12 * sc2;
-    const float m20 = R20 * sc0, m21 = R21 * sc1, m22 = R22 * sc2;
-    const float s_00 = m00 * m00 + m01 * m01 + m02 * m02;
-    const float s_01 = m00 * m10 + m01 * m11 + m02 * m12;
-    const float s_02 = m00 * m20 + m01 * m21 + m02 * m22;
-    const float s_11 = m10 * m10 + m11 * m11 + m12 * m12;
-    const float s_12 = m10 * m20 + m11 * m21 + m12 * m22;
-    const float s_22 = m20 * m20 + m21 * m21 + m22 * m22;
-    const float su0 = s_00 * u0 + s_01 * u1 + s_02 * u2;
-    const float su1 = s_01 * u0 + s_11 * u1 + s_12 * u2;
-    const float su2 = s_02 * u0 + s_12 * u1 + s_22 * u2;
-    const float sv0 = s_00 * v0 + s_01 * v1 + s_02 * v2;
-    const float sv1 = s_01 * v0 + s_11 * v1 + s_12 * v2;
-    const float sv2 = s_02 * v0 + s_12 * v1 + s_22 * v2;
-    const float cov_a = u0 * su0 + u1 * su1 + u2 * su2 + 0.3f;
-    const float cov_b = v0 * su0 + v1 * su1 + v2 * su2;
-    const float cov_c = v0 * sv0 + v1 * sv1 + v2 * sv2 + 0.3f;
-    const float det = cov_a * cov_c - cov_b * cov_b;
-    const bool det_ok = det > 0.f;
-    const float det_inv = 1.f / (det_ok ? det : 1.f);
-    const float mid = 0.5f * (cov_a + cov_c);
-    const float lam = mid + sqrtf(fmaxf(0.1f, mid * mid - det));
-    const bool vis0 = in_front && det_ok;
-    const float radius = vis0 ? ceilf(3.f * sqrtf(lam)) : 0.f;
-    const bool visible = vis0 && radius > 0.f;
+  float qr = o[r0], qx = o[r0 + 1], qy = o[r0 + 2], qz = o[r0 + 3];
+  const float norm = sqrtf(qr * qr + qx * qx + qy * qy + qz * qz) + 1e-12f;
+  qr /= norm; qx /= norm; qy /= norm; qz /= norm;
+  const float R00 = 1.f - 2.f * (qy * qy + qz * qz), R01 = 2.f * (qx * qy - qr * qz),
+              R02 = 2.f * (qx * qz + qr * qy);
+  const float R10 = 2.f * (qx * qy + qr * qz), R11 = 1.f - 2.f * (qx * qx + qz * qz),
+              R12 = 2.f * (qy * qz - qr * qx);
+  const float R20 = 2.f * (qx * qz - qr * qy), R21 = 2.f * (qy * qz + qr * qx),
+              R22 = 1.f - 2.f * (qx * qx + qy * qy);
+  const float sc0 = expf(o[s0]), sc1 = expf(o[s0 + 1]), sc2 = expf(o[s0 + 2]);
+  const float m00 = R00 * sc0, m01 = R01 * sc1, m02 = R02 * sc2;
+  const float m10 = R10 * sc0, m11 = R11 * sc1, m12 = R12 * sc2;
+  const float m20 = R20 * sc0, m21 = R21 * sc1, m22 = R22 * sc2;
+  const float s_00 = m00 * m00 + m01 * m01 + m02 * m02;
+  const float s_01 = m00 * m10 + m01 * m11 + m02 * m12;
+  const float s_02 = m00 * m20 + m01 * m21 + m02 * m22;
+  const float s_11 = m10 * m10 + m11 * m11 + m12 * m12;
+  const float s_12 = m10 * m20 + m11 * m21 + m12 * m22;
+  const float s_22 = m20 * m20 + m21 * m21 + m22 * m22;
+  const float su0 = s_00 * u0 + s_01 * u1 + s_02 * u2;
+  const float su1 = s_01 * u0 + s_11 * u1 + s_12 * u2;
+  const float su2 = s_02 * u0 + s_12 * u1 + s_22 * u2;
+  const float sv0 = s_00 * v0 + s_01 * v1 + s_02 * v2;
+  const float sv1 = s_01 * v0 + s_11 * v1 + s_12 * v2;
+  const float sv2 = s_02 * v0 + s_12 * v1 + s_22 * v2;
+  const float cov_a = u0 * su0 + u1 * su1 + u2 * su2 + 0.3f;
+  const float cov_b = v0 * su0 + v1 * su1 + v2 * su2;
+  const float cov_c = v0 * sv0 + v1 * sv1 + v2 * sv2 + 0.3f;
+  const float det = cov_a * cov_c - cov_b * cov_b;
+  const bool det_ok = det > 0.f;
+  const float det_inv = 1.f / (det_ok ? det : 1.f);
+  const float mid = 0.5f * (cov_a + cov_c);
+  const float lam = mid + sqrtf(fmaxf(0.1f, mid * mid - det));
+  const bool vis0 = in_front && det_ok;
+  const float radius = vis0 ? ceilf(3.f * sqrtf(lam)) : 0.f;
+  const bool visible = vis0 && radius > 0.f;
+
+  dst[(size_t)kPx * Mpad] = px;
+  dst[(size_t)kPy * Mpad] = py;
+  dst[(size_t)kCa * Mpad] = cov_c * det_inv;
+  dst[(size_t)kCb * Mpad] = -cov_b * det_inv;
+  dst[(size_t)kCc * Mpad] = cov_a * det_inv;
+  dst[(size_t)kOp * Mpad] = valid * (1.f / (1.f + expf(-o[op0])));
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    dst[(size_t)(kCol + k) * Mpad] = fmaxf(0.28209479177387814f * o[c0 + k] + 0.5f, 0.f);
+  dst[(size_t)kDepth * Mpad] = view_z;
+  dst[(size_t)kRad * Mpad] = radius * valid;
+  dst[(size_t)kVis * Mpad] = (visible ? 1.f : 0.f) * vis_mask;
+#pragma unroll
+  for (int r = kVis + 1; r < kNRows; ++r) dst[(size_t)r * Mpad] = 0.f;
+}
+
+// The decode kernels' tail (K2, K8, K9): the chain over X, then the
+// projection, written to out[(row) * Mpad + m0 + point] for the points
+// below Mpad. Cull: with valid_col (K2) visible, opac and radius_f are
+// multiplied by the staging's valid column; without it (K8, K9) only
+// visible is masked, by column < n_points, as the TPU kernel's
+// decode_project_pallas does.
+__device__ __forceinline__ void chain_project_tail(const DecodeSmem& s, const int* sMeta,
+                                                   const DecodeChain& cw,
+                                                   float* __restrict__ out, int Mpad, int m0,
+                                                   float scale_offset, bool valid_col,
+                                                   int n_points) {
+  chain_bf16(s, sMeta, cw, scale_offset);
+  const int tid = threadIdx.x, m = m0 + tid;
+  if (tid < kDecPts && m < Mpad) {
     const float valid = valid_col ? bf16f(s.X[tid * kXld + kValidCol]) : 1.f;
     const float vis_mask = valid_col ? valid : (m < n_points ? 1.f : 0.f);
-
-    dst[(size_t)kPx * Mpad] = px;
-    dst[(size_t)kPy * Mpad] = py;
-    dst[(size_t)kCa * Mpad] = cov_c * det_inv;
-    dst[(size_t)kCb * Mpad] = -cov_b * det_inv;
-    dst[(size_t)kCc * Mpad] = cov_a * det_inv;
-    dst[(size_t)kOp * Mpad] = valid * (1.f / (1.f + expf(-o[op0])));
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      dst[(size_t)(kCol + k) * Mpad] = fmaxf(0.28209479177387814f * o[c0 + k] + 0.5f, 0.f);
-    dst[(size_t)kDepth * Mpad] = view_z;
-    dst[(size_t)kRad * Mpad] = radius * valid;
-    dst[(size_t)kVis * Mpad] = (visible ? 1.f : 0.f) * vis_mask;
-#pragma unroll
-    for (int r = kVis + 1; r < kNRows; ++r) dst[(size_t)r * Mpad] = 0.f;
+    project_point(s.O16 + tid * kOutW, s.sCam, sMeta, valid, vis_mask, out + m, Mpad);
   }
 }
 

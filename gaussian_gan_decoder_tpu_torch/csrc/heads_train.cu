@@ -16,8 +16,10 @@
 // 128 points; warp w owns points 16 w .. 16 w + 15 for the whole chain, and
 // its activations never leave registers: the m16n8 accumulator of a layer,
 // after bias and GELU, IS the next layer's A fragments once the 8 k slots of
-// each k-step are assigned to the columns the thread holds (see fwd_stage).
-// The staging tile (f32, shared memory) feeds layer 1 and takes the head
+// each k-step are assigned to the columns the thread holds (see
+// chain_tf32.cuh, which holds this chain for K6 and the f32 decode tails,
+// csrc/decode_f32.cu). The staging tile (f32, shared memory) feeds layer 1
+// and takes the head
 // outputs. The weights are split once per call on the device
 // (split_weights_kernel) into TF32 (hi, lo) pairs, and stream by cp.async
 // (tf32.cuh) through a two-slot ring, 64 rows a slot, the next half layer
@@ -68,8 +70,7 @@
 // half of 64 points, W3 once); partial read-modify-write 64.5 KB -> 32 KB;
 // FLOPs the same, ~1.5e6 f32 (3 x K6's 5.12e5), now 4.6e6 TF32 on the
 // tensor cores. Bound: those FLOPs at a third of the 495 TFLOP/s TF32 rate.
-#include "chain.cuh"
-#include "tf32.cuh"
+#include "chain_tf32.cuh"
 
 namespace {
 
@@ -91,274 +92,41 @@ constexpr int kOffW4 = kOffB3 + kStage;
 constexpr int kOffB4 = kOffW4 + kStage * kOutW;
 constexpr int kHeadGrad = kOffB4 + kOutW;   // 51600 floats
 
-struct Chain {
-  const float *w1, *b1, *w2, *b2, *w3, *b3, *w4, *b4;
-};
-
-// transformed head output (meta kind: 1 scale, 2 xyz)
-__device__ __forceinline__ float transform(float o, int kind, int col, float scale_offset,
-                                           const float* xrow) {
-  if (kind == 1) return -ggd::softplus(o + 5.f) + scale_offset;
-  if (kind == 2) return o * 0.01f + (col < 3 ? xrow[kInitCol + col] : 0.f);
-  return o;
-}
+using Chain = ggd::ChainF32;
 
 // ---- K6: 128-point blocks, the chain in registers -------------------------
-// Fragment roles of mma.sync m16n8k8 (g = lane / 4, q = lane % 4): A holds
-// (row g, k slot q), (g + 8, q), (g, q + 4), (g + 8, q + 4); B (k slot q,
-// n slot g), (q + 4, g); C (g, n slots 2q, 2q + 1), (g + 8, 2q, 2q + 1).
-// A layer's 128 columns are 16 n-tiles: slot s of n-tile j is column
-// 16 (j >> 1) + 2 s + (j & 1), so a thread's C registers of n-tiles 2J and
-// 2J + 1 are columns 16 J + 4 q + {0, 1, 2, 3}. k-step (J, b) of the next
-// layer gives slot q column 16 J + 4 q + 2 b and slot q + 4 column
-// 16 J + 4 q + 2 b + 1: its A fragment is four of those C registers, after
-// bias and GELU, and its B fragments are weight rows 16 J + 4 q + 2 b and
-// + 1 at columns 16 J' + 2 g + {0, 1}: with each weight stored as its
-// (hi, lo) pair, one 16-byte load a row for n-tiles 2J' and 2J' + 1.
+// The chain is chain_tf32.cuh's chain_f32, which the f32 decode tails
+// (decode_f32.cu) share; K6 loads its staging rows, runs it and writes the
+// packed outputs.
 
-constexpr int kFwdPts = 128;   // K6 points per block: 8 warps x 16 rows
-constexpr int kXld = 144;      // f32 row stride of the staging tile: 128 staging
-                               // columns, then the 16 packed outputs; 144 = 16 (mod 32)
-                               // words puts the two rows of a 16-byte fragment load on
-                               // distinct banks
-constexpr int kOutCol = 128;   // the packed outputs in a staging tile row
-constexpr int kW4ld = 20;      // f32 row stride of K6's 128 x 16 layer-4 tile
-constexpr int kLayer = kStage * kStage;
-constexpr int kRow = 2 * kStage;       // floats of a split weight row: (hi, lo) per column
-constexpr int kSlot = 64 * kRow;       // floats of a ring slot: 64 split weight rows
-
-template <int kGelu>
-__device__ __forceinline__ float gelu_fwd(float x) {
-  return kGelu == 0 ? ggd::gelu_exact(x) : ggd::gelu(x, kGelu);
-}
-
-// v <- gelu(v + bias): C register e of n-tile 2 J + p is column
-// 16 J + 4 q + 2 (e & 1) + p
-template <int kGelu>
-__device__ __forceinline__ void bias_gelu(float (&v)[16][4], const float* bias) {
-  const int q = threadIdx.x & 3;
-#pragma unroll
-  for (int J = 0; J < 8; ++J) {
-    const float4 bv = *reinterpret_cast<const float4*>(bias + 16 * J + 4 * q);
-    const float bb[2][2] = {{bv.x, bv.z}, {bv.y, bv.w}};   // [p][e & 1]
-#pragma unroll
-    for (int p = 0; p < 2; ++p)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[2 * J + p][e] = gelu_fwd<kGelu>(v[2 * J + p][e] + bb[p][e & 1]);
-  }
-}
-
-// acc += A @ W over k-step pairs J in [kJ0, kJ1) of one ring stage
-// (kFromX: only those below nJ). A is the staging tile (kFromX: xr is this
-// thread's row g, row g + 8 at 8 kXld) or the previous layer's activations
-// act; slot holds weight rows 16 kJ0 .. 16 kJ1 - 1 as (hi, lo) pairs, row
-// k's words XOR-swizzled by bits 2-3 of k, which for this thread's rows
-// 16 J + 4 q + {0..3} is q.
-template <int kJ0, int kJ1, bool kFromX>
-__device__ __forceinline__ void fwd_stage(float (&acc)[16][4], const float (&act)[16][4],
-                                          const float* xr, const float* slot, int nJ) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int J = kJ0; J < kJ1; ++J) {
-    if (kFromX && J >= nJ) break;
-    float a[2][4];
-    if constexpr (kFromX) {
-      const float4 x0 = *reinterpret_cast<const float4*>(xr + 16 * J + 4 * q);
-      const float4 x8 = *reinterpret_cast<const float4*>(xr + 8 * kXld + 16 * J + 4 * q);
-      a[0][0] = x0.x; a[0][1] = x8.x; a[0][2] = x0.y; a[0][3] = x8.y;
-      a[1][0] = x0.z; a[1][1] = x8.z; a[1][2] = x0.w; a[1][3] = x8.w;
-    } else {
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        a[b][0] = act[2 * J][b];
-        a[b][1] = act[2 * J][2 + b];
-        a[b][2] = act[2 * J + 1][b];
-        a[b][3] = act[2 * J + 1][2 + b];
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      uint32_t ahi[4], alo[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ggd::split_tf32(a[b][e], ahi[e], alo[e]);
-      const float* r0 = slot + (16 * (J - kJ0) + 4 * q + 2 * b) * kRow;
-#pragma unroll
-      for (int Jn = 0; Jn < 8; ++Jn) {
-        // (hi, lo) of columns 16 Jn + 2 g and + 1, rows k and k + 1: b0 and
-        // b1 of n-tiles 2 Jn and 2 Jn + 1
-        const int n = (32 * Jn + 4 * g) ^ (q << 3);
-        const uint4 v0 = *reinterpret_cast<const uint4*>(r0 + n);
-        const uint4 v1 = *reinterpret_cast<const uint4*>(r0 + kRow + n);
-        ggd::mma_3xtf32(acc[2 * Jn], ahi, alo, v0.x, v1.x, v0.y, v1.y);
-        ggd::mma_3xtf32(acc[2 * Jn + 1], ahi, alo, v0.z, v1.z, v0.w, v1.w);
-      }
-    }
-  }
-}
-
-// o = act @ W4 (128 x 16): two n-tiles, slot s of n-tile p is column
-// 2 s + p, so C register e of n-tile p is column 4 q + 2 (e & 1) + p
-__device__ __forceinline__ void layer4(float (&o)[2][4], const float (&act)[16][4],
-                                       const float* W4) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[p][e] = 0.f;
-#pragma unroll
-  for (int J = 0; J < 8; ++J)
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const float a[4] = {act[2 * J][b], act[2 * J][2 + b], act[2 * J + 1][b],
-                          act[2 * J + 1][2 + b]};
-      uint32_t ahi[4], alo[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ggd::split_tf32(a[e], ahi[e], alo[e]);
-      const float* r0 = W4 + (16 * J + 4 * q + 2 * b) * kW4ld + 2 * g;
-      const float2 v0 = *reinterpret_cast<const float2*>(r0);
-      const float2 v1 = *reinterpret_cast<const float2*>(r0 + kW4ld);
-      uint32_t h[4], l[4];
-      ggd::split_tf32(v0.x, h[0], l[0]);
-      ggd::split_tf32(v1.x, h[1], l[1]);
-      ggd::split_tf32(v0.y, h[2], l[2]);
-      ggd::split_tf32(v1.y, h[3], l[3]);
-      ggd::mma_3xtf32(o[0], ahi, alo, h[0], h[1], l[0], l[1]);
-      ggd::mma_3xtf32(o[1], ahi, alo, h[2], h[3], l[2], l[3]);
-    }
-}
-
-// w1, w2, w3 -> their TF32 (hi, lo) pairs, wsplit[h][l][128][128][2], once
-// per call
-__global__ void split_weights_kernel(Chain cw, float* __restrict__ wsplit, int n_heads) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_heads * 3 * kLayer) return;
-  const int hl = i / kLayer, e = i % kLayer, l = hl % 3;
-  const float* w = l == 0 ? cw.w1 : (l == 1 ? cw.w2 : cw.w3);
-  uint32_t hi, lo;
-  ggd::split_tf32(w[(size_t)(hl / 3) * kLayer + e], hi, lo);
-  wsplit[(size_t)hl * 2 * kLayer + 2 * e] = __uint_as_float(hi);
-  wsplit[(size_t)hl * 2 * kLayer + 2 * e + 1] = __uint_as_float(lo);
-}
-
-// Stage st of the weight stream (two stages a layer, 64 split rows each,
-// layers w1 w2 w3 of head 0, 1, ...) goes to ring slot st & 1; each
-// ring_step waits for stage st, then starts stage st + 1, and at a head's
-// first stage that head's W4 (the barrier frees it: every warp is past
-// the last head's layer 4).
 template <int kGelu>
 __global__ void __launch_bounds__(kThreads, 1) heads_fwd_kernel(
     const float* __restrict__ staging, Chain cw, const float* __restrict__ wsplit,
     const int* __restrict__ meta, float* __restrict__ out, int Mpad, float scale_offset) {
   extern __shared__ __align__(16) float smem[];
-  float* X = smem;                        // kFwdPts x kXld staging tile + outputs
-  float* ring = X + kFwdPts * kXld;       // 2 x kSlot
-  float* W4 = ring + 2 * kSlot;           // kStage x kW4ld
-  float* sB = W4 + kStage * kW4ld;        // kMaxHeads x kBiasHead: b1 b2 b3 b4
+  const ggd::F32Smem s = ggd::f32_smem(smem);
   __shared__ int sMeta[32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, q = lane & 3;
-  const int m0 = blockIdx.x * kFwdPts;
-  const int n_rows = min(kFwdPts, Mpad - m0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.x * ggd::kF32Pts;
+  const int n_rows = min(ggd::kF32Pts, Mpad - m0);
   const int n_heads = meta[0];
-  const int n_stages = 6 * n_heads;
 
-  // k-step pairs of head h's layer 1: w1's rows past the head's staging
-  // prefix (meta stage column) are zero (ChainWeights), so they are neither
-  // copied nor multiplied
-  auto n_j1 = [&](int h) { return min(8, (__ldg(meta + 6 + h) + 15) / 16); };
-  auto fetch = [&](int st) {
-    const int hl = st / 2, part = st % 2;
-    const int n = min(64, (hl % 3 == 0 ? 16 * n_j1(hl / 3) : kStage) - 64 * part);
-    const float* w = wsplit + (size_t)hl * 2 * kLayer + part * kSlot;
-    if (n > 0) ggd::cp_rows<kRow, kRow, true, kThreads>(ring + (st & 1) * kSlot, w, n);
-  };
-  auto fetch_w4 = [&](int h) {
-    const float* src = cw.w4 + (size_t)h * kStage * kOutW;
-    for (int i = tid; i < kStage * kOutW / 4; i += kThreads)
-      ggd::cp_async16(W4 + (i >> 2) * kW4ld + (i & 3) * 4, src + i * 4);
-  };
-
-  // prologue: staging rows (zero past Mpad), stage 0 and head 0's W4 in
-  // flight; meta, biases and the zeroed output columns by plain stores
-  for (int i = tid; i < kFwdPts * 32; i += kThreads) {
+  // prologue: staging rows (zero past Mpad) in flight with stage 0 and head
+  // 0's W4; meta, biases and the zeroed output columns by plain stores
+  for (int i = tid; i < ggd::kF32Pts * 32; i += kThreads) {
     const int r = i >> 5, c = (i & 31) * 4;
     if (r < n_rows)
-      ggd::cp_async16(X + r * kXld + c, staging + (size_t)(m0 + r) * kStage + c);
+      ggd::cp_async16(s.X + r * ggd::kF32Ld + c, staging + (size_t)(m0 + r) * kStage + c);
     else
-      *reinterpret_cast<float4*>(X + r * kXld + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(s.X + r * ggd::kF32Ld + c) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  fetch(0);
-  fetch_w4(0);
-  ggd::cp_async_commit();
-  if (tid < 32) sMeta[tid] = meta[tid];
-  for (int i = tid; i < n_heads * kBiasHead; i += kThreads) {
-    const int h = i / kBiasHead, j = i % kBiasHead, l = j / kStage, c = j % kStage;
-    const float* b = l == 0 ? cw.b1 : (l == 1 ? cw.b2 : (l == 2 ? cw.b3 : cw.b4));
-    sB[i] = l < 3 ? b[h * kStage + c] : b[h * kOutW + c];
-  }
-  for (int i = tid; i < kFwdPts * 4; i += kThreads)
-    *reinterpret_cast<float4*>(X + (i >> 2) * kXld + kOutCol + (i & 3) * 4) =
-        make_float4(0.f, 0.f, 0.f, 0.f);
-
-  const float* xr = X + (16 * warp + g) * kXld;
-  int st = 0;
-  // wait for stage st and return its slot, the next copies started
-  auto advance = [&]() -> const float* {
-    ggd::ring_step([&] {
-      if (st + 1 < n_stages) fetch(st + 1);
-      if (st % 6 == 0 && st > 0) fetch_w4(st / 6);
-    });
-    return ring + (st++ & 1) * kSlot;
-  };
-  // act: the last layer's activations, acc the layer's sums
-  float act[16][4], acc[16][4];
-  for (int h = 0; h < n_heads; ++h) {
-    const float* bh = sB + h * kBiasHead;
-    for (int l = 0; l < 3; ++l) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-      const int nJ = l == 0 ? n_j1(h) : 8;
-      const float* slot = advance();
-      if (l == 0)
-        fwd_stage<0, 4, true>(acc, act, xr, slot, nJ);
-      else
-        fwd_stage<0, 4, false>(acc, act, xr, slot, nJ);
-      slot = advance();
-      if (l == 0)
-        fwd_stage<4, 8, true>(acc, act, xr, slot, nJ);
-      else
-        fwd_stage<4, 8, false>(acc, act, xr, slot, nJ);
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) act[j][e] = acc[j][e];
-      bias_gelu<kGelu>(act, bh + l * kStage);
-    }
-    // layer 4: head h's W4 landed with the wait of the stage after its fetch
-    float o[2][4];
-    layer4(o, act, W4);
-    const int od = sMeta[1 + h], sc = sMeta[6 + h], oc = sMeta[11 + h], kind = sMeta[16 + h];
-    const float* b4 = bh + 3 * kStage;
-#pragma unroll
-    for (int p = 0; p < 2; ++p)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 4 * q + 2 * (e & 1) + p;
-        float* xrow = X + (16 * warp + g + 8 * (e >> 1)) * kXld;
-        if (col < od) {
-          const float v = transform(o[p][e] + b4[col], kind, col, scale_offset, xrow);
-          xrow[kOutCol + oc + col] = v;
-          if (sc + od <= kStage) xrow[sc + col] = v;
-        }
-      }
-    __syncwarp();   // the warp's next layer 1 reads its own rows only
-  }
+  ggd::chain_f32_setup(s, sMeta, cw, wsplit, meta, n_heads);
+  ggd::chain_f32<kGelu>(s, sMeta, meta, cw, wsplit, n_heads, scale_offset, kGelu);
   for (int i = lane; i < 16 * 4; i += 32) {
     const int r = 16 * warp + (i >> 2), c = (i & 3) * 4;
     if (r < n_rows)
       *reinterpret_cast<float4*>(out + (size_t)(m0 + r) * kOutW + c) =
-          *reinterpret_cast<const float4*>(X + r * kXld + kOutCol + c);
+          *reinterpret_cast<const float4*>(s.X + r * ggd::kF32Ld + ggd::kF32OutCol + c);
   }
 }
 
@@ -786,16 +554,12 @@ extern "C" int ggd_heads_fwd(const void* staging, const void* w1, const void* b1
   for (const void* p : {staging, w1, b1, w2, b2, w3, b3, w4, b4, (const void*)out,
                         (const void*)wsplit})
     if (!ggd::aligned16(p)) return (int)cudaErrorMisalignedAddress;
-  const Chain cw{(const float*)w1, (const float*)b1, (const float*)w2, (const float*)b2,
-                 (const float*)w3, (const float*)b3, (const float*)w4, (const float*)b4};
+  const Chain cw = ggd::chain_f32_ptrs(w1, b1, w2, b2, w3, b3, w4, b4);
   const cudaStream_t s = (cudaStream_t)stream;
-  const int n = n_heads * 3 * kLayer;
-  split_weights_kernel<<<(n + 255) / 256, 256, 0, s>>>(cw, (float*)wsplit, n_heads);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = ggd::split_weights(cw, wsplit, n_heads, s);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = ((size_t)kFwdPts * kXld + 2 * kSlot + kStage * kW4ld +
-                       kMaxHeads * kBiasHead) * sizeof(float);
-  const dim3 grid((Mpad + kFwdPts - 1) / kFwdPts);
+  const size_t smem = ggd::kF32SmemBytes;
+  const dim3 grid((Mpad + ggd::kF32Pts - 1) / ggd::kF32Pts);
   auto launch = [&](auto kernel) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
@@ -829,8 +593,7 @@ extern "C" int ggd_heads_bwd(const void* staging, const void* out16, const void*
   cudaError_t e = cudaFuncSetAttribute(heads_bwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const Chain cw{(const float*)w1, (const float*)b1, (const float*)w2, (const float*)b2,
-                 (const float*)w3, (const float*)b3, (const float*)w4, (const float*)b4};
+  const Chain cw = ggd::chain_f32_ptrs(w1, b1, w2, b2, w3, b3, w4, b4);
   heads_bwd_kernel<<<n_part, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)staging, (const float*)out16, (const float*)dout, cw, (const int*)meta,
       (float*)dstage, (float*)partials, Mpad, scale_offset);

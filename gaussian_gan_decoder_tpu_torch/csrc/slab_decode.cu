@@ -20,15 +20,16 @@
 // Per block of 128 points, 256 threads (a ragged last block is masked):
 //   1. staging X (128 x 128, bf16) <- the static aux staging (cond, init,
 //      valid at column 123), while the first layer's weights arrive;
-//   2. features: 4 threads per point, 8 channels each; per plane the
-//      corner weights come from the slot position and the host's padded
-//      indices + validity bits (align_corners=False, zeros padding), then
-//      the scale row (the dequant scale with the 1/3 plane mean folded in,
-//      computed by the wrapper) and the plane sum; pad slots get 0; X[:, 0:32]
-//      <- bf16(mean). Every product and sum is rounded on its own (_rn
-//      intrinsics, no FMA contraction), in the plain version's order, so
-//      the features are the plain version's bit for bit (chip_smoke.py
-//      holds the rows against K8's on the plain features);
+//   2. features: 4 threads per point, 8 channels each (gather.cuh::
+//      slab_point_features); per plane the corner weights come from the slot
+//      position and the host's padded indices + validity bits
+//      (align_corners=False, zeros padding), then the scale row (the dequant
+//      scale with the 1/3 plane mean folded in, computed by the wrapper) and
+//      the plane sum; pad slots get 0; X[:, 0:32] <- bf16(mean). Every
+//      product and sum is rounded on its own (_rn intrinsics, no FMA
+//      contraction), in the plain version's order, so the features are the
+//      plain version's bit for bit (chip_smoke.py holds the rows against
+//      K8's on the plain features);
 //   3. the chain on the tensor cores: per head 3 x (128x128 linear + GELU,
 //      bf16-rounded) and a 128x16 linear as bf16 mma.sync with f32
 //      accumulators, each warp's 16 points kept in registers from layer to
@@ -44,6 +45,7 @@
 // from 7.8 KB (64-point blocks, f32 FMAs from shared memory, 21 ms a frame)
 // to 3.9 KB (128-point blocks, bf16 MMA).
 #include "chain.cuh"
+#include "gather.cuh"
 
 namespace {
 
@@ -51,8 +53,6 @@ using ggd::kDecPts;
 using ggd::kDecThreads;
 using ggd::kValidCol;
 using ggd::kXld;
-
-constexpr int kC = 32;
 
 template <bool kBilinear>
 __global__ void __launch_bounds__(kDecThreads) slab_decode_kernel(
@@ -75,66 +75,9 @@ __global__ void __launch_bounds__(kDecThreads) slab_decode_kernel(
   // 2. trilinear (bilinear) features, 4 threads per point x 8 channels
   for (int pt = tid >> 2; pt < n_rows; pt += kDecThreads / 4) {
     const int part = tid & 3;
-    const int m = m0 + pt;
-    const float bw = 2.f / box_warp;
-    const float g0 = bw * positions[m * 3 + 0];
-    const float g1 = bw * positions[m * 3 + 1];
-    const float g2 = bw * positions[m * 3 + 2];
-    const float sizes[3] = {(float)W, (float)H, (float)D};
     float acc[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[c] = 0.f;
-    for (int p = 0; p < 3; ++p) {
-      const float* inv = inv_axes + p * 9;
-      float proj[3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d)
-        proj[d] = __fadd_rn(__fadd_rn(__fmul_rn(g0, inv[0 * 3 + d]), __fmul_rn(g1, inv[1 * 3 + d])),
-                            __fmul_rn(g2, inv[2 * 3 + d]));
-      const int bits = idx16[m * 12 + 4 * p + 3];
-      int ip[3];
-      float wa[3], wb[3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        ip[d] = idx16[m * 12 + 4 * p + d];
-        if (kBilinear && d == 2) {
-          // depth 1: the single z layer weighs its validity bit (1 << 4)
-          wa[d] = (float)((bits >> 4) & 1);
-          wb[d] = 0.f;
-          continue;
-        }
-        const float x = __fsub_rn(__fmul_rn(__fadd_rn(proj[d], 1.f), sizes[d]), 1.f) * 0.5f;
-        const float w1f = x - ((float)ip[d] - 1.f);
-        wa[d] = (1.f - w1f) * (float)((bits >> (2 * d)) & 1);
-        wb[d] = w1f * (float)((bits >> (2 * d + 1)) & 1);
-      }
-      // memory safety only: valid packs never leave these bounds
-      const int ix = min(max(ip[0], 0), XP - 2);
-      const int iy = min(max(ip[1], 0), YP - 2);
-      const int iz = kBilinear ? 0 : min(max(ip[2], 0), DZ - 2);
-      float sum[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) sum[c] = 0.f;
-#pragma unroll
-      for (int dz = 0; dz < (kBilinear ? 1 : 2); ++dz) {
-#pragma unroll
-        for (int dy = 0; dy < 2; ++dy) {
-          const float wzy = (dz ? wb[2] : wa[2]) * (dy ? wb[1] : wa[1]);
-          const int8_t* row = vol + (((size_t)p * DZ + iz + dz) * YP + iy + dy) * (size_t)XP * kC;
-#pragma unroll
-          for (int dx = 0; dx < 2; ++dx) {
-            const float w = wzy * (dx ? wb[0] : wa[0]);
-            const int2 q2 = *reinterpret_cast<const int2*>(row + (ix + dx) * kC + part * 8);
-            const int8_t* q = reinterpret_cast<const int8_t*>(&q2);
-#pragma unroll
-            for (int c = 0; c < 8; ++c) sum[c] = __fadd_rn(sum[c], __fmul_rn(w, (float)q[c]));
-          }
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        acc[c] = __fadd_rn(acc[c], __fmul_rn(sum[c], scale_rows[p * kC + part * 8 + c]));
-    }
+    ggd::slab_point_features<kBilinear>(vol, scale_rows, positions, idx16, inv_axes, m0 + pt,
+                                        part, D, H, W, DZ, YP, XP, box_warp, acc);
     const bool valid = ggd::bf16f(s.X[pt * kXld + kValidCol]) > 0.f;
 #pragma unroll
     for (int c = 0; c < 8; ++c)

@@ -25,13 +25,19 @@ registers from layer to layer), the bf16 weights streamed through a
 two-slot shared-memory ring by cp.async, the projection tail fused.
 
 Numerics, shared by the kernel and decode_project_slab_plain, follow the
-TPU kernel's bf16 rounding points: the staging is bf16 — the plane-mean
-feature, the position conditioning, the chain outputs fed to later heads
-and the `init` position read by xyz = 0.01 o + init are all rounded to
-bf16 — weights are bf16, every hidden activation is rounded to bf16 before
-its product, accumulation is f32. First-layer weights are zero-padded to
-the 128 staging columns; head h reads the staging prefix. Rows 14-15 of the
-raw head block and rows 28-31 are written as zeros. Pad slots decode zero
+TPU kernel's rounding points at the chain's compute dtype. At bf16 (the
+flagship's heads_bf16) the staging is bf16 — the plane-mean feature, the
+position conditioning, the chain outputs fed to later heads and the `init`
+position read by xyz = 0.01 o + init are all rounded to bf16 — weights are
+bf16, every hidden activation is rounded to bf16 before its product,
+accumulation is f32. At f32 (the JAX GaussianDecoder's default) nothing is
+rounded: K2, K8 and K9 then run their f32 forms (csrc/decode_f32.cu, K6's
+3xTF32 chain before the same projection), chosen by the chain's dtype.
+First-layer weights are zero-padded to the 128 staging columns; head h
+reads the staging prefix, and writes its output back for later heads where
+stage_col + out_dim <= 128 (the parallel chain's stage columns are 128: it
+writes none). Rows 14-15 of the raw head block and rows 28-31 are written
+as zeros. Pad slots decode zero
 features and are culled through the staging's valid column (visible, opac
 and radius_f multiplied by it). The port reads the corners with f32
 weights, where the TPU kernel's (z,y) weights are int8-quantised. The
@@ -142,27 +148,36 @@ class ChainWeights(NamedTuple):
     meta: torch.Tensor  # (32,) int32 chain description for the kernel
     scale_offset: float
     gelu: str
+    n_in: Tuple[int, ...]   # each head's input width: the rows of w1 it reads
 
 
 def pack_chain_f32(heads: Dict[str, torch.nn.Module], chain_spec: Sequence[Tuple[str, int]],
-                   P: int, scale_offset: float, gelu: str) -> ChainWeights:
+                   P: int, scale_offset: float, gelu: str, parallel: bool = False) -> ChainWeights:
     """Head modules (name -> DecoderHead with backbone Linear layers at
     0, 2, 4, 6) -> f32 ChainWeights (the JAX package's _pack_chain with
     compute_dtype f32), built with differentiable ops: gradients of the
-    packed tensors flow back to the heads' parameters."""
+    packed tensors flow back to the heads' parameters. parallel (the
+    ParallelDecoder): every head reads the features and the position
+    conditioning only, and its stage column is STAGE, so that no output is
+    written back into the staging (the write-back guard)."""
     n_heads = len(chain_spec)
     assert n_heads <= 5, "the kernels' chain description holds 5 heads"
     assert 32 + P + sum(d for _, d in chain_spec) <= INIT_COL
     ws = {k: [] for k in ("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4")}
-    chain, layout = [], {}
+    chain, layout, widths = [], {}, []
     stage_col, out_col = 32 + P, 0
     for name, out_dim in chain_spec:
         seq = heads[name].backbone
         n_in = seq[0].weight.shape[1]
-        if n_in > stage_col:
-            # K6 multiplies the staging prefix only: w1's rows past it are zero
+        if seq[0].weight.shape[0] != STAGE:
+            raise ValueError(f"head {name!r} has hidden width {seq[0].weight.shape[0]}: the "
+                             f"packed chain and its kernels take {STAGE} (other widths run "
+                             "the plain chain, GaussianDecoder.decode_from_planes)")
+        prefix = 32 + P if parallel else stage_col
+        if n_in > prefix:
+            # the kernels multiply the staging prefix only: w1's rows past it are zero
             raise ValueError(f"head {name!r} takes {n_in} inputs, past its staging prefix "
-                             f"({stage_col} columns)")
+                             f"({prefix} columns)")
         ws["w1"].append(F.pad(seq[0].weight.t(), (0, 0, 0, STAGE - n_in)))
         ws["w2"].append(seq[2].weight.t())
         ws["w3"].append(seq[4].weight.t())
@@ -171,8 +186,9 @@ def pack_chain_f32(heads: Dict[str, torch.nn.Module], chain_spec: Sequence[Tuple
         ws["b2"].append(seq[2].bias)
         ws["b3"].append(seq[4].bias)
         ws["b4"].append(F.pad(seq[6].bias, (0, OUT_W - out_dim)))
-        chain.append((name, out_dim, stage_col, out_col))
+        chain.append((name, out_dim, STAGE if parallel else stage_col, out_col))
         layout[name] = (out_col, out_dim)
+        widths.append(n_in)
         stage_col += out_dim
         out_col += out_dim
     meta = [0] * 32
@@ -188,29 +204,48 @@ def pack_chain_f32(heads: Dict[str, torch.nn.Module], chain_spec: Sequence[Tuple
     return ChainWeights(st["w1"], st["b1"], st["w2"], st["b2"], st["w3"], st["b3"],
                         st["w4"], st["b4"], tuple(chain), layout,
                         torch.tensor(meta, dtype=torch.int32, device=dev),
-                        float(scale_offset), gelu)
+                        float(scale_offset), gelu, tuple(widths))
 
 
 @torch.no_grad()
 def pack_chain(heads: Dict[str, torch.nn.Module], chain_spec: Sequence[Tuple[str, int]],
-               P: int, scale_offset: float, gelu: str) -> ChainWeights:
-    """Head modules -> ChainWeights for K2: pack_chain_f32 with the weight
-    matrices in bf16. Call once per weight set, not per frame."""
-    cw = pack_chain_f32(heads, chain_spec, P, scale_offset, gelu)
+               P: int, scale_offset: float, gelu: str, parallel: bool = False,
+               dtype: torch.dtype = torch.bfloat16) -> ChainWeights:
+    """Head modules -> ChainWeights for the inference kernels: pack_chain_f32
+    with the weight matrices in `dtype` (bf16: K2/K8/K9 and K6's bf16 form;
+    f32: their f32 forms and K6). Call once per weight set, not per frame."""
+    cw = pack_chain_f32(heads, chain_spec, P, scale_offset, gelu, parallel)
+    if dtype == torch.float32:
+        return cw._replace(**{k: getattr(cw, k).detach().contiguous()
+                              for k in ("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4")})
+    if dtype != torch.bfloat16:
+        raise ValueError(f"chain dtype {dtype}: the kernels take bf16 or f32")
     bf = lambda w: w.to(torch.bfloat16).contiguous()  # noqa: E731
     return cw._replace(w1=bf(cw.w1), w2=bf(cw.w2), w3=bf(cw.w3), w4=bf(cw.w4))
 
 
-def build_staging(cond0, init_position, valid):
-    """Per-slot static staging (M, 128) in the compute dtype, bf16: feature
-    columns [0:32) zero (the kernel fills them), conditioning at [32:32+P),
-    init_position at [120:123), the valid mask at 123."""
+def chain_dtype(cw: ChainWeights) -> torch.dtype:
+    """The compute dtype of a packed chain: its weight matrices' (bf16 or
+    f32); the staging and the roundings follow it."""
+    return cw.w1.dtype
+
+
+def _round_to(x, dtype):
+    """x rounded to `dtype` where the JAX body holds it in the compute dtype
+    (the staging, the hidden activations): bf16, or nothing at f32."""
+    return _bf16r(x) if dtype == torch.bfloat16 else x
+
+
+def build_staging(cond0, init_position, valid, dtype: torch.dtype = torch.bfloat16):
+    """Per-slot static staging (M, 128) in the compute dtype (bf16 or f32):
+    feature columns [0:32) zero (the kernel fills them), conditioning at
+    [32:32+P), init_position at [120:123), the valid mask at 123."""
     M, P = cond0.shape
     st = torch.zeros((M, STAGE), dtype=torch.float32, device=cond0.device)
     st[:, 32:32 + P] = cond0.float()
     st[:, INIT_COL:INIT_COL + 3] = init_position.float()
     st[:, VALID_COL] = valid.float()
-    return st.to(torch.bfloat16).contiguous()
+    return st.to(dtype).contiguous()
 
 
 def slab_scale_rows(scales):
@@ -267,25 +302,10 @@ def slab_features_plain(vol, scales, positions, idx16, valid, inv_axes, box_warp
 
 
 def chain_project_plain(staging, cw: ChainWeights, cam):
-    """The 5-head chain + EWA projection over a bf16-valued f32 staging
-    (M, 128) -> rows (NROWS, M) f32 (before the valid cull)."""
-    x = staging.clone()
-    M = x.shape[0]
-    gelu = GELUS[cw.gelu]
-    o16 = torch.zeros((M, OUT_W), dtype=torch.float32, device=x.device)
-    init = x[:, INIT_COL:INIT_COL + 3]
-    for h, (name, out_dim, stage_col, out_col) in enumerate(cw.chain):
-        a = _bf16r(gelu(x @ cw.w1[h].float() + cw.b1[h]))
-        a = _bf16r(gelu(a @ cw.w2[h].float() + cw.b2[h]))
-        a = _bf16r(gelu(a @ cw.w3[h].float() + cw.b3[h]))
-        o = (a @ cw.w4[h].float() + cw.b4[h])[:, :out_dim]
-        if name == "scale":
-            o = -softplus(o + 5.0) + cw.scale_offset
-        elif name == "xyz":
-            o = o * 0.01 + init
-        x[:, stage_col:stage_col + out_dim] = _bf16r(o)
-        o16[:, out_col:out_col + out_dim] = o
-    return project_heads(o16, cw, cam)
+    """The 5-head chain + EWA projection over a staging (M, 128) whose values
+    are already in the chain's dtype (decode_heads_plain) -> rows (NROWS, M)
+    f32 (before the valid cull)."""
+    return project_heads(decode_heads_plain(staging, cw), cw, cam)
 
 
 def project_heads(o16, cw: ChainWeights, cam):
@@ -327,7 +347,7 @@ def decode_project_slab_plain(cw: ChainWeights, vol, scales, ctx, cam):
         valid = staging[:, VALID_COL].clone()
         fm = slab_features_plain(vol, scales, ctx.positions[sl], ctx.idx16[sl], valid,
                                  ctx.inv_axes, ctx.box_warp, ctx.sizes)
-        staging[:, 0:C] = _bf16r(fm)
+        staging[:, 0:C] = _round_to(fm, chain_dtype(cw))
         r = chain_project_plain(staging, cw, cam)
         _cull(r, valid)
         rows[:, sl] = r
@@ -340,7 +360,8 @@ def decode_project_slab_plain(cw: ChainWeights, vol, scales, ctx, cam):
 # ---------------------------------------------------------------------------
 # Kernel K8, brick_decode_kernel, replaces the TPU kernel
 # decoder/pallas_heads.py::decode_project_pallas: K2's chain-and-projection
-# tail (csrc/chain.cuh::chain_project_tail) over a prebuilt bf16 staging,
+# tail (csrc/chain.cuh::chain_project_tail) over a prebuilt bf16 staging (an
+# f32 staging and chain take the f32 form, csrc/decode_f32.cu),
 # each 128-point block loading its rows. Kernel K9, fused_decode_kernel,
 # replaces decode_project_pallas_fused: it builds the staging's feature
 # columns from the raw brick rows (dequant, corner lerp and plane mean in
@@ -361,32 +382,47 @@ DECODE_BLOCK = 1024   # the brick route's Mpad multiple (the JAX kernels' block)
 FUSED_FORMS = {CORNERS: torch.int8, 4: torch.bfloat16}
 
 
-def build_brick_staging(feats_mean, cond0, init_position, block: int = DECODE_BLOCK):
-    """The brick route's staging (the JAX package's _build_staging): bf16
-    (Mpad, 128), features [0:32), conditioning [32:32+P), zeros for the chain
-    columns, init_position at [120:123), pad slots zero rows; Mpad = M rounded
-    up to block. -> (staging, Mpad)."""
+def build_brick_staging(feats_mean, cond0, init_position, block: int = DECODE_BLOCK,
+                        dtype: torch.dtype = torch.bfloat16):
+    """The brick route's staging (the JAX package's _build_staging) in the
+    compute dtype (bf16 or f32): (Mpad, 128), features [0:32), conditioning
+    [32:32+P), zeros for the chain columns, init_position at [120:123), pad
+    slots zero rows; Mpad = M rounded up to block. -> (staging, Mpad)."""
     M = cond0.shape[0]
     Mpad = -(-M // block) * block
     st = build_staging_f32(feats_mean, cond0, init_position)
-    return F.pad(st, (0, 0, 0, Mpad - M)).to(torch.bfloat16).contiguous(), Mpad
+    return F.pad(st, (0, 0, 0, Mpad - M)).to(dtype).contiguous(), Mpad
 
 
-def _check_chain_bf16(cw: ChainWeights):
+def check_chain(cw: ChainWeights, dtype=None) -> torch.dtype:
+    """Raise unless cw is a packed chain the kernels take: weight matrices
+    all bf16 or all f32 (of `dtype` when given), f32 biases, the int32
+    chain description, all contiguous CUDA tensors. -> the chain's dtype."""
     H_ = cw.w1.shape[0]
+    dt = chain_dtype(cw) if dtype is None else dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"chain dtype {dt}: the kernels take bf16 or f32 weights")
     chk = kernel_lib.check
     for name in ("w1", "w2", "w3"):
-        chk(getattr(cw, name), name, torch.bfloat16, (H_, STAGE, STAGE))
-    chk(cw.w4, "w4", torch.bfloat16, (H_, STAGE, OUT_W))
+        chk(getattr(cw, name), name, dt, (H_, STAGE, STAGE))
+    chk(cw.w4, "w4", dt, (H_, STAGE, OUT_W))
     for name in ("b1", "b2", "b3"):
         chk(getattr(cw, name), name, torch.float32, (H_, STAGE))
     chk(cw.b4, "b4", torch.float32, (H_, OUT_W))
     chk(cw.meta, "meta", torch.int32, (32,))
+    return dt
 
 
 def _chain_ptrs(cw: ChainWeights, cam_c):
     return [t.data_ptr() for t in (cw.w1, cw.b1, cw.w2, cw.b2, cw.w3, cw.b3, cw.w4, cw.b4,
                                    cam_c, cw.meta)]
+
+
+def _split_scratch(cw: ChainWeights) -> torch.Tensor:
+    """The f32 kernels' scratch for w1..w3 split into TF32 (hi, lo) pairs,
+    made by a small kernel at every call (2 MB for 5 heads)."""
+    return torch.empty((cw.w1.shape[0], 3, STAGE, STAGE, 2), dtype=torch.float32,
+                       device=cw.w1.device)
 
 
 def _check_brick_args(Mpad: int, n_points: int):
@@ -409,26 +445,38 @@ def decode_project_plain(cw: ChainWeights, staging, cam, n_points: int):
 
 
 def decode_project(cw: ChainWeights, staging: torch.Tensor, cam, n_points: int) -> torch.Tensor:
-    """Heads + projection over a prebuilt staging (build_brick_staging) ->
-    rows (NROWS, Mpad) f32 in point order; columns >= n_points are pad and
-    not visible. CPU tensors take the plain version, CUDA tensors K8."""
+    """Heads + projection over a prebuilt staging (build_brick_staging in the
+    chain's dtype) -> rows (NROWS, Mpad) f32 in point order; columns >=
+    n_points are pad and not visible. CPU tensors take the plain version,
+    CUDA tensors K8 in the chain's form: bf16 (brick_decode_kernel, counted
+    in decode_project.launches) or f32 (decode_f32.cu, 3xTF32, counted in
+    decode_project.launches_f32)."""
     if not kernel_lib.use_kernel(staging, cw.w1):
         return decode_project_plain(cw, staging, cam, n_points)
     lib = kernel_lib.library()
     Mpad = staging.shape[0]
     _check_brick_args(Mpad, n_points)
-    kernel_lib.check(staging, "staging", torch.bfloat16, (Mpad, STAGE))
-    _check_chain_bf16(cw)
+    dt = check_chain(cw)
+    kernel_lib.check(staging, "staging", dt, (Mpad, STAGE))
     rows = torch.empty((NROWS, Mpad), dtype=torch.float32, device=staging.device)
     ptrs = _chain_ptrs(cw, _cam_consts(cam, staging.device))
-    code = lib.ggd_brick_decode(staging.data_ptr(), *ptrs, rows.data_ptr(), Mpad, n_points,
-                                cw.scale_offset, kernel_lib.stream())
-    kernel_lib.raise_on_error(code, "brick_decode_kernel")
-    decode_project.launches += 1
+    if dt == torch.bfloat16:
+        code = lib.ggd_brick_decode(staging.data_ptr(), *ptrs, rows.data_ptr(), Mpad, n_points,
+                                    cw.scale_offset, kernel_lib.stream())
+        kernel_lib.raise_on_error(code, "brick_decode_kernel")
+        decode_project.launches += 1
+        return rows
+    wsplit = _split_scratch(cw)
+    code = lib.ggd_brick_decode_f32(staging.data_ptr(), *ptrs, wsplit.data_ptr(),
+                                    rows.data_ptr(), Mpad, n_points, cw.w1.shape[0],
+                                    _GELU_IDS[cw.gelu], cw.scale_offset, kernel_lib.stream())
+    kernel_lib.raise_on_error(code, "brick_decode_f32_kernel")
+    decode_project.launches_f32 += 1
     return rows
 
 
 decode_project.launches = 0
+decode_project.launches_f32 = 0
 
 
 def fused_features_plain(rows, wts, scale_rows):
@@ -454,8 +502,8 @@ def decode_project_fused_plain(cw: ChainWeights, aux, rows, wts, scale_rows, cam
     for m0 in range(0, Mpad, PLAIN_CHUNK):
         sl = slice(m0, min(Mpad, m0 + PLAIN_CHUNK))
         staging = aux[sl].float()
-        staging[:, 0:C] = _bf16r(fused_features_plain([r[sl] for r in rows], wts[:, sl],
-                                                      scale_rows))
+        staging[:, 0:C] = _round_to(fused_features_plain([r[sl] for r in rows], wts[:, sl],
+                                                         scale_rows), chain_dtype(cw))
         out[:, sl] = chain_project_plain(staging, cw, cam)
     out[PROJ_ROWS["visible"], n_points:] = 0.0
     return out
@@ -464,11 +512,12 @@ def decode_project_fused_plain(cw: ChainWeights, aux, rows, wts, scale_rows, cam
 def decode_project_fused(cw: ChainWeights, aux: torch.Tensor, rows, wts: torch.Tensor,
                          scale_rows: torch.Tensor, cam, n_points: int) -> torch.Tensor:
     """Gather-fused heads + projection (inputs from renderer.
-    sample_fused_inputs; aux = build_brick_staging with zero features) ->
-    rows (NROWS, Mpad) f32 in point order, the contract of decode_project.
-    rows: 3 planes of int8 (Mpad, 8*32) tri-grid rows, or bf16 (Mpad,
-    4*32) tri-plane rows. CPU tensors take the plain version, CUDA tensors
-    K9 in the matching form."""
+    sample_fused_inputs; aux = build_brick_staging with zero features, in
+    the chain's dtype) -> rows (NROWS, Mpad) f32 in point order, the
+    contract of decode_project. rows: 3 planes of int8 (Mpad, 8*32)
+    tri-grid rows, or bf16 (Mpad, 4*32) tri-plane rows. CPU tensors take the
+    plain version, CUDA tensors K9 in the matching form, bf16 (counted in
+    decode_project_fused.launches) or f32 (launches_f32)."""
     if len(rows) != 3:
         raise ValueError("the fused decode takes 3 planes")
     if not kernel_lib.use_kernel(aux, wts, cw.w1, *rows):
@@ -476,7 +525,8 @@ def decode_project_fused(cw: ChainWeights, aux: torch.Tensor, rows, wts: torch.T
     lib = kernel_lib.library()
     Mpad = aux.shape[0]
     _check_brick_args(Mpad, n_points)
-    kernel_lib.check(aux, "aux", torch.bfloat16, (Mpad, STAGE))
+    dt = check_chain(cw)
+    kernel_lib.check(aux, "aux", dt, (Mpad, STAGE))
     K = rows[0].shape[1] // C
     if K not in FUSED_FORMS:
         raise ValueError(f"rows {tuple(rows[0].shape)}: expected {sorted(FUSED_FORMS)} corners "
@@ -487,18 +537,27 @@ def decode_project_fused(cw: ChainWeights, aux: torch.Tensor, rows, wts: torch.T
     if wts.shape[0] < 3 * K or wts.shape[1] != Mpad:
         raise ValueError(f"wts {tuple(wts.shape)}: expected (>= {3 * K}, {Mpad})")
     kernel_lib.check(scale_rows, "scale_rows", torch.float32, (3, C))
-    _check_chain_bf16(cw)
     out = torch.empty((NROWS, Mpad), dtype=torch.float32, device=aux.device)
+    inputs = [aux.data_ptr(), *[r.data_ptr() for r in rows], wts.data_ptr(),
+              scale_rows.data_ptr()]
     ptrs = _chain_ptrs(cw, _cam_consts(cam, aux.device))
-    code = lib.ggd_fused_decode(aux.data_ptr(), *[r.data_ptr() for r in rows], wts.data_ptr(),
-                                scale_rows.data_ptr(), *ptrs, out.data_ptr(), Mpad, n_points, K,
-                                cw.scale_offset, kernel_lib.stream())
-    kernel_lib.raise_on_error(code, "fused_decode_kernel")
-    decode_project_fused.launches += 1
+    if dt == torch.bfloat16:
+        code = lib.ggd_fused_decode(*inputs, *ptrs, out.data_ptr(), Mpad, n_points, K,
+                                    cw.scale_offset, kernel_lib.stream())
+        kernel_lib.raise_on_error(code, "fused_decode_kernel")
+        decode_project_fused.launches += 1
+        return out
+    wsplit = _split_scratch(cw)
+    code = lib.ggd_fused_decode_f32(*inputs, *ptrs, wsplit.data_ptr(), out.data_ptr(), Mpad,
+                                    n_points, K, cw.w1.shape[0], _GELU_IDS[cw.gelu],
+                                    cw.scale_offset, kernel_lib.stream())
+    kernel_lib.raise_on_error(code, "fused_decode_f32_kernel")
+    decode_project_fused.launches_f32 += 1
     return out
 
 
 decode_project_fused.launches = 0
+decode_project_fused.launches_f32 = 0
 
 
 def _cam_consts(cam, device):
@@ -514,9 +573,11 @@ def decode_project_slab(cw: ChainWeights, vol: torch.Tensor, scales: torch.Tenso
                         ctx, cam) -> torch.Tensor:
     """Fused slab decode + heads + projection -> rows (NROWS, Mpad) f32 in
     the context's slot order. vol (3, DZ, YP, XP*32) int8 and scales (3, 32)
-    f32 from build_slab_volume; ctx from GaussianDecoder.make_slab_context.
-    A depth-1 context (sizes[0] == 1, DZ == 1) takes K2's bilinear form.
-    CPU tensors take the plain version, CUDA tensors the kernel."""
+    f32 from build_slab_volume; ctx from GaussianDecoder.make_slab_context
+    (its aux in the chain's dtype). A depth-1 context (sizes[0] == 1, DZ ==
+    1) takes K2's bilinear form. CPU tensors take the plain version, CUDA
+    tensors the kernel: bf16 (counted in decode_project_slab.launches) or
+    f32 (decode_f32.cu, launches_f32)."""
     if not kernel_lib.use_kernel(vol, ctx.aux, cw.w1):
         return decode_project_slab_plain(cw, vol, scales, ctx, cam)
     lib = kernel_lib.library()
@@ -528,34 +589,46 @@ def decode_project_slab(cw: ChainWeights, vol: torch.Tensor, scales: torch.Tenso
                          f"{1 if D == 1 else D + 2} z layers for depth {D}")
     if Mpad <= 0:
         raise ValueError(f"Mpad {Mpad}: nothing to decode")
+    dt = check_chain(cw)
     chk = kernel_lib.check
     chk(vol, "vol", torch.int8)
     chk(scales, "scales", torch.float32, (3, C))
     chk(ctx.positions, "positions", torch.float32, (Mpad, 3))
     chk(ctx.idx16, "idx16", torch.int16, (Mpad, 12))
-    chk(ctx.aux, "aux", torch.bfloat16, (Mpad, STAGE))
+    chk(ctx.aux, "aux", dt, (Mpad, STAGE))
     chk(ctx.inv_axes, "inv_axes", torch.float32, (3, 3, 3))
-    _check_chain_bf16(cw)
     rows = torch.empty((NROWS, Mpad), dtype=torch.float32, device=vol.device)
     scale_rows = slab_scale_rows(scales)   # held until the launch is queued
     ptrs = [t.data_ptr() for t in (vol, scale_rows, ctx.positions, ctx.idx16, ctx.aux,
                                    ctx.inv_axes)]
-    ptrs += _chain_ptrs(cw, _cam_consts(cam, vol.device)) + [rows.data_ptr()]
-    code = lib.ggd_slab_decode(*ptrs, Mpad, D, H, W, DZ, YP, XPC // C, ctx.box_warp,
-                               cw.scale_offset, kernel_lib.stream())
-    kernel_lib.raise_on_error(code, "slab_decode_kernel")
-    decode_project_slab.launches += 1
+    ptrs += _chain_ptrs(cw, _cam_consts(cam, vol.device))
+    geometry = (Mpad, D, H, W, DZ, YP, XPC // C)
+    if dt == torch.bfloat16:
+        code = lib.ggd_slab_decode(*ptrs, rows.data_ptr(), *geometry, ctx.box_warp,
+                                   cw.scale_offset, kernel_lib.stream())
+        kernel_lib.raise_on_error(code, "slab_decode_kernel")
+        decode_project_slab.launches += 1
+        return rows
+    wsplit = _split_scratch(cw)
+    code = lib.ggd_slab_decode_f32(*ptrs, wsplit.data_ptr(), rows.data_ptr(), *geometry,
+                                   cw.w1.shape[0], _GELU_IDS[cw.gelu], ctx.box_warp,
+                                   cw.scale_offset, kernel_lib.stream())
+    kernel_lib.raise_on_error(code, "slab_decode_f32_kernel")
+    decode_project_slab.launches_f32 += 1
     return rows
 
 
 decode_project_slab.launches = 0
+decode_project_slab.launches_f32 = 0
 
 
 # ---------------------------------------------------------------------------
 # training chain, f32: K6 forward (csrc/heads_train.cu)
 # ---------------------------------------------------------------------------
 # Kernel K6, csrc/heads_train.cu::heads_fwd_kernel, replaces the TPU kernel
-# decoder/pallas_heads.py::decode_heads_pallas (_heads_kernel) in f32. What
+# decoder/pallas_heads.py::decode_heads_pallas (_heads_kernel) in f32 (its
+# bf16 form, csrc/heads_bf16.cu, runs the decode tails' bf16 chain alone for
+# decode_packed and the bf16 inference decode_from_planes). What
 # bounds it on the H100: operations, ~5.1e5 FLOPs per point, whose least
 # time at f32 accuracy is 3xTF32 on the tensor cores (each f32 operand split
 # into TF32 high and low parts, three mma.sync products): 1.16 ms for the
@@ -593,62 +666,64 @@ def _transform(o, name, cw: ChainWeights, init):
 
 
 def decode_heads_plain(staging, cw: ChainWeights):
-    """Plain PyTorch version of K6: the f32 chain over a (M, 128) staging ->
-    (M, 16) packed transformed head outputs. Written without in-place
-    updates, so torch autograd differentiates it too."""
-    x = staging
+    """Plain PyTorch version of K6 in either form: the chain over a (M, 128)
+    staging -> (M, 16) packed transformed head outputs, f32. At bf16 (a bf16
+    chain, pack_chain) it rounds where the JAX body does at that dtype: the
+    staging (the caller's), each hidden activation, and each output written
+    back for later heads; at f32 nowhere. The write-back is guarded
+    (stage_col + out_dim <= STAGE: the parallel chain writes none). Written
+    without in-place updates, so torch autograd differentiates it too."""
+    dt = chain_dtype(cw)
+    x = staging.float()
     cols = [None] * OUT_W
-    init = staging[:, INIT_COL:INIT_COL + 3]
+    init = x[:, INIT_COL:INIT_COL + 3]
     gelu = GELUS[cw.gelu]
     for h, (name, od, sc, oc) in enumerate(cw.chain):
-        a = gelu(x @ cw.w1[h] + cw.b1[h])
-        a = gelu(a @ cw.w2[h] + cw.b2[h])
-        a = gelu(a @ cw.w3[h] + cw.b3[h])
-        o = _transform((a @ cw.w4[h] + cw.b4[h])[:, :od], name, cw, init[:, :od])
+        a = _round_to(gelu(x @ cw.w1[h].float() + cw.b1[h]), dt)
+        a = _round_to(gelu(a @ cw.w2[h].float() + cw.b2[h]), dt)
+        a = _round_to(gelu(a @ cw.w3[h].float() + cw.b3[h]), dt)
+        o = _transform((a @ cw.w4[h].float() + cw.b4[h])[:, :od], name, cw, init[:, :od])
         if sc + od <= STAGE:
-            x = torch.cat([x[:, :sc], o, x[:, sc + od:]], dim=1)
+            x = torch.cat([x[:, :sc], _round_to(o, dt), x[:, sc + od:]], dim=1)
         for j in range(od):
             cols[oc + j] = o[:, j]
-    zero = torch.zeros_like(staging[:, 0])
+    zero = torch.zeros_like(x[:, 0])
     return torch.stack([zero if c is None else c for c in cols], dim=1)
 
 
-def check_chain_f32(cw: ChainWeights):
-    H_ = cw.w1.shape[0]
-    chk = kernel_lib.check
-    for name in ("w1", "w2", "w3"):
-        chk(getattr(cw, name), name, torch.float32, (H_, STAGE, STAGE))
-    chk(cw.w4, "w4", torch.float32, (H_, STAGE, OUT_W))
-    for name in ("b1", "b2", "b3"):
-        chk(getattr(cw, name), name, torch.float32, (H_, STAGE))
-    chk(cw.b4, "b4", torch.float32, (H_, OUT_W))
-    chk(cw.meta, "meta", torch.int32, (32,))
-
-
 def decode_heads(staging: torch.Tensor, cw: ChainWeights) -> torch.Tensor:
-    """The f32 training chain -> (Mpad, 16) packed transformed outputs.
-    staging (Mpad, 128) f32, Mpad > 0; cw from pack_chain_f32. CPU tensors
-    take the plain version, CUDA tensors kernel K6 (after a small kernel
-    that splits w1..w3 into TF32 (hi, lo) pairs, 2 MB of scratch)."""
+    """The chain alone -> (Mpad, 16) packed transformed outputs, f32.
+    staging (Mpad, 128) in the chain's dtype, Mpad > 0. CPU tensors take the
+    plain version; CUDA tensors K6 in the chain's form: f32 (pack_chain_f32;
+    3xTF32, after a small kernel that splits w1..w3 into TF32 (hi, lo)
+    pairs, 2 MB of scratch; counted in decode_heads.launches) or bf16
+    (pack_chain; heads_bf16.cu, counted in decode_heads.launches_bf16)."""
     if not kernel_lib.use_kernel(staging, cw.w1):
         return decode_heads_plain(staging, cw)
     lib = kernel_lib.library()
     Mpad = staging.shape[0]
     if Mpad <= 0:
         raise ValueError(f"Mpad {Mpad}: no points")
-    kernel_lib.check(staging, "staging", torch.float32, (Mpad, STAGE))
-    check_chain_f32(cw)
-    H_ = cw.w1.shape[0]
+    dt = check_chain(cw)
+    kernel_lib.check(staging, "staging", dt, (Mpad, STAGE))
     out = torch.empty((Mpad, OUT_W), dtype=torch.float32, device=staging.device)
-    wsplit = torch.empty((H_, 3, STAGE, STAGE, 2), dtype=torch.float32, device=staging.device)
+    weights = [getattr(cw, n).data_ptr() for n in
+               ("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4")]
+    if dt == torch.bfloat16:
+        code = lib.ggd_heads_fwd_bf16(staging.data_ptr(), *weights, cw.meta.data_ptr(),
+                                      out.data_ptr(), Mpad, cw.scale_offset,
+                                      kernel_lib.stream())
+        kernel_lib.raise_on_error(code, "heads_bf16_kernel")
+        decode_heads.launches_bf16 += 1
+        return out
+    wsplit = _split_scratch(cw)
     code = lib.ggd_heads_fwd(
-        staging.data_ptr(), *[getattr(cw, n).data_ptr() for n in
-                              ("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4")],
-        cw.meta.data_ptr(), out.data_ptr(), wsplit.data_ptr(), Mpad, H_, _GELU_IDS[cw.gelu],
-        cw.scale_offset, kernel_lib.stream())
+        staging.data_ptr(), *weights, cw.meta.data_ptr(), out.data_ptr(), wsplit.data_ptr(),
+        Mpad, cw.w1.shape[0], _GELU_IDS[cw.gelu], cw.scale_offset, kernel_lib.stream())
     kernel_lib.raise_on_error(code, "heads_fwd_kernel")
     decode_heads.launches += 1
     return out
 
 
 decode_heads.launches = 0
+decode_heads.launches_bf16 = 0

@@ -28,7 +28,7 @@ import torch
 from .. import kernel_lib
 from .pallas_heads import (
     GELUS, INIT_COL, OUT_W, STAGE, ChainWeights, _erf,
-    build_staging_f32, check_chain_f32, decode_heads, pack_chain_f32)
+    build_staging_f32, check_chain, decode_heads, pack_chain_f32)
 
 BWD_TILE = 64          # K7 points per tile; a ragged last tile is masked in the kernel
 BWD_BLOCKS = 132       # K7 blocks = weight-gradient partial slices (fixed: deterministic)
@@ -115,7 +115,7 @@ def decode_heads_bwd(staging: torch.Tensor, out16: torch.Tensor, dout: torch.Ten
     chk(staging, "staging", torch.float32, (Mpad, STAGE))
     chk(out16, "out16", torch.float32, (Mpad, OUT_W))
     chk(dout, "dout", torch.float32, (Mpad, OUT_W))
-    check_chain_f32(cw)
+    check_chain(cw, torch.float32)
     dev = staging.device
     n_part = min(BWD_BLOCKS, -(-Mpad // BWD_TILE))
     dstage = torch.empty_like(staging)
@@ -160,12 +160,13 @@ def decode_heads_pallas_diff(heads: Dict[str, torch.nn.Module],
                              chain_spec: Sequence[Tuple[str, int]],
                              feats_mean: torch.Tensor, cond0: torch.Tensor,
                              init_position: torch.Tensor, scale_offset: float,
-                             gelu: str = "exact") -> torch.Tensor:
+                             gelu: str = "exact", parallel: bool = False) -> torch.Tensor:
     """Differentiable fused head chain -> (M, 16) packed TRANSFORMED outputs
     (columns as ChainWeights.layout). Gradients reach the heads' parameters,
-    feats_mean, cond0 and init_position."""
-    cw = pack_chain_f32(heads, chain_spec, cond0.shape[1], scale_offset, gelu)
+    feats_mean, cond0 and init_position. parallel: the ParallelDecoder's
+    chain (pack_chain_f32), whose heads read no earlier head's output."""
+    cw = pack_chain_f32(heads, chain_spec, cond0.shape[1], scale_offset, gelu, parallel)
     staging = build_staging_f32(feats_mean, cond0, init_position)
-    spec = (cw.chain, cw.layout, cw.meta, cw.scale_offset, cw.gelu)
+    spec = (cw.chain, cw.layout, cw.meta, cw.scale_offset, cw.gelu, cw.n_in)
     return _HeadsChain.apply(staging, cw.w1, cw.b1, cw.w2, cw.b2, cw.w3, cw.b3, cw.w4,
                              cw.b4, spec)

@@ -51,16 +51,16 @@ def flagship_generator(variant: str = "panohead", img_resolution: int = 512,
 
 def flagship_decoder(gen: Optional[TriPlaneGenerator] = None,
                      rng: Optional[torch.Generator] = None, device="cuda",
-                     fused_sampling: bool = False) -> GaussianDecoder:
+                     fused_sampling: bool = False, gelu: str = "poly") -> GaussianDecoder:
     """The JAX package's flagship decoder: sequential_reversed heads (hidden
-    128), the fused mapping, polynomial GELU ("poly"), bf16 chain, int8
-    bricks; fused_sampling takes the gather-fused decode (K9) on the brick
-    route. The slab route runs the coarser "poly6" GELU, as the JAX
-    benchmark sets it: GaussianDecoder(gen, gelu="poly6")."""
+    128), the fused mapping, polynomial GELU ("poly"), bf16 chain
+    (heads_bf16, pallas_heads), int8 bricks; fused_sampling takes the
+    gather-fused decode (K9) on the brick route. The slab route runs the
+    coarser "poly6" GELU, as the JAX benchmark sets it: gelu="poly6"."""
     dev = resolve_device(device)
     return GaussianDecoder(gen or flagship_generator(rng=rng, device=dev),
-                           gelu="poly", rng=rng, device=dev,
-                           fused_sampling=fused_sampling)
+                           gelu=gelu, rng=rng, device=dev, fused_sampling=fused_sampling,
+                           heads_bf16=True, pallas_heads=True)
 
 
 def flagship_raster_config() -> RasterizeConfig:

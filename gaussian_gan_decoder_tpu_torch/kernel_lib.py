@@ -55,6 +55,12 @@ _SIGNATURES = {
     # brick_decode.cu
     "ggd_brick_decode": [_P] * 12 + [_I, _I, _F, _P],
     "ggd_fused_decode": [_P] * 17 + [_I, _I, _I, _F, _P],
+    # decode_f32.cu
+    "ggd_brick_decode_f32": [_P] * 13 + [_I] * 4 + [_F, _P],
+    "ggd_fused_decode_f32": [_P] * 18 + [_I] * 5 + [_F, _P],
+    "ggd_slab_decode_f32": [_P] * 18 + [_I] * 9 + [_F, _F, _P],
+    # heads_bf16.cu
+    "ggd_heads_fwd_bf16": [_P] * 11 + [_I, _F, _P],
 }
 
 

@@ -30,7 +30,6 @@ from ..decoder.heads import CHAIN, HIDDEN, GaussianDecoder, GaussianDecoderConfi
 from ..models.triplane import TriPlaneGenerator, TriPlaneGeneratorConfig, _frozen_items
 from .from_jax import load_decoder_state, load_generator_state
 
-ROADMAP_A4 = "ROADMAP.md queue A item A4"
 # static FIR constants: config, not weights, in both packages
 _FILTER_SUFFIXES = ("resample_filter", "up_filter", "down_filter")
 
@@ -178,9 +177,14 @@ def load_decoder_pkl(path_or_file, key: str = "decoder", device="cuda"
     """Reference decoder snapshot (main/load_decoder.py:28-34: the 'decoder'
     entry, a persistence-wrapped decoder embedding its fine-tuned G) ->
     (GaussianDecoder with its weights on `device`, the reference-named
-    state dict: heads + `G.` + generator). The port runs the reference's
-    default decoder (sequential_reversed, hidden 128, exact GELU, no xyz
-    embedding); any other raises (ROADMAP A4)."""
+    state dict: heads + `G.` + generator). Every decoder class of the
+    reference loads (SequentialDecoderReverse, SequentialDecoder,
+    ParallelDecoder), at its hidden width and with or without the xyz
+    embedding; a pickle that records no use_xyz_embedding reads as True,
+    the reference constructor's default, as the JAX loader reads it. The
+    heads keep the reference's exact GELU and the JAX decoder's default
+    options (f32 heads, the plain chain in apply); the weights load
+    strictly."""
     data = (path_or_file if isinstance(path_or_file, (dict, PersistentStub))
             else load_reference_pickle(path_or_file))
     d = data[key] if isinstance(data, dict) else data
@@ -191,13 +195,14 @@ def load_decoder_pkl(path_or_file, key: str = "decoder", device="cuda"
         raise ValueError("the decoder snapshot has no G module")
     kw = dict(d.init_kwargs)
     decoder_type = _DECODER_TYPES.get(d.class_name.rsplit(".", 1)[-1])
+    if decoder_type is None:
+        raise ValueError(f"unknown decoder class {d.class_name}: expected one of "
+                         f"{sorted(_DECODER_TYPES)}")
     hidden = int(d.state.get("hidden_dim", kw.get("hidden_dim", HIDDEN)))
     xyz_embedding = bool(d.state.get("use_xyz_embedding", kw.get("use_xyz_embedding", True)))
-    if decoder_type != "sequential_reversed" or hidden != HIDDEN or xyz_embedding:
-        raise NotImplementedError(
-            f"decoder {d.class_name} (hidden {hidden}, xyz embedding {xyz_embedding}): the port "
-            f"runs sequential_reversed, hidden {HIDDEN}, no xyz embedding ({ROADMAP_A4})")
-    cfg = GaussianDecoderConfig(generator_config_from_pickle(g_stub), gelu="exact")
+    cfg = GaussianDecoderConfig(generator_config_from_pickle(g_stub), gelu="exact",
+                                decoder_type=decoder_type, hidden_dim=hidden,
+                                use_xyz_embedding=xyz_embedding)
     decoder = GaussianDecoder.from_config(cfg, device=device)
     state = {k: v for k, v in extract_state(d).items() if k.startswith("G.") or _is_head(k)}
     load_decoder_state(decoder, state)

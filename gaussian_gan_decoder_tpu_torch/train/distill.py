@@ -49,7 +49,8 @@ class DistillConfig:
     use_gen_finetune: bool = True
     # use_gen_finetune=False only: decode from the frozen target's planes
     # instead of re-synthesising on the (identical, frozen) copy; False if
-    # the copy may have diverged from the frozen generator
+    # the copy may have diverged from the frozen generator. Never for the
+    # 'sequential' decoder, whose mapping sees the real camera
     reuse_frozen_planes: bool = True
 
 
@@ -113,8 +114,11 @@ def make_loss_fn(decoder: GaussianDecoder, frozen_generator, vgg: VGG16LPIPS,
         mark = stage_timer or (lambda name: None)
         target = sample_target(draws, frozen_generator, z, iteration=iteration, cfg=target_cfg)
         mark("target")
-        if cfg.reuse_frozen_planes and not cfg.use_gen_finetune:
-            # the frozen copy equals the frozen generator: reuse its planes
+        if (cfg.reuse_frozen_planes and not cfg.use_gen_finetune
+                and decoder.decoder_type != "sequential"):
+            # the frozen copy equals the frozen generator and maps the zeroed
+            # camera, as the target pipeline does: reuse its planes. The
+            # 'sequential' decoder maps the real camera, so its planes differ
             decoded = decoder.decode_from_planes(target.feature_planes, target.vertices)
         else:
             decoded = decoder.apply(target.z, target.gan_camera_params, target.vertices,

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Where K6 (csrc/heads_train.cu::heads_fwd_kernel) spends its time, on one
-NVIDIA GPU.
+"""Where K6 (csrc/heads_train.cu::heads_fwd_kernel, its chain in
+csrc/chain_tf32.cuh) spends its time, on one NVIDIA GPU.
 
     python3 scripts/k6_ablation.py
 
-Builds heads_train.cu as it is and in variants that each change one part
-of K6 (their outputs are wrong on purpose where a part is switched off),
-one nvcc per variant, all started together, into
+Builds heads_train.cu as it is and with variants of chain_tf32.cuh that
+each change one part of K6 (their outputs are wrong on purpose where a part
+is switched off), one nvcc per variant, all started together, into
 gaussian_gan_decoder_tpu_torch/_build/ablation6/. Then times each
 variant's K6 (the weight split included) by CUDA events on the train
 step's shape: 500,000 points, the exact-GELU 5-head chain of the decoder,
@@ -37,52 +37,54 @@ POINTS = 500_000
 
 
 def variants(src: str):
-    mma = ("        ggd::mma_3xtf32(acc[2 * Jn], ahi, alo, v0.x, v1.x, v0.y, v1.y);\n"
-           "        ggd::mma_3xtf32(acc[2 * Jn + 1], ahi, alo, v0.z, v1.z, v0.w, v1.w);\n")
-    one = ("        ggd::mma_tf32(acc[2 * Jn], ahi, v0.x, v1.x);\n"
-           "        ggd::mma_tf32(acc[2 * Jn + 1], ahi, v0.z, v1.z);\n")
+    """(name, text of chain_tf32.cuh) for each variant of K6's chain."""
+    mma = ("        mma_3xtf32(acc[2 * Jn], ahi, alo, v0.x, v1.x, v0.y, v1.y);\n"
+           "        mma_3xtf32(acc[2 * Jn + 1], ahi, alo, v0.z, v1.z, v0.w, v1.w);\n")
+    one = ("        mma_tf32(acc[2 * Jn], ahi, v0.x, v1.x);\n"
+           "        mma_tf32(acc[2 * Jn + 1], ahi, v0.z, v1.z);\n")
     none = ("        acc[2 * Jn][0] += __uint_as_float(ahi[0] ^ alo[1] ^ v0.x ^ v1.y);\n"
             "        acc[2 * Jn + 1][0] += __uint_as_float(ahi[2] ^ alo[3] ^ v0.z ^ v1.w);\n")
     pairs = ("        const int n = (32 * Jn + 4 * g) ^ (q << 3);\n"
              "        const uint4 v0 = *reinterpret_cast<const uint4*>(r0 + n);\n"
-             "        const uint4 v1 = *reinterpret_cast<const uint4*>(r0 + kRow + n);\n")
+             "        const uint4 v1 = *reinterpret_cast<const uint4*>(r0 + kSplitRow + n);\n")
     split = ("        const int n = (16 * Jn + 2 * g) ^ (q << 3);\n"
              "        const float2 wa = *reinterpret_cast<const float2*>(r0 + n);\n"
              "        const float2 wb = *reinterpret_cast<const float2*>(r0 + kStage + n);\n"
              "        uint4 v0, v1;\n"
-             "        ggd::split_tf32(wa.x, v0.x, v0.y);\n"
-             "        ggd::split_tf32(wa.y, v0.z, v0.w);\n"
-             "        ggd::split_tf32(wb.x, v1.x, v1.y);\n"
-             "        ggd::split_tf32(wb.y, v1.z, v1.w);\n")
+             "        split_tf32(wa.x, v0.x, v0.y);\n"
+             "        split_tf32(wa.y, v0.z, v0.w);\n"
+             "        split_tf32(wb.x, v1.x, v1.y);\n"
+             "        split_tf32(wb.y, v1.z, v1.w);\n")
     prep = ("  wsplit[(size_t)hl * 2 * kLayer + 2 * e] = __uint_as_float(hi);\n"
             "  wsplit[(size_t)hl * 2 * kLayer + 2 * e + 1] = __uint_as_float(lo);")
     raw = ("  wsplit[(size_t)hl * 2 * kLayer + e] = w[(size_t)(hl / 3) * kLayer + e];\n"
            "  (void)lo;")
-    fetch = ("    const float* w = wsplit + (size_t)hl * 2 * kLayer + part * kSlot;\n"
-             "    if (n > 0) ggd::cp_rows<kRow, kRow, true, kThreads>(ring + (st & 1) * kSlot, w, n);")
-    fetch_raw = ("    const float* w = wsplit + (size_t)hl * 2 * kLayer + part * 64 * kStage;\n"
-                 "    if (n > 0) ggd::cp_rows<kStage, kStage, true, kThreads>(ring + (st & 1) * kSlot, "
-                 "w, n);")
-    row = "      const float* r0 = slot + (16 * (J - kJ0) + 4 * q + 2 * b) * kRow;"
-    gelu = "  return kGelu == 0 ? ggd::gelu_exact(x) : ggd::gelu(x, kGelu);"
-    l1 = "auto n_j1 = [&](int h) { return min(8, (__ldg(meta + 6 + h) + 15) / 16); };"
+    fetch = ("  const float* w = wsplit + (size_t)hl * 2 * kLayer + part * kSplitSlot;\n"
+             "  if (n > 0) cp_rows<kSplitRow, kSplitRow, true, kF32Threads>(s.ring + (st & 1) * "
+             "kSplitSlot, w, n);")
+    fetch_raw = ("  const float* w = wsplit + (size_t)hl * 2 * kLayer + part * 64 * kStage;\n"
+                 "  if (n > 0) cp_rows<kStage, kStage, true, kF32Threads>(s.ring + (st & 1) * "
+                 "kSplitSlot, w, n);")
+    row = "      const float* r0 = slot + (16 * (J - kJ0) + 4 * q + 2 * b) * kSplitRow;"
+    gelu = "  return kGelu == 0 ? gelu_exact(x) : gelu(x, kGelu);"
+    l1 = "  return min(8, (__ldg(meta + 6 + h) + 15) / 16);"
     edits = {
         "base": [],
         # the warps split the raw f32 weights as they read them: the prep
         # kernel copies w1..w3 unsplit, the ring carries half the bytes
-        "warp_split": [(prep, raw), (fetch, fetch_raw), (row, row.replace("kRow;", "kStage;")),
-                       (pairs, split)],
+        "warp_split": [(prep, raw), (fetch, fetch_raw),
+                       (row, row.replace("kSplitRow;", "kStage;")), (pairs, split)],
         "no_gelu": [(gelu, "  return x;")],
         "one_mma": [(mma, one)],
         "no_mma": [(mma, none)],
-        "full_l1": [(l1, "auto n_j1 = [&](int h) { return 8 + 0 * h; };")],
+        "full_l1": [(l1, "  return 8 + 0 * h + 0 * meta[0];")],
         "no_stream": [(fetch, fetch.replace("if (n > 0)", "if (n > 0 && st < 2)"))],
     }
     for name, subs in edits.items():
         s = src
         for a, b in subs:
             if a not in s:
-                raise RuntimeError(f"variant {name}: heads_train.cu no longer has {a!r}")
+                raise RuntimeError(f"variant {name}: chain_tf32.cuh no longer has {a!r}")
             s = s.replace(a, b)
         yield name, s
 
@@ -100,12 +102,18 @@ def main() -> int:
 
     out_dir = kernel_lib.BUILD_DIR / "ablation6"
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = (kernel_lib.CSRC / "heads_train.cu").read_text()
+    # K6's chain is chain_tf32.cuh's: each variant is a copy of that header
+    # beside heads_train.cu in a directory of its own, which the quoted
+    # include finds before csrc/
+    src = (kernel_lib.CSRC / "chain_tf32.cuh").read_text()
     nvcc = kernel_lib._nvcc()
     jobs = []
     for name, text in variants(src):
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
+        vdir = out_dir / name
+        vdir.mkdir(exist_ok=True)
+        (vdir / "chain_tf32.cuh").write_text(text)
+        cu = vdir / "heads_train.cu"
+        cu.write_text((kernel_lib.CSRC / "heads_train.cu").read_text())
         jobs.append((name, subprocess.Popen(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
              "-Xcompiler", "-fPIC", "-shared", "-I", str(kernel_lib.CSRC),

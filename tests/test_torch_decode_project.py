@@ -52,7 +52,7 @@ def setup():
               pallas_heads=True, heads_bf16=True, gelu="poly")
     params = head_params(jd, 1)
     td = GaussianDecoder(TriPlaneGenerator(rendering_kwargs={"triplane_size": TS}, **GEN_KW),
-                         gelu="poly")
+                         gelu="poly", pallas_heads=True, heads_bf16=True)
     sd = dict(decoder_state_dict(jd, params))
     sd.update({f"G.{k}": v for k, v in td.G.state_dict().items()})
     load_decoder_state(td, sd)

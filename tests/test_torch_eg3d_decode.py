@@ -63,7 +63,7 @@ def eg3d():
               pallas_heads=True, heads_bf16=True, gelu="poly", slab_sampling=True)
     params = head_params(jd, 3)
     td = GaussianDecoder(TriPlaneGenerator(variant="eg3d", rendering_kwargs=RK, **GEN_KW),
-                         gelu="poly")
+                         gelu="poly", pallas_heads=True, heads_bf16=True)
     sd = dict(decoder_state_dict(jd, params))
     sd.update({f"G.{k}": v for k, v in td.G.state_dict().items()})
     load_decoder_state(td, sd)
@@ -201,7 +201,8 @@ def test_k9_triplane_matches_jax(eg3d):
     jdf = dataclasses.replace(s["jd"], slab_sampling=False, fused_sampling=True,
                               fused_lerp="bcast")
     jrows, _ = jdf.decode_project(s["params"], jnp.asarray(s["planes"]), pos, s["jcam"])
-    dec = GaussianDecoder(s["td"].G, gelu="poly", fused_sampling=True)
+    dec = GaussianDecoder(s["td"].G, gelu="poly", fused_sampling=True, pallas_heads=True,
+                          heads_bf16=True)
     dec.load_state_dict(s["td"].state_dict())
     drows, _ = dec.decode_project(dec.fold(), torch.tensor(s["planes"]), s["cam"],
                                   init_position=tpos)

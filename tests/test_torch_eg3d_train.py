@@ -161,7 +161,9 @@ def _decoders(jg, gparams, tg, gelu, seed, **jkw):
     jd = JDec(generator=jg, decoder_type="sequential_reversed", gelu=gelu, **jkw)
     params = dict(head_params(jd, seed), G=gparams)
     sd = decoder_state_dict(jd, params)
-    td = GaussianDecoder(copy.deepcopy(tg), gelu=gelu)
+    td = GaussianDecoder(copy.deepcopy(tg), gelu=gelu,
+                         **{k: jkw.get(k, False)
+                            for k in ("heads_bf16", "pallas_heads", "pallas_heads_train")})
     load_decoder_state(td, sd)
     return jd, params, td, sd
 
@@ -196,7 +198,8 @@ def test_eg3d_frame_matches_jax(frame_models, route):
         backend="pallas", return_aux=True, slab_ctx=jctx))(params, jnp.asarray(z))
     assert int(jaux["n_dropped"]) == 0
 
-    dec = GaussianDecoder(td.G, gelu="poly", fused_sampling=route == "fused")
+    dec = GaussianDecoder(td.G, gelu="poly", fused_sampling=route == "fused",
+                          pallas_heads=True, heads_bf16=True)
     dec.load_state_dict(td.state_dict())
     tcp, tc2w = flagship.default_camera_params(device="cpu")
     ctx = dec.make_slab_context(pos, block=BLOCK) if route == "slab" else None

@@ -62,7 +62,8 @@ def models():
     params = jax.jit(init)()
     sd = decoder_state_dict(jd, params)
     td = GaussianDecoder(TriPlaneGenerator(rendering_kwargs={"triplane_size": TS},
-                                          without_sr=True, **GEN_KW))
+                                          without_sr=True, **GEN_KW),
+                         pallas_heads=True, heads_bf16=True)
     load_decoder_state(td, sd)
     return jd, params, td, sd
 
@@ -113,7 +114,8 @@ def test_decode_and_render_matches_jax(models):
 
 def _brick_decoder(td, gelu, fused):
     """A port decoder with td's weights on the brick route."""
-    dec = GaussianDecoder(td.G, gelu=gelu, fused_sampling=fused)
+    dec = GaussianDecoder(td.G, gelu=gelu, fused_sampling=fused, pallas_heads=True,
+                          heads_bf16=True)
     dec.load_state_dict(td.state_dict())
     return dec
 
@@ -268,7 +270,7 @@ def _launches():
 def _wrapper_calls():
     """One call of each kernel wrapper at tiny shapes, on the CPU."""
     gen = TriPlaneGenerator(rendering_kwargs={"triplane_size": TS}, without_sr=True, **GEN_KW)
-    dec = GaussianDecoder(gen, rng=torch.Generator().manual_seed(0))
+    dec = GaussianDecoder(gen, rng=torch.Generator().manual_seed(0), heads_bf16=True)
     w = dec.fold()
     ctx = dec.make_slab_context(((np.random.RandomState(1).rand(300, 3) - 0.5) * 0.4)
                                 .astype(np.float32), block=BLOCK)

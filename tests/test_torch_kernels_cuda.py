@@ -71,7 +71,7 @@ def _small_frame(cuda, block=256):
     gen = TriPlaneGenerator(z_dim=32, c_dim=25, w_dim=32, img_resolution=64,
                             channel_base=512, channel_max=32,
                             rendering_kwargs={"triplane_size": 32}, generator=g)
-    dec = GaussianDecoder(gen, rng=g).to(cuda)
+    dec = GaussianDecoder(gen, rng=g, pallas_heads=True, heads_bf16=True).to(cuda)
     pos = ((np.random.RandomState(1).rand(3000, 3) - 0.5) * 0.4).astype(np.float32)
     ctx = dec.make_slab_context(pos, block=block, device=cuda)
     cam = make_camera(64, 0.227, flagship.default_camera_params()[1], device=cuda)
@@ -135,7 +135,8 @@ def _small_brick(cuda):
     gen = TriPlaneGenerator(z_dim=32, c_dim=25, w_dim=32, img_resolution=64,
                             channel_base=512, channel_max=32,
                             rendering_kwargs={"triplane_size": 32}, generator=g)
-    dec = GaussianDecoder(gen, gelu="poly", rng=g).to(cuda)
+    dec = GaussianDecoder(gen, gelu="poly", rng=g, pallas_heads=True,
+                          heads_bf16=True).to(cuda)
     pos = torch.tensor(((np.random.RandomState(3).rand(3000, 3) - 0.5) * 0.5)
                        .astype(np.float32), device=cuda)
     cam = make_camera(64, 0.227, flagship.default_camera_params()[1], device=cuda)
@@ -176,7 +177,8 @@ def _small_eg3d(cuda, block=256):
     gen = TriPlaneGenerator(z_dim=32, c_dim=25, w_dim=32, img_resolution=64, variant="eg3d",
                             channel_base=512, channel_max=32, without_sr=True,
                             rendering_kwargs={"triplane_size": 32}, generator=g)
-    dec = GaussianDecoder(gen, gelu="poly", rng=g).to(cuda)
+    dec = GaussianDecoder(gen, gelu="poly", rng=g, pallas_heads=True,
+                          heads_bf16=True).to(cuda)
     pos_np = ((np.random.RandomState(5).rand(3000, 3) - 0.5) * 0.4).astype(np.float32)
     pos_np[:100] *= 3.0
     ctx = dec.make_slab_context(pos_np, block=block, device=cuda)
@@ -441,3 +443,170 @@ def _train_chain(cuda, M, gelu):
         cw = pallas_heads.pack_chain_f32(heads, CHAIN, 3, -2.5, gelu)
         st = pallas_heads.build_staging_f32(feats, pos, pos)
     return cw, st
+
+
+# ---- the decoder's other types and options: the f32 decode tails (K2, K8,
+# K9 at f32), K6's bf16 form, and the parallel chain's write-back guard ----
+
+def _hold_f32_rows(rows, ref, real, chain, cam):
+    """An f32 decode kernel's rows (3xTF32 chain, csrc/decode_f32.cu)
+    against its plain version's: f32 up to the chain's summation order, so
+    the raw head rows 0:14 and the continuous screen rows within 1e-4 of
+    each row's scale on the real columns (conic_b, the near-cancelling
+    off-diagonal, within 1e-3 of its own); radius within one pixel, exact
+    on 0.999 of the points; every screen row the plain projection of the
+    kernel's own head rows at 1e-4; visibility agreement >= 0.999; rows
+    14:16 and 28: zero; pad columns not visible."""
+    pr = pallas_heads.PROJ_ROWS
+    cb = pr["conic_b"]
+    err = (rows - ref)[:, real].abs().amax(dim=1) / ref[:, real].abs().amax(dim=1).clamp(min=1e-3)
+    screen = [r for r in range(16, 26) if r != cb]
+    assert float(err[:14].max()) <= 1e-4, err[:14].tolist()
+    assert float(err[screen].max()) <= 1e-4, err[screen].tolist()
+    assert float(err[cb]) <= 1e-3
+    proj = pallas_heads.project_heads(rows[:16].t(), chain, cam)
+    perr = ((rows - proj)[16:26][:, real].abs().amax(dim=1)
+            / proj[16:26][:, real].abs().amax(dim=1).clamp(min=1e-3))
+    assert float(perr[[r - 16 for r in screen]].max()) <= 1e-4
+    rad = (rows - ref)[pr["radius_f"], real].abs()
+    assert float(rad.max()) <= 1.0 and float((rad == 0).float().mean()) >= 0.999
+    vis = pr["visible"]
+    assert float(((rows[vis] > 0.5) == (ref[vis] > 0.5))[real].float().mean()) >= 0.999
+    assert bool(torch.isfinite(rows).all())
+    assert not bool(rows[14:16].any()) and not bool(rows[28:].any())
+    assert not bool((rows[vis, ~real] > 0.5).any())
+
+
+# (decoder_type, use_xyz_embedding, heads_bf16): the options' decoders. The
+# first is D-par (the JAX GaussianDecoder's default dtype), the second holds
+# the bf16 tails' write-back guard on the parallel chain (stage column 128)
+OPTION_DECODERS = [("parallel", True, False), ("parallel", True, True),
+                   ("sequential", False, True), ("sequential", True, False)]
+
+
+def _option_frame(cuda, decoder_type, emb, bf16, variant="panohead", block=256):
+    """A decoder of the given options on a small generator (32^2 tri-grid of
+    depth 3, or an EG3D tri-plane), seeded heads with the exact GELU, a
+    3000-point template with its slab context, a camera and seeded planes."""
+    g = torch.Generator().manual_seed(6)
+    depth = 3 if variant == "panohead" else 1
+    gen = TriPlaneGenerator(z_dim=32, c_dim=25, w_dim=32, img_resolution=64, variant=variant,
+                            channel_base=512, channel_max=32, without_sr=variant == "eg3d",
+                            rendering_kwargs={"triplane_size": 32}, generator=g)
+    dec = GaussianDecoder(gen, gelu="exact", rng=g, decoder_type=decoder_type,
+                          use_xyz_embedding=emb, heads_bf16=bf16).to(cuda)
+    pos_np = ((np.random.RandomState(7).rand(3000, 3) - 0.5) * 0.4).astype(np.float32)
+    ctx = dec.make_slab_context(pos_np, block=block, device=cuda)
+    cam = make_camera(64, 0.227, flagship.default_camera_params(device=cuda)[1], device=cuda)
+    planes = torch.randn(1, 3, 32 * depth, 32, 32, generator=g).to(cuda)
+    return dec, dec.fold().chain, torch.tensor(pos_np, device=cuda), ctx, cam, planes
+
+
+def _route_rows(dec, cw, pos, ctx, cam, planes, route, kernel):
+    """One route's decode with its kernel (kernel=True) or its plain version
+    -> (rows, real-column mask, the wrapper)."""
+    ph = pallas_heads
+    D = dec.G.triplane_depth
+    dt = ph.chain_dtype(cw)
+    M = pos.shape[0]
+    if route == "slab":
+        vol, scales = build_slab_volume(planes, D)
+        fn = ph.decode_project_slab if kernel else ph.decode_project_slab_plain
+        return fn(cw, vol, scales, ctx, cam), ctx.valid > 0, ph.decode_project_slab
+    table = build_plane_table(planes, D, brick_dtype=torch.int8 if D > 1 else torch.bfloat16)
+    cond = dec.cond0(pos)
+    if route == "table":
+        feats = sample_from_planes(dec.G.plane_axes, planes, pos[None], 1.0, D, table=table)[0]
+        staging, Mpad = ph.build_brick_staging(feats.mean(0), cond, pos, dtype=dt)
+        fn = ph.decode_project if kernel else ph.decode_project_plain
+        return (fn(cw, staging, cam, M), torch.arange(Mpad, device=pos.device) < M,
+                ph.decode_project)
+    aux, Mpad = ph.build_brick_staging(pos.new_zeros((M, 32)), cond, pos, dtype=dt)
+    rows_in, wts, scale_rows = sample_fused_inputs(dec.G.plane_axes, planes, pos[None], 1.0, D,
+                                                   table=table, pad_to=Mpad)
+    fn = ph.decode_project_fused if kernel else ph.decode_project_fused_plain
+    return (fn(cw, aux, rows_in, wts, scale_rows, cam, M),
+            torch.arange(Mpad, device=pos.device) < M, ph.decode_project_fused)
+
+
+@pytest.mark.parametrize("route", ["slab", "table", "fused"])
+def test_decode_kernels_decoder_options(cuda, route):
+    """K2 / K8 / K9 on each option decoder against their plain versions: the
+    f32 forms (csrc/decode_f32.cu) with _hold_f32_rows, the bf16 forms with
+    K2's limits (the parallel chain's rows hold its write-back guard, whose
+    columns 128-130 the bf16 tile's padding would hide); each launch counted
+    on its own form."""
+    for decoder_type, emb, bf16 in OPTION_DECODERS:
+        dec, cw, pos, ctx, cam, planes = _option_frame(cuda, decoder_type, emb, bf16)
+        assert pallas_heads.chain_dtype(cw) == (torch.bfloat16 if bf16 else torch.float32)
+        if decoder_type == "parallel":
+            assert all(sc == pallas_heads.STAGE for _, _, sc, _ in cw.chain)
+        _, _, wrapper = _route_rows(dec, cw, pos, ctx, cam, planes, route, False)
+        attr = "launches" if bf16 else "launches_f32"
+        before = getattr(wrapper, attr)
+        rows, real, _ = _route_rows(dec, cw, pos, ctx, cam, planes, route, True)
+        assert getattr(wrapper, attr) == before + 1
+        ref, _, _ = _route_rows(dec, cw, pos, ctx, cam, planes, route, False)
+        torch.cuda.synchronize()
+        (_hold_decode_rows if bf16 else _hold_f32_rows)(rows, ref, real, cw, cam)
+
+
+def test_decode_f32_triplane_kernels(cuda):
+    """The f32 forms of K2's bilinear form and K9's tri-plane form (4 bf16
+    corners) on an EG3D tri-plane, D-par's options, against their plain
+    versions (_hold_f32_rows); a 64-slot slab block leaves a ragged last
+    128-point block."""
+    dec, cw, pos, ctx, cam, planes = _option_frame(cuda, "parallel", True, False, "eg3d", 64)
+    for route in ("slab", "fused"):
+        rows, real, _ = _route_rows(dec, cw, pos, ctx, cam, planes, route, True)
+        ref, _, _ = _route_rows(dec, cw, pos, ctx, cam, planes, route, False)
+        torch.cuda.synchronize()
+        _hold_f32_rows(rows, ref, real, cw, cam)
+
+
+def test_heads_bf16_kernel(cuda):
+    """K6's bf16 form (csrc/heads_bf16.cu) against decode_heads_plain on a
+    bf16 chain, for every decoder type with and without the xyz embedding,
+    on a ragged 1000-point staging: each output column within 1e-2 of its
+    scale (K2's limit: bf16 flips of the chain's summation order); the
+    columns past the chain's 14 zero."""
+    for decoder_type in ("sequential_reversed", "sequential", "parallel"):
+        for emb in (False, True):
+            dec, cw, pos, _, _, planes = _option_frame(cuda, decoder_type, emb, True)
+            feats = torch.randn(pos.shape[0], 32, generator=torch.Generator().manual_seed(8))
+            staging, _ = pallas_heads.build_brick_staging(
+                feats.to(cuda), dec.cond0(pos), pos, block=1000, dtype=torch.bfloat16)
+            before = pallas_heads.decode_heads.launches_bf16
+            out = pallas_heads.decode_heads(staging, cw)
+            assert pallas_heads.decode_heads.launches_bf16 == before + 1
+            ref = pallas_heads.decode_heads_plain(staging, cw)
+            torch.cuda.synchronize()
+            err = (out - ref)[:, :14].abs().amax(dim=0) / ref[:, :14].abs().amax(dim=0)
+            assert float(err.max()) <= 1e-2, (decoder_type, emb, err.tolist())
+            assert not bool(out[:, 14:].any())
+
+
+def test_heads_train_kernels_parallel_embedding(cuda):
+    """K6 and K7 on the parallel chain with the xyz embedding (P = 63: the
+    heads read 95 staging columns, none written back) against their plain
+    versions at the limits of test_heads_train_kernels."""
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads_vjp
+
+    dec, _, pos, _, _, _ = _option_frame(cuda, "parallel", True, False)
+    M = pos.shape[0]
+    g = torch.Generator().manual_seed(9)
+    feats = (torch.randn(M, 32, generator=g) * 2).to(cuda)
+    with torch.no_grad():
+        cw = pallas_heads.pack_chain_f32(dec.heads(), dec.chain_spec, dec.position_dim,
+                                         dec.scale_offset, "exact", parallel=True)
+        st = pallas_heads.build_staging_f32(feats, dec.cond0(pos), pos)
+        out = pallas_heads.decode_heads(st, cw)
+        ref = pallas_heads.decode_heads_plain(st, cw)
+        dout = torch.randn(M, 16, generator=g).to(cuda)
+        dst, grads = pallas_heads_vjp.decode_heads_bwd(st, out, dout, cw)
+        dst_p, grads_p = pallas_heads_vjp.decode_heads_bwd_plain(st, ref, dout, cw)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-5
+    assert float((dst - dst_p).abs().max() / dst_p.abs().max()) <= 1e-4
+    for a, b in zip(grads, grads_p):
+        assert float((a - b).abs().max() / b.abs().max().clamp(min=1e-30)) <= 1e-4

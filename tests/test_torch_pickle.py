@@ -176,8 +176,10 @@ def test_load_decoder_pkl_matches_jax(pickles):
 def test_unpickler_is_inert_and_unported_kinds_raise(pickles):
     """The embedded source never runs and reference-internal symbols
     resolve to inert dicts; a generator whose rendering kwargs have depth 1
-    reads as an EG3D tri-plane; a decoder with the xyz embedding raises
-    NotImplementedError naming the ROADMAP item."""
+    reads as an EG3D tri-plane; a decoder class the reference does not have
+    raises, and so does a decoder whose recorded xyz embedding disagrees
+    with its heads' widths (the strict load: every decoder class, width and
+    embedding of the reference loads, tests/test_torch_decoder_types.py)."""
     data = torch_pickle.load_reference_pickle(pickles[0])
     assert isinstance(data["G_ema"], torch_pickle.PersistentStub)
     assert data["training_set_kwargs"] == {"resolution": 128}
@@ -194,7 +196,11 @@ def test_unpickler_is_inert_and_unported_kinds_raise(pickles):
     assert cfg.variant == "eg3d" and dict(cfg.rendering_kwargs) == {"triplane_depth": 1}
     d = torch_pickle.load_reference_pickle(pickles[1])["decoder"]
     d.state["use_xyz_embedding"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        torch_pickle.load_decoder_pkl({"decoder": d}, device="cpu")
+    d.state["use_xyz_embedding"] = False
+    d.class_name = "training.decoder.OtherDecoder"
+    with pytest.raises(ValueError, match="unknown decoder class"):
         torch_pickle.load_decoder_pkl({"decoder": d}, device="cpu")
 
 

@@ -59,7 +59,8 @@ def slab():
     jd = JDec(generator=jg, decoder_type="sequential_reversed", int8_sampling=True,
               pallas_heads=True, heads_bf16=True, gelu="poly6", slab_sampling=True)
     params = head_params(jd, 0)
-    td = GaussianDecoder(TriPlaneGenerator(rendering_kwargs={"triplane_size": TS}, **GEN_KW))
+    td = GaussianDecoder(TriPlaneGenerator(rendering_kwargs={"triplane_size": TS}, **GEN_KW),
+                         pallas_heads=True, heads_bf16=True)
     heads_sd = {k: v for k, v in decoder_state_dict(jd, params).items()}
     heads_sd.update({f"G.{k}": v for k, v in td.G.state_dict().items()})
     load_decoder_state(td, heads_sd)

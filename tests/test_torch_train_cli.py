@@ -38,9 +38,9 @@ def test_default_device_is_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--hidden_dim", "64"], ["--batch_views", "2"], ["--pallas_probe_build"],
+    ["--bf16_lpips"], ["--batch_views", "2"], ["--pallas_probe_build"],
     ["--int8_probe"], ["--bf16_probe"], ["--raster_backend", "xla"],
-    ["--decoder_type", "parallel"], ["--use_pos_encoding"]])
+    ["--no-use_marching_cubes"], ["--no-mt_two_stage"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_decoder.build(train_decoder.build_argparser().parse_args(

@@ -103,7 +103,7 @@ def setup():
         gparams, params = jax.jit(init)()
     frozen = TriPlaneGenerator(rendering_kwargs=RK, without_sr=True, **GEN_KW)
     load_generator_state(frozen, generator_state_from_params(gparams))
-    dec = GaussianDecoder(copy.deepcopy(frozen), gelu="exact")
+    dec = GaussianDecoder(copy.deepcopy(frozen), gelu="exact", pallas_heads_train=True)
     load_decoder_state(dec, decoder_state_dict(jd, params))
     vstate = vgg_state(1)
     vgg = VGG16LPIPS()
