@@ -91,6 +91,17 @@ Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
      apps/train_decoder.py --random_init with --decoder_type parallel
      --use_pos_encoding and with --decoder_type sequential, 1 +
      OPT_TRAIN_STEPS steps and one profiled step each;
+  5e. the frame-options phase (frame_options_phase): slab frames in every
+     K3 payload form, packed_v3 (the default, flagship_raster_config())
+     and f32 timed and profiled, each first frame against its all-plain
+     frame; every K3 form on one frame's binned pairs against its plain
+     version, timed; K9's 'dots' lerp (dots_route) on the flagship, EG3D
+     and D-par fused routes against its plain version, the bf16 forms
+     bit for bit K8's on the plain 'dots' features and their gap to the
+     plain version held by hold_chain_gap (limits from the staging's two
+     sound references; a 6-bit control must fail them); K10's select form
+     byte for byte K10's table, timed beside K10's sources and torch.cat,
+     and table-route frames with pallas_sampling "select";
   6. prints the per-frame and per-step times, stage splits, each kernel's
      time beside its plain version's and its bound, peak device memory,
      then a JSON line of per-kernel results, the card's name and power
@@ -183,7 +194,35 @@ KERNELS = {
                          "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:615"),
     "heads_fwd_bf16": ("gaussian_gan_decoder_tpu_torch/csrc/heads_bf16.cu",
                        "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:255"),
+    # K3's payload forms, K9's 'dots' lerp and K10's select form (the
+    # frame-options phase; K9-dots also in the EG3D and decoder-options
+    # phases)
+    "blend_bf16_colors": ("gaussian_gan_decoder_tpu_torch/csrc/blend.cu",
+                          "gaussian_gan_decoder_tpu/splat/pallas_blend.py:311"),
+    "blend_packed_v2": ("gaussian_gan_decoder_tpu_torch/csrc/blend.cu",
+                        "gaussian_gan_decoder_tpu/splat/pallas_blend.py:311"),
+    "blend_packed_v3": ("gaussian_gan_decoder_tpu_torch/csrc/blend.cu",
+                        "gaussian_gan_decoder_tpu/splat/pallas_blend.py:311"),
+    "blend_packed_v2_mxu": ("gaussian_gan_decoder_tpu_torch/csrc/blend.cu",
+                            "gaussian_gan_decoder_tpu/splat/pallas_blend.py:311"),
+    "blend_packed_v3_mxu": ("gaussian_gan_decoder_tpu_torch/csrc/blend.cu",
+                            "gaussian_gan_decoder_tpu/splat/pallas_blend.py:311"),
+    "fused_decode_dots": ("gaussian_gan_decoder_tpu_torch/csrc/brick_decode.cu",
+                          "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:615"),
+    "fused_decode_triplane_dots": ("gaussian_gan_decoder_tpu_torch/csrc/brick_decode.cu",
+                                   "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:615"),
+    "fused_decode_dots_f32": ("gaussian_gan_decoder_tpu_torch/csrc/decode_f32.cu",
+                              "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:615"),
+    "fused_decode_triplane_dots_f32": ("gaussian_gan_decoder_tpu_torch/csrc/decode_f32.cu",
+                                       "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:615"),
+    "brick_table_select": ("gaussian_gan_decoder_tpu_torch/csrc/brick_table.cu",
+                           "gaussian_gan_decoder_tpu/neuralfield/pallas_expand.py:149"),
 }
+# K3's forms: kernels-line name -> (payload_format, mxu_power)
+K3_FORMS = {"blend": ("f32", False), "blend_bf16_colors": ("bf16_colors", False),
+               "blend_packed_v2": ("packed_v2", False), "blend_packed_v3": ("packed_v3", False),
+               "blend_packed_v2_mxu": ("packed_v2", True),
+               "blend_packed_v3_mxu": ("packed_v3", True)}
 
 
 class PhaseError(RuntimeError):
@@ -310,10 +349,16 @@ class FormCount:
         setattr(self.fn, self.attr, n)
 
 
-def hold_decode(torch, rows_k, rows_p, real, cw, cam, label):
+def blend_v3_counter(pallas_blend):
+    """The launch counter of K3's packed_v3 form, the default frame's."""
+    return FormCount(pallas_blend.blend_tiles, "launches_packed_v3")
+
+
+def hold_decode(torch, rows_k, rows_p, real, cw, cam, label, rows_limit=1e-2):
     """Hold a decode kernel's rows (K2, K8, K9) against a reference's on the
-    real columns; pad columns must not be visible. -> max |d| of the rows
-    compared."""
+    real columns; pad columns must not be visible. rows_limit: the rows'
+    worst row-relative gap (hold_chain_gap sets it from the staging's own
+    sound references). -> max |d| of the rows compared."""
     from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads
     pr = pallas_heads.PROJ_ROWS
     require(bool(torch.isfinite(rows_k).all()), f"{label}: non-finite rows")
@@ -340,7 +385,8 @@ def hold_decode(torch, rows_k, rows_p, real, cw, cam, label):
           f"rows {proj_worst:.3e}; radius |d| max {float(rad_d.max()):.0f}, exact on "
           f"{float((rad_d == 0).float().mean()):.5f}; visible agreement {vis_agree:.5f}; "
           f"visible {int(vis_k[real].sum())}/{int(real.sum())}")
-    require(worst <= 1e-2, f"{label}: rows disagree: {rel_rows.tolist()}")
+    require(worst <= rows_limit, f"{label}: rows disagree (limit {rows_limit:.3e}): "
+            f"{rel_rows.tolist()}")
     # conic_b = -cov_b / det is the near-cancelling off-diagonal of nearly
     # isotropic Gaussians: the chain rows' gap (bf16 flips from the f32
     # summation order, up to 1e-2 of their scale) reads larger at its
@@ -355,6 +401,102 @@ def hold_decode(torch, rows_k, rows_p, real, cw, cam, label):
     require(vis_agree >= 0.999, f"{label}: visibility agreement {vis_agree}")
     require(not bool(vis_k[~real].any()), f"{label}: pad columns visible")
     return float(d[cont + [cb]].max())
+
+
+def point_gaps(torch, rows_a, rows_b, real, cols):
+    """Per real point, the largest gap of rows_a to rows_b over the rows
+    cols, each row's |d| over rows_b's largest |value| in that row on the
+    real columns: hold_decode's row-relative measure, point by point (its
+    largest is hold_decode's worst) -> (n_real,) f32."""
+    b = rows_b[cols][:, real]
+    d = (rows_a[cols][:, real] - b).abs()
+    return (d / b.abs().amax(dim=1, keepdim=True).clamp(min=1e-3)).amax(dim=0)
+
+
+def round_mantissa(torch, x, bits):
+    """x rounded to `bits` stored mantissa bits: 7 is bf16's (to nearest
+    even), fewer a lower-precision control (on the f32 bits, half away from
+    zero)."""
+    if bits == 7:
+        return x.to(torch.bfloat16).to(x.dtype)
+    drop = 23 - bits
+    i = x.float().view(torch.int32)
+    i = (i + (1 << (drop - 1))) & ~((1 << drop) - 1)
+    return i.view(torch.float32).to(x.dtype)
+
+
+def chain_rows(torch, staging, cw, cam, acc, hidden_bits=7):
+    """decode_heads_plain's bf16 chain and project_heads on a staging (M,
+    128) of bf16 values, with its sums in acc (torch.float32: the plain
+    version's; torch.float64: a reference whose sums are exact far below
+    bf16's rounding) and its hidden activations rounded to hidden_bits
+    stored mantissa bits (7: bf16's; fewer: a lower-precision control);
+    the written-back outputs are rounded to bf16 -> rows (NROWS, M) f32."""
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads as ph
+    gelu, out = ph.GELUS[cw.gelu], []
+    for m0 in range(0, staging.shape[0], ph.PLAIN_CHUNK):
+        x = staging[m0:m0 + ph.PLAIN_CHUNK].to(acc)
+        init = x[:, ph.INIT_COL:ph.INIT_COL + 3]
+        cols = [None] * ph.OUT_W
+        for h, (name, od, sc, oc) in enumerate(cw.chain):
+            a = x
+            for w, b in ((cw.w1, cw.b1), (cw.w2, cw.b2), (cw.w3, cw.b3)):
+                a = round_mantissa(torch, gelu(a @ w[h].to(acc) + b[h].to(acc)), hidden_bits)
+            o = ph._transform((a @ cw.w4[h].to(acc) + cw.b4[h].to(acc))[:, :od], name, cw,
+                              init[:, :od])
+            if sc + od <= ph.STAGE:
+                x = torch.cat([x[:, :sc], round_mantissa(torch, o, 7), x[:, sc + od:]], dim=1)
+            for j in range(od):
+                cols[oc + j] = o[:, j]
+        zero = torch.zeros_like(x[:, 0])
+        o16 = torch.stack([zero if c is None else c for c in cols], dim=1).float()
+        out.append(ph.project_heads(o16, cw, cam))
+    return torch.cat(out, dim=1)
+
+
+CHAIN_TAIL = 1e-3   # hold_chain_gap's tail: points beyond this share of a row's scale
+
+
+def hold_chain_gap(torch, rows_k, rows_p, staging, real, cw, cam, label):
+    """Hold a bf16 decode kernel's rows against its plain version's where
+    the staging makes the bf16 chain's rounding flips large (the gap of two
+    sound computations of the same chain: its largest share of a row's
+    scale over 500k points, 3.4e-3 on the flagship's 'dots' staging,
+    1.43e-2 on EG3D's; scripts/dots_gap.py). staging: the plain version's
+    (bf16 values). Two sound references of the chain on it: the plain
+    version (f32 sums) and chain_rows with f64 sums; their gap sets
+      - the worst-row limit, max(1e-2, twice the plain version's worst gap
+        to the f64 reference), held by hold_decode;
+      - the tail: the kernel's points more than CHAIN_TAIL of a row's scale
+        from the f64 reference, at most twice the plain version's + 100.
+    A control, the plain chain with its hidden activations rounded to 6
+    stored mantissa bits in place of bf16's 7, must fail these limits
+    (each reading printed). -> hold_decode's max |d|."""
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads as ph
+    cb = ph.PROJ_ROWS["conic_b"]
+    cols = [r for r in list(range(0, 14)) + list(range(16, 26)) if r != cb]
+    st = staging.float()
+    ref = chain_rows(torch, st, cw, cam, torch.float64)
+    ctl = chain_rows(torch, st, cw, cam, torch.float32, hidden_bits=6)
+    floor = point_gaps(torch, rows_p, ref, real, cols)
+    limit = max(1e-2, 2.0 * float(floor.max()))
+    tail = 2 * int((floor > CHAIN_TAIL).sum()) + 100
+
+    def reading(rows):
+        return (float(point_gaps(torch, rows, rows_p, real, cols).max()),
+                int((point_gaps(torch, rows, ref, real, cols) > CHAIN_TAIL).sum()))
+
+    (k_worst, k_tail), (c_worst, c_tail) = reading(rows_k), reading(ctl)
+    print(f"{label}: plain vs the f64-sum chain worst {float(floor.max()):.3e}, "
+          f"{int((floor > CHAIN_TAIL).sum())} points above {CHAIN_TAIL:g}; limits: worst "
+          f"{limit:.3e}, tail {tail} points; kernel worst {k_worst:.3e}, tail {k_tail}; "
+          f"6-bit control worst {c_worst:.3e}, tail {c_tail}")
+    require(c_worst > limit or c_tail > tail,
+            f"{label}: the 6-bit control passes the limits: they cannot see a bit's loss")
+    require(k_tail <= tail, f"{label}: {k_tail} points beyond {CHAIN_TAIL:g} of a row's scale "
+            f"(limit {tail})")
+    del ref, ctl
+    return hold_decode(torch, rows_k, rows_p, real, cw, cam, label, rows_limit=limit)
 
 
 def hold_decode_f32(torch, rows_k, rows_p, real, cw, cam, label):
@@ -398,13 +540,16 @@ def hold_decode_f32(torch, rows_k, rows_p, real, cw, cam, label):
     return float(d[list(range(14)) + list(range(16, 26))].max())
 
 
-def plain_image(torch, rows, grid, cap, dev, bg=None):
+def plain_image(torch, rows, grid, cap, dev, bg=None, cfg=None):
     """Binning + the plain blend of decode rows -> (3, H, W) image, over bg
-    (the flagship's background by default)."""
+    (the flagship's background by default), in cfg's payload format and
+    sort key (flagship_raster_config()'s by default) at capacity cap."""
     from gaussian_gan_decoder_tpu_torch import flagship
     from gaussian_gan_decoder_tpu_torch.splat import fast_raster, pallas_blend
-    st, at = fast_raster.bin_pairs(rows, grid, grid, 16)
-    acc, tr = pallas_blend.blend_tiles_plain(st, at, grid, grid, 16, cap)
+    cfg = dataclasses.replace(cfg or flagship.flagship_raster_config(), tile_capacity=cap)
+    st, at = fast_raster.bin_pairs(rows, grid, grid, 16, cfg)
+    acc, tr = pallas_blend.blend_tiles_plain(st, at, grid, grid, 16, cap, cfg.payload_format,
+                                             cfg.mxu_power)
     bg = torch.tensor(flagship.DEFAULT_BG if bg is None else bg, device=dev)
     img = acc + tr[:, :, None] * bg
     return img.reshape(grid, grid, 16, 16, 3).permute(4, 0, 2, 1, 3).reshape(3, IMAGE, IMAGE)
@@ -1006,8 +1151,9 @@ def profile_frames(torch, frame, host_med, label):
 def frame_run(torch, decoder, weights, zs, cp, c2w, counters, frames, **route):
     """Drive flagship.decode_and_render for one warm-up frame and `frames`
     timed ones, launch counters at 0 first; each counted kernel must launch
-    in every frame. route: slab_ctx or init_position, and bg (the
-    flagship's background by default). -> dict of the readings."""
+    in every frame. route: slab_ctx or init_position, bg (the flagship's
+    background by default) and raster_cfg (flagship_raster_config() by
+    default). -> dict of the readings."""
     from gaussian_gan_decoder_tpu_torch import flagship
     dev = zs.device
     for fn in counters.values():
@@ -1024,7 +1170,7 @@ def frame_run(torch, decoder, weights, zs, cp, c2w, counters, frames, **route):
         img, decoded, aux = flagship.decode_and_render(
             decoder, weights, zs[i], cp, c2w, route.get("slab_ctx"), FOV, image_size=IMAGE,
             bg=route.get("bg", flagship.DEFAULT_BG), return_aux=True, stage_timer=timer,
-            init_position=route.get("init_position"))
+            init_position=route.get("init_position"), raster_cfg=route.get("raster_cfg"))
         timer("end")
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t_host) * 1e3
@@ -1087,8 +1233,11 @@ def brick_phase(torch, dec, weights, planes, rows_slab, ctx, template, cam, cp, 
     n_planes, CD, H, W = planes.shape[1:]
 
     def brick_decoder(fused):
-        # the JAX flagship decoder (poly GELU) with the slab frame's weights
+        # the JAX flagship decoder (poly GELU) with the slab frame's weights;
+        # its fused route here holds K9's 'bcast' lerp (the frame-options
+        # phase runs the default 'dots')
         d = flagship.flagship_decoder(gen=G, device=dev, fused_sampling=fused)
+        d.config = dataclasses.replace(d.config, fused_lerp="bcast")
         d.load_state_dict(dec.state_dict())
         return d.eval()
 
@@ -1105,12 +1254,13 @@ def brick_phase(torch, dec, weights, planes, rows_slab, ctx, template, cam, cp, 
         e_p = pe.brick_table_plain(fp, NY)
         torch.cuda.synchronize()
         err = int((e_k.int() - e_p.int()).abs().max())
-        p1 = cuda_ms(torch, lambda: pe.brick_table_plain(fp, NY), 20)
-        lib1 = cuda_ms(torch, lambda: pe.concat_corners(fp), 20)
-        k1 = cuda_ms(torch, lambda: pe.brick_table(fp, NY), 20)
-        k2 = cuda_ms(torch, lambda: pe.brick_table(fp, NY), 20)
-        lib2 = cuda_ms(torch, lambda: pe.concat_corners(fp), 20)
-        p2 = cuda_ms(torch, lambda: pe.brick_table_plain(fp, NY), 20)
+        # queued events: K10 takes ~0.1 ms, under its wrapper's host path
+        p1 = queued_ms(torch, lambda: pe.brick_table_plain(fp, NY), 20)
+        lib1 = queued_ms(torch, lambda: pe.concat_corners(fp), 20)
+        k1 = queued_ms(torch, lambda: pe.brick_table(fp, NY), 20)
+        k2 = queued_ms(torch, lambda: pe.brick_table(fp, NY), 20)
+        lib2 = queued_ms(torch, lambda: pe.concat_corners(fp), 20)
+        p2 = queued_ms(torch, lambda: pe.brick_table_plain(fp, NY), 20)
         ms, plain_ms, lib_ms = (k1 + k2) / 2, (p1 + p2) / 2, (lib1 + lib2) / 2
         print(f"K10 brick table: volume {tuple(q8.shape)} int8 -> table {tuple(e_k.shape)} "
               f"(NY {NY}); max |d| {err} (bit-exact: {err == 0}); kernel {ms:.4f} ms, plain "
@@ -1197,7 +1347,7 @@ def brick_phase(torch, dec, weights, planes, rows_slab, ctx, template, cam, cp, 
         w = bweights if d is bdec else fdec.fold()
         counters = {"mapping": pallas_mapping.mapping_forward, "brick_table": pe.brick_table,
                     ("brick_decode" if d is bdec else "fused_decode"): kernel,
-                    "blend": pallas_blend.blend_tiles}
+                    "blend_packed_v3": blend_v3_counter(pallas_blend)}
         runs[label] = frame_run(torch, d, w, zs, cp, c2w, counters, FRAMES, init_position=pos)
         _, host_med = report_frames(torch, runs[label], f"{label}-route")
         profile_frames(torch, lambda i, timer, d=d, w=w: flagship.decode_and_render(
@@ -1274,6 +1424,9 @@ def eg3d_phase(torch, seed, results):
                                     rng=rng, device=dev).eval()
     fdec = flagship.flagship_decoder(gen=dec.G, device=dev, fused_sampling=True).eval()
     fdec.load_state_dict(dec.state_dict())
+    # the fused route below holds K9's 'bcast' tri-plane form; the default
+    # 'dots' runs in dots_route at the end of the phase
+    fdec.config = dataclasses.replace(fdec.config, fused_lerp="bcast")
     G = dec.G
     require(G.triplane_depth == 1 and G.variant == "eg3d", "not an EG3D tri-plane generator")
     weights = dec.fold()
@@ -1413,7 +1566,7 @@ def eg3d_phase(torch, seed, results):
         w = weights if d is dec else fdec.fold()
         kw = {"slab_ctx": ctx} if route == "slab" else {"init_position": pos}
         counters = {"mapping": pallas_mapping.mapping_forward, f"{route}_decode": kernel,
-                    "blend": pallas_blend.blend_tiles}
+                    "blend_packed_v3": blend_v3_counter(pallas_blend)}
         run = frame_run(torch, d, w, zs[1:], cp, c2w, counters, EG3D_FRAMES, bg=EG3D_BG, **kw)
         label = f"EG3D {route}-route"
         _, host_med = report_frames(torch, run, label)
@@ -1426,7 +1579,20 @@ def eg3d_phase(torch, seed, results):
         require(fr_psnr >= 30.0, f"{label} frame disagrees with the plain frame: "
                 f"{fr_psnr:.2f} dB")
         launches[route] = run["launches"][f"{route}_decode"]
-    del dec, fdec, weights, ctx, planes, ref_imgs
+    del fdec, weights, ctx, planes, ref_imgs
+    torch.cuda.empty_cache()
+
+    # -- K9's 'dots' tri-plane forms on the fused route: the flagship decoder's
+    # bf16 chain, then an f32 chain of the same heads ---------------------------
+    for chain, n, key in (("bf16", EG3D_FRAMES, "fused_decode_triplane_dots"),
+                          ("f32", 1, "fused_decode_triplane_dots_f32")):
+        ddec = flagship.flagship_decoder(gen=G, device=dev, fused_sampling=True).eval()
+        ddec.config = dataclasses.replace(ddec.config, heads_bf16=chain == "bf16")
+        ddec.load_state_dict(dec.state_dict())
+        launches[key] = dots_route(torch, ddec, pos, cam, cp, c2w, zs[1:], n, key, results,
+                                   f"EG3D ({chain} heads)", bg=EG3D_BG)
+        del ddec
+    del dec
     torch.cuda.empty_cache()
 
     # -- the EG3D train step: apps/train_decoder.py --generator_arch eg3d_ffhq -
@@ -1461,7 +1627,9 @@ def eg3d_phase(torch, seed, results):
     del run, tr
     torch.cuda.empty_cache()
     return {"slab_decode_bilinear": launches["slab"],
-            "fused_decode_triplane": launches["fused"]}
+            "fused_decode_triplane": launches["fused"],
+            "fused_decode_triplane_dots": launches["fused_decode_triplane_dots"],
+            "fused_decode_triplane_dots_f32": launches["fused_decode_triplane_dots_f32"]}
 
 
 def hold_heads_train(torch, captured, label):
@@ -1540,10 +1708,12 @@ def decoder_options_phase(torch, seed, template, results):
     cap = flagship.flagship_raster_config().tile_capacity
     launches = {}
 
-    def decoder(decoder_type, emb, bf16, gelu, fused=False):
+    def decoder(decoder_type, emb, bf16, gelu, fused=False, lerp="bcast"):
+        # the routes below hold K9's 'bcast' forms; D-par's 'dots' runs in
+        # dots_route
         d = GaussianDecoder(gen, gelu=gelu, rng=torch.Generator().manual_seed(seed + 22),
                             device=dev, fused_sampling=fused, decoder_type=decoder_type,
-                            use_xyz_embedding=emb, heads_bf16=bf16)
+                            use_xyz_embedding=emb, heads_bf16=bf16, fused_lerp=lerp)
         return d.eval()
 
     def plain_frame(d, w, ctx, z, route):
@@ -1664,7 +1834,7 @@ def decoder_options_phase(torch, seed, template, results):
             form = f"{names[route]}{'' if bf16 else '_f32'}"
             counters = {"mapping": pallas_mapping.mapping_forward,
                         form: FormCount(fn, "launches" if bf16 else "launches_f32"),
-                        "blend": pallas_blend.blend_tiles}
+                        "blend_packed_v3": blend_v3_counter(pallas_blend)}
             if route != "slab":
                 counters["brick_table"] = pe.brick_table
             run = frame_run(torch, d, wr, zs[1:], cp_real, c2w, counters, OPT_FRAMES, **kw)
@@ -1680,6 +1850,14 @@ def decoder_options_phase(torch, seed, template, results):
                     f"{fr_psnr:.2f} dB")
             if not bf16:
                 launches[form] = run["launches"][form]
+        if label == "D-par":
+            # K9's 'dots' lerp at f32 heads (the JAX decoder's default)
+            ddec = decoder(decoder_type, emb, bf16, gelu, fused=True, lerp="dots")
+            ddec.load_state_dict(dec.state_dict())
+            launches["fused_decode_dots_f32"] = dots_route(
+                torch, ddec, pos, cam, cp_real, c2w, zs[1:], OPT_FRAMES, "fused_decode_dots_f32",
+                results, label)
+            del ddec
         del ref_imgs, ctx, dec, fdec
         torch.cuda.empty_cache()
 
@@ -1786,6 +1964,317 @@ def decoder_options_phase(torch, seed, template, results):
         torch.cuda.empty_cache()
     return launches
 
+def dots_route(torch, d, pos, cam, cp, c2w, zs, frames, key, results, label, bg=None):
+    """K9's 'dots' lerp (the JAX decoder's default fused_lerp) on decoder
+    d's fused route: the kernel against its plain version on the planes of
+    zs[0] (sample_fused_inputs), timed beside it with its bound; a bf16
+    form's rows bit-identical to K8's on the staging of the plain 'dots'
+    features (the lerp's witness), then held by hold_chain_gap (an f32
+    form by hold_decode_f32); then 1 + frames frames of
+    decode_and_render from zs, the form's own launch counter at 0 first, the
+    first frame against its all-plain frame by PSNR. -> the form's launches
+    in those frames."""
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads as ph
+    from gaussian_gan_decoder_tpu_torch.models import pallas_mapping
+    from gaussian_gan_decoder_tpu_torch.neuralfield import pallas_expand as pe
+    from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import (
+        _quantize_int8, build_plane_table, sample_fused_inputs)
+    from gaussian_gan_decoder_tpu_torch.splat import pallas_blend
+    require(d.fused_sampling and d.fused_lerp == "dots", f"{label}: {d.config}")
+    dev, G, M = pos.device, d.G, pos.shape[0]
+    D, box_warp = G.triplane_depth, float(G.rk["box_warp"])
+    K = ph.CORNERS if D > 1 else 4
+    w = d.fold()
+    cw = w.chain
+    dt = ph.chain_dtype(cw)
+    bf16 = dt == torch.bfloat16
+    weights_of = (cw.w1, cw.b1, cw.w2, cw.b2, cw.w3, cw.b3, cw.w4, cw.b4, cw.meta)
+    g = IMAGE // 16
+    with torch.inference_mode():
+        planes, _ = d.synthesize_planes(w, zs[0], cp)
+        cond = d.cond0(pos)
+        aux, Mpad = ph.build_brick_staging(pos.new_zeros((M, ph.C)), cond, pos, dtype=dt)
+        rows_in, wts, scale_rows = sample_fused_inputs(
+            G.plane_axes, planes, pos[None], box_warp, D, table=d._brick_table(planes),
+            pad_to=Mpad)
+        real = torch.arange(Mpad, device=dev) < M
+
+        def kern():
+            return ph.decode_project_fused(cw, aux, rows_in, wts, scale_rows, cam, M, lerp="dots")
+
+        def plain():
+            return ph.decode_project_fused_plain(cw, aux, rows_in, wts, scale_rows, cam, M,
+                                                 lerp="dots")
+
+        f_k, f_p = kern(), plain()
+        torch.cuda.synchronize()
+        form = f"{label} K9-dots ({K} corners, {'bf16' if bf16 else 'f32'} chain)"
+        if bf16:
+            # the lerp's witness first: K8 (the chain alone) on the staging
+            # of the plain 'dots' features gives these rows bit for bit
+            st, _ = ph.build_brick_staging(
+                ph.fused_features_plain(rows_in, wts, scale_rows, "dots")[:M], cond, pos)
+            same = torch.equal(f_k, ph.decode_project(cw, st, cam, M))
+            print(f"{form}: rows bit-identical to K8's on the plain 'dots' features: {same}")
+            require(same, f"{form}: its features differ from the plain version's")
+            # so the gap to the plain version is the chain's (K8's on this
+            # staging), held against the staging's own sound references
+            err = hold_chain_gap(torch, f_k, f_p, st, real, cw, cam, form)
+            del st
+        else:
+            err = hold_decode_f32(torch, f_k, f_p, real, cw, cam, form)
+        ms, plain_ms = paired_ms(torch, kern, plain, 3 if bf16 else 2)
+        # per point: the chain, 3 planes x K corners x 32 channels of lerp
+        # (product, scale, sum), ~150 FLOPs of projection
+        b = bound(nbytes(aux, *rows_in, wts, scale_rows, *weights_of, f_k),
+                  M * (chain_flops(cw) + 3 * K * 32 * 3 + 150), "bf16" if bf16 else "tf32x3")
+        print(f"{form}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound {b[0]:.4f} ms "
+              f"({b[1]}, {b[2]})")
+        results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b)
+        del f_k, f_p, rows_in, wts, planes
+        # the all-plain frame of zs[0]: plain mapping, synthesis, plain table,
+        # the plain 'dots' decode, binning and the plain blend
+        ws = pallas_mapping.mapping_forward_plain(zs[0], d.mapping_condition(cp), w.mapping)
+        pl = G.synthesis_planes(ws[:, None].expand(1, w.mapping.num_ws, ws.shape[1]),
+                                noise_mode="const")
+        if D > 1:
+            n_planes, CD, H, W = pl.shape[1:]
+            q, qs = _quantize_int8(pl.float().reshape(n_planes, CD // D, D, H, W))
+            NY = pe.table_rows_ny(H, 1)
+            tb = (pe.brick_table_plain(pe.padded_channels_last(q), NY), NY, qs)
+        else:
+            tb = build_plane_table(pl, 1, brick_dtype=torch.bfloat16)
+        ri, wt, sr = sample_fused_inputs(G.plane_axes, pl, pos[None], box_warp, D, table=tb,
+                                         pad_to=Mpad)
+        ref_img = plain_image(torch, ph.decode_project_fused_plain(cw, aux, ri, wt, sr, cam, M,
+                                                                   lerp="dots"),
+                              g, flagship_cap(), dev, bg=bg)
+        del pl, tb, ri, wt, sr
+    counters = {"mapping": pallas_mapping.mapping_forward,
+                key: FormCount(ph.decode_project_fused,
+                               "launches_dots" if bf16 else "launches_dots_f32"),
+                "blend_packed_v3": blend_v3_counter(pallas_blend)}
+    if D > 1:
+        counters["brick_table"] = pe.brick_table
+    run = frame_run(torch, d, w, zs, cp, c2w, counters, frames, init_position=pos,
+                    **({"bg": bg} if bg is not None else {}))
+    report_frames(torch, run, f"{label} fused-route ('dots')")
+    fr_psnr = psnr(run["first"][0], ref_img)
+    print(f"{label} fused-route ('dots') first frame vs its all-plain frame: {fr_psnr:.2f} dB")
+    require(fr_psnr >= 30.0, f"{label} 'dots' frame disagrees with the plain frame: "
+            f"{fr_psnr:.2f} dB")
+    del ref_img, aux
+    torch.cuda.empty_cache()
+    return run["launches"][key]
+
+
+def flagship_cap():
+    from gaussian_gan_decoder_tpu_torch import flagship
+    return flagship.flagship_raster_config().tile_capacity
+
+
+def blend_config(fmt, mxu):
+    """The RasterizeConfig of one K3 form at the flagship's capacity and
+    static copies (the packed forms with the fused key, as JAX pairs them;
+    packed_v3 without mxu_power is flagship_raster_config())."""
+    from gaussian_gan_decoder_tpu_torch.splat.rasterize import RasterizeConfig
+    packed = fmt.startswith("packed")
+    return RasterizeConfig(tile_size=16, tile_capacity=flagship_cap(), static_copies=2,
+                           bf16_colors=fmt != "f32", packed_payloads=packed,
+                           rgb10_payloads=fmt == "packed_v3", fused_sort_key=packed,
+                           blend_mxu_power=mxu)
+
+
+def frame_options_phase(torch, dec, weights, rows_k, ctx, template, cam, cp, c2w, seed,
+                        results):
+    """The JAX flagship frame's own settings and the last TPU kernel forms,
+    on the flagship slab decoder, template and camera:
+      - slab frames in every K3 form (blend_config: f32, bf16_colors,
+        packed_v2, packed_v3 = flagship_raster_config(), and the packed two
+        with mxu_power), counters at 0 first: 1 + FRAMES frames and FRAMES
+        profiled ones for packed_v3 and f32 (device time, host wall, busy
+        share, the binning and blend stages, the pair count), 1 + 1 for the
+        others; each first frame against the all-plain frame (plain mapping,
+        synthesis and decode, the plain K3 of that form) by PSNR;
+      - every K3 form but f32 (held in the main phase on the same pairs) on
+        the binned pairs of one frame's kernel rows, against its plain
+        version, timed (queued events) beside it, bound by the bytes of its
+        payload words and the live evaluations;
+      - K9's 'dots' lerp on the flagship fused route (dots_route);
+      - K10's select form on the frame's int8 tri-grid: byte-identical to
+        K10's table and its plain version, timed beside them and beside
+        torch.cat of the 8 views; 1 + 1 table-route frames with
+        pallas_sampling "select", each image equal to pallas_sampling True's.
+    -> the launches of these forms on their frames."""
+    from gaussian_gan_decoder_tpu_torch import flagship
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads as ph
+    from gaussian_gan_decoder_tpu_torch.models import pallas_mapping
+    from gaussian_gan_decoder_tpu_torch.neuralfield import pallas_expand as pe
+    from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import (
+        _quantize_int8, build_slab_volume)
+    from gaussian_gan_decoder_tpu_torch.splat import fast_raster, pallas_blend
+    dev = rows_k.device
+    G = dec.G
+    D = G.triplane_depth
+    g, cap = IMAGE // 16, flagship_cap()
+    pos = torch.tensor(template, device=dev)
+    nprng = np.random.RandomState(seed + 31)
+    zs = torch.tensor(nprng.randn(FRAMES + 1, 1, 512).astype(np.float32), device=dev)
+    c0 = torch.zeros((1, 25), dtype=torch.float32, device=dev)
+    require(blend_config("packed_v3", False) == flagship.flagship_raster_config(),
+            "packed_v3 is not the flagship raster config")
+    launches, frame_ms = {}, {}
+    with torch.inference_mode():
+        ws = pallas_mapping.mapping_forward_plain(zs[0], c0, weights.mapping)
+        pl = G.synthesis_planes(ws[:, None].expand(1, weights.mapping.num_ws, ws.shape[1]),
+                                noise_mode="const")
+        vo, sc = build_slab_volume(pl, D)
+        rows_plain = ph.decode_project_slab_plain(weights.chain, vo, sc, ctx, cam)
+        del pl, vo, sc
+
+    # -- slab frames in every K3 form ----------------------------------------
+    for name, (fmt, mxu) in K3_FORMS.items():
+        cfg = blend_config(fmt, mxu)
+        main = name in ("blend", "blend_packed_v3")
+        counters = {"mapping": pallas_mapping.mapping_forward,
+                    "slab_decode": ph.decode_project_slab,
+                    name: FormCount(pallas_blend.blend_tiles,
+                                    "launches" if fmt == "f32"
+                                    else f"launches_{pallas_blend.blend_form(fmt, mxu)}")}
+        run = frame_run(torch, dec, weights, zs, cp, c2w, counters, FRAMES if main else 1,
+                        slab_ctx=ctx, raster_cfg=cfg)
+        label = f"slab frame, K3 {name}"
+        frame_ms[name] = report_frames(torch, run, label) + (run["first"][2],)
+        if main:
+            profile_frames(torch, lambda i, timer, cfg=cfg: flagship.decode_and_render(
+                dec, weights, zs[1 + i % FRAMES], cp, c2w, ctx, FOV, image_size=IMAGE,
+                raster_cfg=cfg, stage_timer=timer), frame_ms[name][1], label)
+        with torch.inference_mode():
+            ref = plain_image(torch, rows_plain, g, cap, dev, cfg=cfg)
+        fr_psnr = psnr(run["first"][0], ref)
+        print(f"{label}: first frame vs its all-plain frame {fr_psnr:.2f} dB")
+        require(fr_psnr >= 30.0, f"{label}: the frame disagrees with its plain frame")
+        launches[name] = run["launches"][name]
+    (v3_dev, v3_host, v3_pairs), (f_dev, f_host, f_pairs) = (frame_ms["blend_packed_v3"],
+                                                              frame_ms["blend"])
+    print(f"slab frame, packed_v3 + fused key (the flagship's) vs f32 payloads: device "
+          f"{v3_dev:.3f} vs {f_dev:.3f} ms, host wall {v3_host:.3f} vs {f_host:.3f} ms, pairs "
+          f"{v3_pairs} vs {f_pairs}")
+    del rows_plain
+
+    # -- K3's forms on one frame's binned pairs -------------------------------
+    with torch.inference_mode():
+        for name, (fmt, mxu) in K3_FORMS.items():
+            if name == "blend":
+                continue
+            cfg = blend_config(fmt, mxu)
+            starts, attrs = fast_raster.bin_pairs(rows_k, g, g, 16, cfg)
+
+            def kern(starts=starts, attrs=attrs, fmt=fmt, mxu=mxu):
+                return pallas_blend.blend_tiles(starts, attrs, g, g, 16, cap, fmt, mxu)
+
+            def plain(starts=starts, attrs=attrs, fmt=fmt, mxu=mxu):
+                return pallas_blend.blend_tiles_plain(starts, attrs, g, g, 16, cap, fmt, mxu)
+
+            (acc_k, tr_k), (acc_p, tr_p) = kern(), plain()
+            torch.cuda.synchronize()
+            dpix = torch.maximum((acc_k - acc_p).abs().amax(dim=2), (tr_k - tr_p).abs())
+            err, frac = float(dpix.max()), float((dpix <= 1e-4).float().mean())
+            ev_ms, plain_ms = paired_ms(torch, kern, plain, 5)
+            ms = queued_ms(torch, kern, 20)
+            # the live evaluations, on the unpacked fields at global pixel
+            # coordinates (the packed forms' are tile-local)
+            f = torch.stack(pallas_blend.unpack_payload(attrs, fmt))
+            if fmt in pallas_blend.PACKED:
+                counts = (starts[1:] - starts[:-1]).long()
+                tile = torch.repeat_interleave(torch.arange(g * g, device=dev), counts)
+                f[0] += ((tile % g) * 16).float()
+                f[1] += ((tile // g) * 16).float()
+            evals, live = blend_evaluations(torch, starts, f, g, cap, False)
+            blended = int(torch.clamp(starts[1:] - starts[:-1], max=cap).sum())
+            b = bound(blended * attrs.shape[0] * 4 + nbytes(starts, acc_k, tr_k),
+                      BLEND_EVAL_FLOPS["blend"] * live, "f32")
+            print(f"K3 {name}: {attrs.shape[1]} pairs of {attrs.shape[0]} words; {evals} "
+                  f"evaluations, {live} live; max|d| {err:.3e}, within 1e-4 on {frac:.5f} of "
+                  f"pixels; kernel {ms:.4f} ms device (queued events), {ev_ms:.4f} ms a call, "
+                  f"plain {plain_ms:.3f} ms; bound {b[0]:.4f} ms ({b[1]})")
+            require(frac >= 0.999 and err <= 1e-2, f"K3 {name} disagrees: {err} {frac}")
+            results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b)
+            del starts, attrs, acc_k, tr_k, acc_p, tr_p, f
+
+    # -- K9 'dots' on the flagship fused route ---------------------------------
+    fdec = flagship.flagship_decoder(gen=G, device=dev, fused_sampling=True).eval()
+    fdec.load_state_dict(dec.state_dict())
+    launches["fused_decode_dots"] = dots_route(torch, fdec, pos, cam, cp, c2w, zs, FRAMES,
+                                               "fused_decode_dots", results, "flagship")
+    del fdec
+
+    # -- K10's select form ------------------------------------------------------
+    with torch.inference_mode():
+        planes, _ = dec.synthesize_planes(weights, zs[0], cp)
+        n_planes, CD, H, W = planes.shape[1:]
+        C = CD // D
+        q8, _ = _quantize_int8(planes.float().reshape(n_planes, C, D, H, W))
+        NY = pe.table_rows_ny(H, 1)
+        fp, fpd = pe.padded_channels_last(q8), pe.duplicated_channels_last(q8)
+        e_sel = pe.brick_table_select(fpd, NY, C)
+        e_rot = pe.brick_table(fp, NY)
+        e_pl = pe.brick_table_select_plain(fpd, NY, C)
+        torch.cuda.synchronize()
+        same = torch.equal(e_sel, e_rot) and torch.equal(e_sel, e_pl)
+        # queued events, as K10's row
+        p1 = queued_ms(torch, lambda: pe.brick_table_select_plain(fpd, NY, C), 20)
+        lib1 = queued_ms(torch, lambda: pe.concat_corners(fp), 20)
+        k1 = queued_ms(torch, lambda: pe.brick_table_select(fpd, NY, C), 20)
+        k2 = queued_ms(torch, lambda: pe.brick_table_select(fpd, NY, C), 20)
+        lib2 = queued_ms(torch, lambda: pe.concat_corners(fp), 20)
+        p2 = queued_ms(torch, lambda: pe.brick_table_select_plain(fpd, NY, C), 20)
+        ms, plain_ms, lib_ms = (k1 + k2) / 2, (p1 + p2) / 2, (lib1 + lib2) / 2
+        # the plain-PyTorch sources each form reads, built before its kernel:
+        # K10's padded transpose, the select form's channel-tiled copy of it
+        src_ms = queued_ms(torch, lambda: pe.padded_channels_last(q8), 20)
+        dup_ms = queued_ms(torch, lambda: pe.duplicated_channels_last(q8), 20)
+        # bound by the function's bytes, as K10's row: the int8 volume read
+        # once, the table written once (the same table, the same bound); the
+        # duplicated source's bytes, which this form reads, printed beside it
+        b = bound(nbytes(q8, e_sel), 0, "bf16")
+        b_src = bound(nbytes(fpd, e_sel), 0, "bf16")[0]
+        print(f"K10 select: duplicated source {tuple(fpd.shape)} int8 -> table "
+              f"{tuple(e_sel.shape)}; byte-identical to K10's table and its plain version: "
+              f"{same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.cat of the 8 views "
+              f"{lib_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}: the {nbytes(q8)} B volume and "
+              f"the {nbytes(e_sel)} B table), {b_src:.4f} ms over the {nbytes(fpd)} B "
+              f"duplicated source it reads; building that source (pad + transpose + "
+              f"channel tile) {dup_ms:.4f} ms, K10's padded source {src_ms:.4f} ms")
+        require(same, "K10's select form differs from K10's table or its plain version")
+        results["brick_table_select"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                             library_ms=lib_ms, bound=b)
+        del q8, fp, fpd, e_sel, e_rot, e_pl
+    sdec = flagship.flagship_decoder(gen=G, device=dev).eval()
+    sdec.load_state_dict(dec.state_dict())
+    sdec.config = dataclasses.replace(sdec.config, pallas_sampling="select")
+    sw = sdec.fold()
+    with torch.inference_mode():
+        # the decoder's table route on the same planes, select vs rotate build
+        rows_s, _ = sdec.decode_project(sw, planes, cam, init_position=pos)
+        sdec.config = dataclasses.replace(sdec.config, pallas_sampling=True)
+        rows_r, _ = sdec.decode_project(sw, planes, cam, init_position=pos)
+        sdec.config = dataclasses.replace(sdec.config, pallas_sampling="select")
+        same = torch.equal(rows_s, rows_r)
+    print(f"table route: pallas_sampling 'select' rows equal True's on the same planes: {same}")
+    require(same, "the 'select' table route's rows differ from the rotate table's")
+    del planes, rows_s, rows_r
+    run = frame_run(torch, sdec, sw, zs, cp, c2w,
+                    {"mapping": pallas_mapping.mapping_forward,
+                     "brick_table_select": pe.brick_table_select,
+                     "brick_decode": ph.decode_project,
+                     "blend_packed_v3": blend_v3_counter(pallas_blend)}, 1, init_position=pos)
+    report_frames(torch, run, "table route, pallas_sampling 'select'")
+    launches["brick_table_select"] = run["launches"]["brick_table_select"]
+    del sdec, run
+    torch.cuda.empty_cache()
+    return launches
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1837,7 +2326,7 @@ def main(argv=None) -> int:
     require(k6_sass and all(any("TF32" in op for op in ops) for ops in k6_sass),
             "heads_fwd_kernel has no TF32 HMMA in its SASS")
     f32_sass = [ops for fn, ops in sass.items() if "decode_f32_kernel" in fn]
-    require(len(f32_sass) == 5 and all(any("TF32" in op for op in ops) for ops in f32_sass),
+    require(len(f32_sass) == 7 and all(any("TF32" in op for op in ops) for ops in f32_sass),
             "the f32 decode kernels lack TF32 HMMA in their SASS")
     bf16_sass = [ops for fn, ops in sass.items() if "heads_bf16_kernel" in fn]
     require(bf16_sass and all(any("BF16" in op for op in ops) for ops in bf16_sass),
@@ -1991,7 +2480,7 @@ def main(argv=None) -> int:
     slab = frame_run(torch, dec, weights, zs[1:], cp, c2w,
                      {"mapping": pallas_mapping.mapping_forward,
                       "slab_decode": pallas_heads.decode_project_slab,
-                      "blend": pallas_blend.blend_tiles}, FRAMES, slab_ctx=ctx)
+                      "blend_packed_v3": blend_v3_counter(pallas_blend)}, FRAMES, slab_ctx=ctx)
     launches, first = dict(slab["launches"]), slab["first"]
     _, host_med = report_frames(torch, slab, "slab-route")
     print(f"all-plain frame (the same stages, the three plain versions): "
@@ -2011,6 +2500,10 @@ def main(argv=None) -> int:
     # -- the brick route: K10, K8, K9, their frames and the stream ------------
     launches.update(brick_phase(torch, dec, weights, planes, rows_k, ctx, template, cam, cp, c2w,
                                 args.seed, results))
+
+    # -- the frame-options phase: K3's payload forms, K9 'dots', K10 select ---
+    launches.update(frame_options_phase(torch, dec, weights, rows_k, ctx, template, cam, cp,
+                                        c2w, args.seed, results))
     del dec, weights, ctx, rows_k, planes
     torch.cuda.empty_cache()
 

@@ -9,16 +9,18 @@
 // and runs chain.cuh's chain_project_tail, the tail K2 runs.
 //
 // K9 (fused_decode_kernel) replaces decode_project_pallas_fused
-// (_sample_heads_project_kernel, its 'bcast' lerp form): the staging's
-// feature columns are built in the kernel from the raw brick rows. Per point
-// and plane it reads the brick row and the mask-folded corner weights,
-// accumulates sum_c row_c * w_c in f32, multiplies by the plane's scale row,
-// sums the planes, rounds the mean to bf16 into columns 0:32, then runs the
-// same tail. Each product and sum of the lerp is rounded on its own (_rn
-// intrinsics, no FMA contraction), in the plain version's and the JAX
-// 'bcast' lerp's order, so the features are the plain version's bit for
-// bit. 4 threads per point, 8 channels each. Two forms, instantiated
-// from one template (corners, row type):
+// (_sample_heads_project_kernel, both lerp_modes): the staging's feature
+// columns are built in the kernel from the raw brick rows, then the same
+// tail runs. Per point and plane it reads the brick row and the mask-folded
+// corner weights and lerps them (gather.cuh::fused_point_features):
+//   * 'bcast': sum_c row_c * w_c in f32, times the plane's scale row;
+//   * 'dots' (the JAX decoder's default fused_lerp): bf16(bf16(row_c) *
+//     bf16(w_c)) * bf16(scale), summed in f32 corner-major, plane by plane;
+// sums the planes and rounds the mean to bf16 into columns 0:32. Each
+// product and sum of the lerp is rounded on its own (_rn intrinsics, no FMA
+// contraction), in the plain version's order, so the features are the
+// plain version's bit for bit. 4 threads per point, 8 channels each. Four
+// forms, instantiated from one template (corners, row type, lerp):
 //   * tri-grid (PanoHead): 8 corners x 32 int8 channels (256 bytes; one
 //     8-byte load per corner), scale rows = the per-(plane, channel) int8
 //     dequant scale with the 1/3 plane mean folded in;
@@ -56,7 +58,7 @@ __global__ void __launch_bounds__(kDecThreads) brick_decode_kernel(
   ggd::chain_project_tail(s, sMeta, cw, out, Mpad, m0, scale_offset, false, n_points);
 }
 
-template <int kCorners, typename Row>
+template <int kCorners, typename Row, bool kDots>
 __global__ void __launch_bounds__(kDecThreads) fused_decode_kernel(
     const __nv_bfloat16* __restrict__ aux, const Row* __restrict__ rows0,
     const Row* __restrict__ rows1, const Row* __restrict__ rows2,
@@ -74,8 +76,8 @@ __global__ void __launch_bounds__(kDecThreads) fused_decode_kernel(
   for (int pt = tid >> 2; pt < n_rows; pt += kDecThreads / 4) {
     const int part = tid & 3;
     float acc[8];
-    ggd::fused_point_features<kCorners, Row>(rows0, rows1, rows2, wts, scale_rows, m0 + pt, part,
-                                             Mpad, acc);
+    ggd::fused_point_features<kCorners, Row, kDots>(rows0, rows1, rows2, wts, scale_rows,
+                                                    m0 + pt, part, Mpad, acc);
 #pragma unroll
     for (int c = 0; c < 8; ++c) s.X[pt * kXld + part * 8 + c] = __float2bfloat16_rn(acc[c]);
   }
@@ -103,16 +105,16 @@ extern "C" int ggd_brick_decode(const void* staging, const void* w1, const void*
   return (int)cudaGetLastError();
 }
 
-template <int kCorners, typename Row>
+template <int kCorners, typename Row, bool kDots>
 static int launch_fused(const void* aux, const void* rows0, const void* rows1,
                         const void* rows2, const void* wts, const void* scale_rows,
                         const ggd::DecodeChain& cw, void* out, int Mpad, int n_points,
                         float scale_offset, void* stream) {
   const size_t smem = ggd::kDecodeSmemBytes;
-  cudaError_t e = cudaFuncSetAttribute(fused_decode_kernel<kCorners, Row>,
+  cudaError_t e = cudaFuncSetAttribute(fused_decode_kernel<kCorners, Row, kDots>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  fused_decode_kernel<kCorners, Row>
+  fused_decode_kernel<kCorners, Row, kDots>
       <<<(Mpad + kDecPts - 1) / kDecPts, kDecThreads, smem, (cudaStream_t)stream>>>(
           (const __nv_bfloat16*)aux, (const Row*)rows0, (const Row*)rows1, (const Row*)rows2,
           (const float*)wts, (const float*)scale_rows, cw, (float*)out, Mpad, n_points,
@@ -122,22 +124,29 @@ static int launch_fused(const void* aux, const void* rows0, const void* rows1,
 
 // rows0..2 (Mpad, corners * 32): int8 with 8 corners (tri-grid) or bf16
 // with 4 (tri-plane); wts (>= 3 * corners, Mpad) f32 channel-major,
-// scale_rows (3, 32) f32
+// scale_rows (3, 32) f32; dots: the 'dots' lerp (else 'bcast')
 extern "C" int ggd_fused_decode(const void* aux, const void* rows0, const void* rows1,
                                 const void* rows2, const void* wts, const void* scale_rows,
                                 const void* w1, const void* b1, const void* w2, const void* b2,
                                 const void* w3, const void* b3, const void* w4, const void* b4,
                                 const void* cam, const void* meta, void* out, int Mpad,
-                                int n_points, int corners, float scale_offset, void* stream) {
+                                int n_points, int corners, int dots, float scale_offset,
+                                void* stream) {
   if (Mpad <= 0 || n_points > Mpad) return (int)cudaErrorInvalidValue;
   for (const void* p : {aux, rows0, rows1, rows2, w1, w2, w3, w4})
     if (!ggd::aligned16(p)) return (int)cudaErrorMisalignedAddress;
   const ggd::DecodeChain cw = ggd::decode_chain(w1, b1, w2, b2, w3, b3, w4, b4, cam, meta);
-  if (corners == 8)
-    return launch_fused<8, int8_t>(aux, rows0, rows1, rows2, wts, scale_rows, cw, out, Mpad,
-                                   n_points, scale_offset, stream);
-  if (corners == 4)
-    return launch_fused<4, __nv_bfloat16>(aux, rows0, rows1, rows2, wts, scale_rows, cw, out,
-                                          Mpad, n_points, scale_offset, stream);
+#define GGD_FUSED(K, ROW, DOTS)                                                              \
+  return launch_fused<K, ROW, DOTS>(aux, rows0, rows1, rows2, wts, scale_rows, cw, out, Mpad, \
+                                    n_points, scale_offset, stream)
+  if (corners == 8) {
+    if (dots) GGD_FUSED(8, int8_t, true);
+    GGD_FUSED(8, int8_t, false);
+  }
+  if (corners == 4) {
+    if (dots) GGD_FUSED(4, __nv_bfloat16, true);
+    GGD_FUSED(4, __nv_bfloat16, false);
+  }
+#undef GGD_FUSED
   return (int)cudaErrorInvalidValue;
 }

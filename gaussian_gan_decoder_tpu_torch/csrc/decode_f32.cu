@@ -3,7 +3,7 @@
 //
 // They replace the TPU kernels gaussian_gan_decoder_tpu/decoder/
 // pallas_heads.py::decode_project_pallas (K8), decode_project_pallas_fused
-// (K9, its 'bcast' lerp) and decode_project_pallas_slab (K2) at
+// (K9, both lerps) and decode_project_pallas_slab (K2) at
 // compute_dtype f32, the JAX GaussianDecoder's default (heads_bf16=False):
 // `_chain_project_body` with an f32 staging, f32 weights and f32 hidden
 // activations — nothing is rounded to bf16, neither the features, the
@@ -16,9 +16,11 @@
 // project_point on the tile's packed f32 outputs. The entries differ only
 // in how they fill the staging tile's feature columns 0:32:
 //   * K8 (brick_decode_f32_kernel): the prebuilt f32 staging as it is;
-//   * K9 (fused_decode_f32_kernel<K, Row>): the lerp of the gathered brick
-//     rows in f32 (gather.cuh::fused_point_features: 8 int8 tri-grid
-//     corners times their dequant scale, or 4 bf16 tri-plane corners);
+//   * K9 (fused_decode_f32_kernel<K, Row, kDots>): the lerp of the gathered
+//     brick rows (gather.cuh::fused_point_features: 8 int8 tri-grid
+//     corners times their dequant scale, or 4 bf16 tri-plane corners), in
+//     f32 ('bcast') or with the bf16 products of 'dots', which the JAX
+//     decoder keeps at f32 heads too;
 //   * K2 (slab_decode_f32_kernel<kBilinear>): the slab corners in f32
 //     (gather.cuh::slab_point_features: 8 a plane for the tri-grid, 4 for
 //     the bilinear form), zero at pad slots.
@@ -106,7 +108,7 @@ __global__ void __launch_bounds__(kF32Threads, 1) brick_decode_f32_kernel(
                   n_points);
 }
 
-template <int kCorners, typename Row>
+template <int kCorners, typename Row, bool kDots>
 __global__ void __launch_bounds__(kF32Threads, 1) fused_decode_f32_kernel(
     const float* __restrict__ aux, const Row* __restrict__ rows0, const Row* __restrict__ rows1,
     const Row* __restrict__ rows2, const float* __restrict__ wts,
@@ -127,8 +129,8 @@ __global__ void __launch_bounds__(kF32Threads, 1) fused_decode_f32_kernel(
   for (int pt = tid >> 2; pt < n_rows; pt += kF32Threads / 4) {
     const int part = tid & 3;
     float acc[8];
-    ggd::fused_point_features<kCorners, Row>(rows0, rows1, rows2, wts, scale_rows, m0 + pt, part,
-                                             Mpad, acc);
+    ggd::fused_point_features<kCorners, Row, kDots>(rows0, rows1, rows2, wts, scale_rows,
+                                                    m0 + pt, part, Mpad, acc);
 #pragma unroll
     for (int c = 0; c < 8; ++c) s.X[pt * kF32Ld + part * 8 + c] = acc[c];
   }
@@ -205,13 +207,13 @@ extern "C" int ggd_brick_decode_f32(const void* staging, const void* w1, const v
   return (int)cudaGetLastError();
 }
 
-template <int kCorners, typename Row>
+template <int kCorners, typename Row, bool kDots>
 static int launch_fused_f32(const void* aux, const void* rows0, const void* rows1,
                             const void* rows2, const void* wts, const void* scale_rows,
                             const ggd::ChainF32& cw, const void* wsplit, const void* meta,
                             const void* cam, void* out, int Mpad, int n_points, int gelu,
                             float scale_offset, cudaStream_t s) {
-  auto kernel = fused_decode_f32_kernel<kCorners, Row>;
+  auto kernel = fused_decode_f32_kernel<kCorners, Row, kDots>;
   cudaError_t err = allow_smem(kernel);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(Mpad + kF32Pts - 1) / kF32Pts, kF32Threads, ggd::kF32SmemBytes, s>>>(
@@ -223,14 +225,15 @@ static int launch_fused_f32(const void* aux, const void* rows0, const void* rows
 
 // K9-f32. aux (Mpad, 128) f32 with zero feature columns; rows0..2 (Mpad,
 // corners * 32): int8 with 8 corners (tri-grid) or bf16 with 4 (tri-plane);
-// wts (>= 3 * corners, Mpad) f32 channel-major, scale_rows (3, 32) f32
+// wts (>= 3 * corners, Mpad) f32 channel-major, scale_rows (3, 32) f32;
+// dots: the 'dots' lerp (bf16 products, as at bf16), else 'bcast'
 extern "C" int ggd_fused_decode_f32(const void* aux, const void* rows0, const void* rows1,
                                     const void* rows2, const void* wts, const void* scale_rows,
                                     const void* w1, const void* b1, const void* w2,
                                     const void* b2, const void* w3, const void* b3,
                                     const void* w4, const void* b4, const void* cam,
                                     const void* meta, void* wsplit, void* out, int Mpad,
-                                    int n_points, int corners, int n_heads, int gelu,
+                                    int n_points, int corners, int dots, int n_heads, int gelu,
                                     float scale_offset, void* stream) {
   if (Mpad <= 0 || n_points > Mpad) return (int)cudaErrorInvalidValue;
   const ggd::ChainF32 cw = ggd::chain_f32_ptrs(w1, b1, w2, b2, w3, b3, w4, b4);
@@ -239,12 +242,17 @@ extern "C" int ggd_fused_decode_f32(const void* aux, const void* rows0, const vo
   if (corners != 8 && corners != 4) return (int)cudaErrorInvalidValue;
   int e = f32_entry_setup(aligned, 13, cw, wsplit, n_heads, gelu, s);
   if (e != 0) return e;
-  if (corners == 8)
-    return launch_fused_f32<8, int8_t>(aux, rows0, rows1, rows2, wts, scale_rows, cw, wsplit,
-                                       meta, cam, out, Mpad, n_points, gelu, scale_offset, s);
-  return launch_fused_f32<4, __nv_bfloat16>(aux, rows0, rows1, rows2, wts, scale_rows, cw,
-                                            wsplit, meta, cam, out, Mpad, n_points, gelu,
-                                            scale_offset, s);
+#define GGD_FUSED_F32(K, ROW, DOTS)                                                         \
+  return launch_fused_f32<K, ROW, DOTS>(aux, rows0, rows1, rows2, wts, scale_rows, cw,      \
+                                        wsplit, meta, cam, out, Mpad, n_points, gelu,       \
+                                        scale_offset, s)
+  if (corners == 8) {
+    if (dots) GGD_FUSED_F32(8, int8_t, true);
+    GGD_FUSED_F32(8, int8_t, false);
+  }
+  if (dots) GGD_FUSED_F32(4, __nv_bfloat16, true);
+  GGD_FUSED_F32(4, __nv_bfloat16, false);
+#undef GGD_FUSED_F32
 }
 
 // K2-f32. aux (Mpad, 128) f32 static staging (cond, init, valid at 123);

@@ -6,7 +6,8 @@
 // contraction), in the plain versions' order (pallas_heads.
 // slab_features_plain, fused_features_plain), so the features equal the
 // plain versions' bit for bit; the bf16 forms round the result to bf16, the
-// f32 forms keep it.
+// f32 forms keep it. K9 has two lerps, the TPU kernel's lerp_mode 'bcast'
+// and 'dots' (fused_point_features<..., kDots>).
 #pragma once
 
 #include "common.cuh"
@@ -104,11 +105,19 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
   for (int c = 0; c < 8; ++c) v[c] = __bfloat162float(q[c]);
 }
 
-// K9's lerp of the raw brick rows at point m (the JAX 'bcast' form): per
-// plane sum_c row_c * w_c in f32 over kCorners corners (8 int8 tri-grid
-// corners or 4 bf16 tri-plane ones), times the plane's scale row, summed
-// over the planes. wts (>= 3 kCorners, Mpad) channel-major.
-template <int kCorners, typename Row>
+// K9's lerp of the raw brick rows at point m, over kCorners corners (8 int8
+// tri-grid corners or 4 bf16 tri-plane ones); wts (>= 3 kCorners, Mpad)
+// channel-major, scale_rows (3, 32) the plane's dequant scale with the 1/3
+// plane mean folded in.
+//  - 'bcast' (kDots false): per plane sum_c row_c * w_c in f32, times the
+//    plane's scale row, summed over the planes;
+//  - 'dots' (kDots true; the TPU kernel's default, two bf16 matrix-unit
+//    products, pallas_heads.py:454-471): each corner weight rounded to bf16,
+//    each product bf16(row) * bf16(w) rounded to bf16, times the scale
+//    rounded to bf16, accumulated in f32 over the corners of each plane in
+//    order, the planes in order (one sum). bf16 x bf16 products are exact
+//    in f32, so only that order is fixed (the plain version's).
+template <int kCorners, typename Row, bool kDots>
 __device__ __forceinline__ void fused_point_features(
     const Row* __restrict__ rows0, const Row* __restrict__ rows1, const Row* __restrict__ rows2,
     const float* __restrict__ wts, const float* __restrict__ scale_rows, int m, int part,
@@ -119,20 +128,35 @@ __device__ __forceinline__ void fused_point_features(
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
     const Row* row = rows[p] + (size_t)m * (kCorners * kFeatC) + part * 8;
-    float accp[8];
+    const float* sc = scale_rows + p * kFeatC + part * 8;
+    if (kDots) {
+      float s[8];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) accp[c] = 0.f;
+      for (int c = 0; c < 8; ++c) s[c] = bf16r(sc[c]);
 #pragma unroll
-    for (int k = 0; k < kCorners; ++k) {
-      const float w = wts[(size_t)(p * kCorners + k) * Mpad + m];
-      float q[8];
-      load8(row + k * kFeatC, q);
+      for (int k = 0; k < kCorners; ++k) {
+        const float w = bf16r(wts[(size_t)(p * kCorners + k) * Mpad + m]);
+        float q[8];
+        load8(row + k * kFeatC, q);
 #pragma unroll
-      for (int c = 0; c < 8; ++c) accp[c] = __fadd_rn(accp[c], __fmul_rn(q[c], w));
+        for (int c = 0; c < 8; ++c)
+          acc[c] = __fadd_rn(acc[c], __fmul_rn(bf16r(__fmul_rn(q[c], w)), s[c]));
+      }
+    } else {
+      float accp[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) accp[c] = 0.f;
+#pragma unroll
+      for (int k = 0; k < kCorners; ++k) {
+        const float w = wts[(size_t)(p * kCorners + k) * Mpad + m];
+        float q[8];
+        load8(row + k * kFeatC, q);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) accp[c] = __fadd_rn(accp[c], __fmul_rn(q[c], w));
+      }
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[c] = __fadd_rn(acc[c], __fmul_rn(accp[c], sc[c]));
     }
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      acc[c] = __fadd_rn(acc[c], __fmul_rn(accp[c], scale_rows[p * kFeatC + part * 8 + c]));
   }
 }
 

@@ -26,14 +26,18 @@ package's decode_project dispatches:
     make_slab_context packs the static template once on the host (same
     packing and npz disk cache as the JAX package);
   * fused_sampling: the brick table, the per-plane brick-row gathers
-    (sample_fused_inputs) and the gather-fused decode K9;
+    (sample_fused_inputs) and the gather-fused decode K9 with the
+    fused_lerp option's lerp ('dots', the JAX default, or 'bcast');
   * otherwise: the brick table, the table sample, the plane mean and the
     decode K8 over the prebuilt staging.
 Each decode kernel runs in the chain's dtype: bf16 (heads_bf16, the JAX
 flagship's) or f32 (3xTF32 on the tensor cores, csrc/decode_f32.cu). The
 brick routes need no per-template pack; their rows come out in template
 order, padded to a multiple of 1024 points. Their table is the int8 brick
-table of K10 on a PanoHead tri-grid; on an EG3D tri-plane (depth 1) it is
+table of K10 on a PanoHead tri-grid (pallas_sampling False or True: K10's
+rotate form, the JAX XLA and Pallas builds of the same table; "select": its
+select form, the JAX _expand_kernel_select); on an EG3D tri-plane (depth 1,
+which ignores pallas_sampling, as JAX does) it is
 the plain bf16 bilinear table, the JAX decoder's brick dtype there, and the
 slab route takes the bilinear pack and K2's bilinear form. decode_packed
 runs the chain alone (K6 in the chain's dtype) on the table route's
@@ -65,9 +69,9 @@ from torch import nn
 
 from ..models.pallas_mapping import FoldedMapping, fold_mapping, mapping_forward
 from ..models.triplane import TriPlaneGenerator, TriPlaneGeneratorConfig
-from ..neuralfield.renderer import (build_plane_table, build_slab_volume, decode_brick_dtype,
-                                   sample_from_planes, sample_fused_inputs)
-from .pallas_heads import (C, GELUS, STAGE, ChainWeights, build_brick_staging, build_staging,
+from ..neuralfield.renderer import (PALLAS_BUILDS, build_plane_table, build_slab_volume,
+                                   decode_brick_dtype, sample_from_planes, sample_fused_inputs)
+from .pallas_heads import (C, GELUS, LERPS, STAGE, ChainWeights, build_brick_staging, build_staging,
                            chain_dtype, decode_heads, decode_project, decode_project_fused,
                            decode_project_slab, pack_chain, softplus)
 from .pallas_heads_vjp import decode_heads_pallas_diff
@@ -144,6 +148,8 @@ class GaussianDecoderConfig:
     heads_bf16: bool = False
     pallas_heads: bool = False
     pallas_heads_train: bool = False
+    pallas_sampling: object = False   # False, True or "select"
+    fused_lerp: str = "dots"          # 'dots' or 'bcast'
 
 
 class _NoVJP(torch.autograd.Function):
@@ -180,27 +186,38 @@ class GaussianDecoder(nn.Module):
     f32), pallas_heads and pallas_heads_train pick decode_from_planes'
     route. flagship.flagship_decoder sets heads_bf16 and pallas_heads, as
     the JAX flagship does; the trainer (apps/train_decoder.py) passes the
-    JAX trainer's values. Every option is read from `config`, so a snapshot
-    records what the decoder runs."""
+    JAX trainer's values. pallas_sampling (False, True or "select") picks
+    the tri-grid brick table's build on the inference brick routes and
+    fused_lerp ('dots' or 'bcast') K9's lerp, as in JAX (the training
+    route's sample is the direct, differentiable gather whatever
+    pallas_sampling says: the JAX Pallas build has no VJP). Every option is
+    read from `config`, so a snapshot records what the decoder runs."""
 
     def __init__(self, generator: TriPlaneGenerator, gelu: str = "poly6",
                  rng: Optional[torch.Generator] = None, device=None,
                  fused_sampling: bool = False, decoder_type: str = "sequential_reversed",
                  hidden_dim: int = HIDDEN, use_xyz_embedding: bool = False,
                  heads_bf16: bool = False, pallas_heads: bool = False,
-                 pallas_heads_train: bool = False):
+                 pallas_heads_train: bool = False, pallas_sampling=False,
+                 fused_lerp: str = "dots"):
         super().__init__()
         if decoder_type not in CHAINS:
             raise ValueError(f"decoder_type {decoder_type!r}: one of {sorted(CHAINS)}")
         if gelu not in GELUS:
             raise ValueError(f"gelu {gelu!r}: one of {sorted(GELUS)}")
+        if pallas_sampling not in PALLAS_BUILDS:
+            raise ValueError(f"pallas_sampling {pallas_sampling!r}: one of {PALLAS_BUILDS}")
+        if fused_lerp not in LERPS:
+            raise ValueError(f"fused_lerp {fused_lerp!r}: one of {LERPS}")
         self.G = generator
         # fused_sampling: the brick route's gather-fused decode K9 in place
         # of the table sample + K8 (the JAX decoder's fused_sampling)
         self.config = GaussianDecoderConfig(
             generator.config, gelu, bool(fused_sampling), decoder_type, int(hidden_dim),
             bool(use_xyz_embedding), bool(heads_bf16), bool(pallas_heads),
-            bool(pallas_heads_train))
+            bool(pallas_heads_train),
+            pallas_sampling if pallas_sampling == "select" else bool(pallas_sampling),
+            fused_lerp)
         self.chain_spec = CHAINS[decoder_type]
         self.parallel = decoder_type == "parallel"
         self.scale_offset = SCALE_OFFSET if decoder_type == "sequential_reversed" else -2.0
@@ -226,11 +243,13 @@ class GaussianDecoder(nn.Module):
                    fused_sampling=config.fused_sampling, decoder_type=config.decoder_type,
                    hidden_dim=config.hidden_dim, use_xyz_embedding=config.use_xyz_embedding,
                    heads_bf16=config.heads_bf16, pallas_heads=config.pallas_heads,
-                   pallas_heads_train=config.pallas_heads_train)
+                   pallas_heads_train=config.pallas_heads_train,
+                   pallas_sampling=config.pallas_sampling, fused_lerp=config.fused_lerp)
 
     # the options, read from config (dataclasses.replace it to change a
     # runtime option: heads_bf16, pallas_heads, pallas_heads_train,
-    # fused_sampling, gelu; the rest fix the heads' shapes)
+    # fused_sampling, gelu, pallas_sampling, fused_lerp; the rest fix the
+    # heads' shapes)
     gelu = property(lambda self: self.config.gelu)
     fused_sampling = property(lambda self: self.config.fused_sampling)
     decoder_type = property(lambda self: self.config.decoder_type)
@@ -239,6 +258,8 @@ class GaussianDecoder(nn.Module):
     heads_bf16 = property(lambda self: self.config.heads_bf16)
     pallas_heads = property(lambda self: self.config.pallas_heads)
     pallas_heads_train = property(lambda self: self.config.pallas_heads_train)
+    pallas_sampling = property(lambda self: self.config.pallas_sampling)
+    fused_lerp = property(lambda self: self.config.fused_lerp)
 
     def heads(self) -> Dict[str, DecoderHead]:
         """name -> head, in chain order."""
@@ -389,7 +410,8 @@ class GaussianDecoder(nn.Module):
 
     def _brick_table(self, planes):
         D = self.G.triplane_depth
-        return build_plane_table(planes, D, brick_dtype=decode_brick_dtype(D))
+        return build_plane_table(planes, D, brick_dtype=decode_brick_dtype(D),
+                                 pallas_build=self.pallas_sampling if D > 1 else False)
 
     @torch.no_grad()
     def decode_packed(self, weights: InferenceWeights, planes, init_position):
@@ -460,7 +482,8 @@ class GaussianDecoder(nn.Module):
             rows_in, wts, scale_rows = sample_fused_inputs(
                 g.plane_axes, planes, pos[None], box_warp, D, table=table, pad_to=Mpad)
             tick("sample")
-            rows = decode_project_fused(cw, aux, rows_in, wts, scale_rows, cam, M)
+            rows = decode_project_fused(cw, aux, rows_in, wts, scale_rows, cam, M,
+                                        lerp=self.fused_lerp)
         else:
             feats = sample_from_planes(g.plane_axes, planes, pos[None], box_warp, D,
                                        table=table)[0]

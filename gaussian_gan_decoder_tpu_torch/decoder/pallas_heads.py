@@ -364,18 +364,20 @@ def decode_project_slab_plain(cw: ChainWeights, vol, scales, ctx, cam):
 # f32 staging and chain take the f32 form, csrc/decode_f32.cu),
 # each 128-point block loading its rows. Kernel K9, fused_decode_kernel,
 # replaces decode_project_pallas_fused: it builds the staging's feature
-# columns from the raw brick rows (dequant, corner lerp and plane mean in
-# f32, rounded to bf16), then runs the same tail. Two forms, instantiated
-# from one template: the tri-grid's 8 int8 corners with per-(plane,
-# channel) dequant scales, and the EG3D tri-plane's 4 bf16 corners, whose
-# scale rows are the 1/3 plane mean alone. The TPU kernel's default
-# 'dots' lerp rounds the corner weights and products to bf16 to feed its
-# matrix unit; it is the same function at lower precision, so the port
-# implements the f32 'bcast' form only. What bounds both on the H100: the
-# chain's operations (as K2); K9 also reads ~0.8 KB of brick rows and
-# weights per point. Numerics are K2's bf16 rounding points. Unlike K2 there
-# is no valid column: pad slots are zero staging rows, and only `visible` is
-# culled, by column < n_points, as the TPU kernels do.
+# columns from the raw brick rows (dequant, corner lerp and plane mean),
+# then runs the same tail. Two lerps, the TPU kernel's lerp_modes: 'bcast'
+# in f32 (per plane sum_c row_c w_c, times the scale row), and 'dots' (the
+# JAX decoder's default fused_lerp, at bf16 and f32 heads alike), which
+# rounds each corner weight, each product bf16(row) bf16(w) and the folded
+# scale to bf16, as its two bf16 matrix-unit products do, and sums in f32;
+# the features are rounded to bf16 at bf16 heads. Two corner forms,
+# instantiated from one template: the tri-grid's 8 int8 corners with
+# per-(plane, channel) dequant scales, and the EG3D tri-plane's 4 bf16
+# corners, whose scale rows are the 1/3 plane mean alone. What bounds both
+# on the H100: the chain's operations (as K2); K9 also reads ~0.8 KB of
+# brick rows and weights per point. Numerics are K2's bf16 rounding points.
+# Unlike K2 there is no valid column: pad slots are zero staging rows, and
+# only `visible` is culled, by column < n_points, as the TPU kernels do.
 
 DECODE_BLOCK = 1024   # the brick route's Mpad multiple (the JAX kernels' block)
 # K9's forms: corners per tap -> brick-row dtype (tri-grid int8, tri-plane bf16)
@@ -479,13 +481,28 @@ decode_project.launches = 0
 decode_project.launches_f32 = 0
 
 
-def fused_features_plain(rows, wts, scale_rows):
-    """The plane-mean sample from raw brick rows: per plane sum_c row_c *
-    w_c in f32, times the plane's scale row, summed over the planes -> (m,
-    C) f32. rows n_planes x (m, K*C) (K = 8 tri-grid or 4 tri-plane
-    corners), wts (WR, m)."""
+LERPS = ("bcast", "dots")
+
+
+def fused_features_plain(rows, wts, scale_rows, lerp: str = "bcast"):
+    """The plane-mean sample from raw brick rows -> (m, C) f32; rows
+    n_planes x (m, K*C) (K = 8 tri-grid or 4 tri-plane corners), wts (WR,
+    m). 'bcast': per plane sum_c row_c * w_c in f32, times the plane's scale
+    row, summed over the planes. 'dots': sum over the planes and, within
+    each, the corners in order of bf16(bf16(row_c) * bf16(w_c)) *
+    bf16(scale row), in f32."""
     K = rows[0].shape[1] // C
+    bf = lambda x: x.to(torch.bfloat16).float()   # noqa: E731
     acc = 0.0
+    if lerp == "dots":
+        for p, r in enumerate(rows):
+            s = bf(scale_rows[p])[None, :]
+            for c in range(K):
+                prod = bf(bf(r[:, c * C:(c + 1) * C].float()) * bf(wts[p * K + c])[:, None])
+                acc = acc + prod * s
+        return acc
+    if lerp != "bcast":
+        raise ValueError(f"lerp {lerp!r}: one of {LERPS}")
     for p, r in enumerate(rows):
         accp = 0.0
         for c in range(K):
@@ -495,7 +512,7 @@ def fused_features_plain(rows, wts, scale_rows):
 
 
 def decode_project_fused_plain(cw: ChainWeights, aux, rows, wts, scale_rows, cam,
-                               n_points: int):
+                               n_points: int, lerp: str = "bcast"):
     """Plain PyTorch version of K9 -> rows (NROWS, Mpad) f32, chunked."""
     Mpad = aux.shape[0]
     out = torch.empty((NROWS, Mpad), dtype=torch.float32, device=aux.device)
@@ -503,25 +520,30 @@ def decode_project_fused_plain(cw: ChainWeights, aux, rows, wts, scale_rows, cam
         sl = slice(m0, min(Mpad, m0 + PLAIN_CHUNK))
         staging = aux[sl].float()
         staging[:, 0:C] = _round_to(fused_features_plain([r[sl] for r in rows], wts[:, sl],
-                                                         scale_rows), chain_dtype(cw))
+                                                         scale_rows, lerp), chain_dtype(cw))
         out[:, sl] = chain_project_plain(staging, cw, cam)
     out[PROJ_ROWS["visible"], n_points:] = 0.0
     return out
 
 
 def decode_project_fused(cw: ChainWeights, aux: torch.Tensor, rows, wts: torch.Tensor,
-                         scale_rows: torch.Tensor, cam, n_points: int) -> torch.Tensor:
+                         scale_rows: torch.Tensor, cam, n_points: int,
+                         lerp: str = "bcast") -> torch.Tensor:
     """Gather-fused heads + projection (inputs from renderer.
     sample_fused_inputs; aux = build_brick_staging with zero features, in
-    the chain's dtype) -> rows (NROWS, Mpad) f32 in point order, the
-    contract of decode_project. rows: 3 planes of int8 (Mpad, 8*32)
-    tri-grid rows, or bf16 (Mpad, 4*32) tri-plane rows. CPU tensors take the
-    plain version, CUDA tensors K9 in the matching form, bf16 (counted in
-    decode_project_fused.launches) or f32 (launches_f32)."""
+    the chain's dtype) -> rows (NROWS, Mpad) f32 in point
+    order, the contract of decode_project. rows: 3 planes of int8 (Mpad,
+    8*32) tri-grid rows, or bf16 (Mpad, 4*32) tri-plane rows; lerp 'bcast'
+    or 'dots' (the TPU kernel's lerp_mode). CPU tensors take the plain
+    version, CUDA tensors K9 in the matching form, counted by chain dtype
+    and lerp: launches (bf16, 'bcast'), launches_f32, launches_dots,
+    launches_dots_f32."""
     if len(rows) != 3:
         raise ValueError("the fused decode takes 3 planes")
+    if lerp not in LERPS:
+        raise ValueError(f"lerp {lerp!r}: one of {LERPS}")
     if not kernel_lib.use_kernel(aux, wts, cw.w1, *rows):
-        return decode_project_fused_plain(cw, aux, rows, wts, scale_rows, cam, n_points)
+        return decode_project_fused_plain(cw, aux, rows, wts, scale_rows, cam, n_points, lerp)
     lib = kernel_lib.library()
     Mpad = aux.shape[0]
     _check_brick_args(Mpad, n_points)
@@ -541,23 +563,27 @@ def decode_project_fused(cw: ChainWeights, aux: torch.Tensor, rows, wts: torch.T
     inputs = [aux.data_ptr(), *[r.data_ptr() for r in rows], wts.data_ptr(),
               scale_rows.data_ptr()]
     ptrs = _chain_ptrs(cw, _cam_consts(cam, aux.device))
+    dots = int(lerp == "dots")
     if dt == torch.bfloat16:
-        code = lib.ggd_fused_decode(*inputs, *ptrs, out.data_ptr(), Mpad, n_points, K,
+        code = lib.ggd_fused_decode(*inputs, *ptrs, out.data_ptr(), Mpad, n_points, K, dots,
                                     cw.scale_offset, kernel_lib.stream())
         kernel_lib.raise_on_error(code, "fused_decode_kernel")
-        decode_project_fused.launches += 1
-        return out
-    wsplit = _split_scratch(cw)
-    code = lib.ggd_fused_decode_f32(*inputs, *ptrs, wsplit.data_ptr(), out.data_ptr(), Mpad,
-                                    n_points, K, cw.w1.shape[0], _GELU_IDS[cw.gelu],
-                                    cw.scale_offset, kernel_lib.stream())
-    kernel_lib.raise_on_error(code, "fused_decode_f32_kernel")
-    decode_project_fused.launches_f32 += 1
+        attr = "launches_dots" if dots else "launches"
+    else:
+        wsplit = _split_scratch(cw)
+        code = lib.ggd_fused_decode_f32(*inputs, *ptrs, wsplit.data_ptr(), out.data_ptr(), Mpad,
+                                        n_points, K, dots, cw.w1.shape[0], _GELU_IDS[cw.gelu],
+                                        cw.scale_offset, kernel_lib.stream())
+        kernel_lib.raise_on_error(code, "fused_decode_f32_kernel")
+        attr = "launches_dots_f32" if dots else "launches_f32"
+    setattr(decode_project_fused, attr, getattr(decode_project_fused, attr) + 1)
     return out
 
 
 decode_project_fused.launches = 0
 decode_project_fused.launches_f32 = 0
+decode_project_fused.launches_dots = 0
+decode_project_fused.launches_dots_f32 = 0
 
 
 def _cam_consts(cam, device):

@@ -54,17 +54,26 @@ def flagship_decoder(gen: Optional[TriPlaneGenerator] = None,
                      fused_sampling: bool = False, gelu: str = "poly") -> GaussianDecoder:
     """The JAX package's flagship decoder: sequential_reversed heads (hidden
     128), the fused mapping, polynomial GELU ("poly"), bf16 chain
-    (heads_bf16, pallas_heads), int8 bricks; fused_sampling takes the
+    (heads_bf16, pallas_heads), int8 bricks built by the kernel
+    (pallas_sampling), the 'dots' fused lerp; fused_sampling takes the
     gather-fused decode (K9) on the brick route. The slab route runs the
     coarser "poly6" GELU, as the JAX benchmark sets it: gelu="poly6"."""
     dev = resolve_device(device)
     return GaussianDecoder(gen or flagship_generator(rng=rng, device=dev),
                            gelu=gelu, rng=rng, device=dev, fused_sampling=fused_sampling,
-                           heads_bf16=True, pallas_heads=True)
+                           heads_bf16=True, pallas_heads=True, pallas_sampling=True)
 
 
 def flagship_raster_config() -> RasterizeConfig:
-    return RasterizeConfig(tile_size=16, tile_capacity=640)
+    """The JAX flagship frame's raster settings: 16 x 16 tiles, each blending
+    its first 640 pairs, packed_v3 payloads (tile-local int16 coordinates,
+    f16 conic and opacity, 10-bit rgb: 4 words a pair) binned under the
+    fused 32-bit sort key with static_copies 2 as its tie-order class cap;
+    the falloff computed directly (blend_mxu_power off). For f32 payloads
+    pass RasterizeConfig(tile_capacity=640)."""
+    return RasterizeConfig(tile_size=16, tile_capacity=640, static_copies=2, bf16_colors=True,
+                           packed_payloads=True, rgb10_payloads=True, fused_sort_key=True,
+                           blend_mxu_power=False)
 
 
 def default_camera_params(fov_deg: float = 13.0, device="cuda"):

@@ -43,7 +43,7 @@ _SIGNATURES = {
     # slab_decode.cu
     "ggd_slab_decode": [_P] * 17 + [_I] * 7 + [_F, _F, _P],
     # blend.cu
-    "ggd_blend_tiles": [_P, _P, _P] + [_I] * 5 + [_P],
+    "ggd_blend_tiles": [_P, _P, _P] + [_I] * 7 + [_P],
     # blend_train.cu
     "ggd_blend_train_fwd": [_P] * 4 + [_I] * 6 + [_P],
     "ggd_blend_train_bwd": [_P] * 6 + [_I] * 6 + [_P],
@@ -52,12 +52,13 @@ _SIGNATURES = {
     "ggd_heads_bwd": [_P] * 15 + [_I, _I, _F, _P],
     # brick_table.cu
     "ggd_brick_table": [_P, _P] + [_I] * 6 + [_P],
+    "ggd_brick_table_select": [_P, _P] + [_I] * 7 + [_P],
     # brick_decode.cu
     "ggd_brick_decode": [_P] * 12 + [_I, _I, _F, _P],
-    "ggd_fused_decode": [_P] * 17 + [_I, _I, _I, _F, _P],
+    "ggd_fused_decode": [_P] * 17 + [_I] * 4 + [_F, _P],
     # decode_f32.cu
     "ggd_brick_decode_f32": [_P] * 13 + [_I] * 4 + [_F, _P],
-    "ggd_fused_decode_f32": [_P] * 18 + [_I] * 5 + [_F, _P],
+    "ggd_fused_decode_f32": [_P] * 18 + [_I] * 6 + [_F, _P],
     "ggd_slab_decode_f32": [_P] * 18 + [_I] * 9 + [_F, _F, _P],
     # heads_bf16.cu
     "ggd_heads_fwd_bf16": [_P] * 11 + [_I, _F, _P],

@@ -19,8 +19,17 @@ Output contract (the JAX function's): a table (B, (D+1) * NY * (W+1), 8C)
 in the input dtype and NY, with NY = roundup(H+1, 16) for 1- and 2-byte
 inputs and roundup(H+1, 8) for 4-byte ones. Row (z0 * NY + y0) * (W+1) + x0
 holds the 8 corners in (dz, dy, dx) order. Rows with y0 > H are zeros here;
-in the JAX package they hold garbage (the sampler never indexes them). The
-TPU's select=True store pattern gives the same table and is not ported.
+in the JAX package they hold garbage (the sampler never indexes them).
+
+The select form, csrc/brick_table.cu::brick_table_kernel<true>, replaces
+the TPU kernel's second body, _expand_kernel_select (build_brick_table(...,
+select=True)): its source is the channels-last volume tiled to 128
+elements a voxel (128 / C copies of the C channels, the JAX wrapper's
+jnp.tile), and corner group g reads its channels at element (g mod 128 / C)
+* C of the duplicated row, where the TPU kernel's masked selects find them.
+It builds the same table byte for byte. As in JAX, select takes the
+duplicated source only where 128 % C == 0 and 8C % 128 == 0, and the
+rotate form otherwise.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import torch.nn.functional as F
 from .. import kernel_lib
 
 YB = 16   # y alignment of NY for 1- and 2-byte bricks (8 for 4-byte)
+LANE = 128  # elements a duplicated source row (the TPU's lane width)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -92,9 +102,70 @@ def brick_table(fp: torch.Tensor, NY: int) -> torch.Tensor:
 brick_table.launches = 0
 
 
-def build_brick_table(feats: torch.Tensor):
+def select_applies(C: int) -> bool:
+    """Whether select=True takes the duplicated source for C channels (the
+    JAX build_brick_table's condition; the rotate form otherwise)."""
+    return LANE % C == 0 and (8 * C) % LANE == 0
+
+
+def duplicated_channels_last(feats: torch.Tensor) -> torch.Tensor:
+    """(B, C, D, H, W) -> the select form's source (B, D+2, H+2, W+2, 128):
+    padded_channels_last with each voxel's C channels tiled 128 / C times."""
+    return padded_channels_last(feats).repeat(1, 1, 1, 1, LANE // feats.shape[1])
+
+
+def brick_table_select_plain(fpd: torch.Tensor, NY: int, C: int) -> torch.Tensor:
+    """Plain PyTorch version of K10's select form: the duplicated source
+    (B, D+2, H+2, W+2, 128) -> table, corner group g from elements (g mod
+    128 / C) * C of the shifted view."""
+    B, D2, H2, W2, _ = fpd.shape
+    D, H, W = D2 - 2, H2 - 2, W2 - 2
+    gpt = LANE // C
+    e = torch.cat([fpd[:, dz:dz + D + 1, dy:dy + H + 1, dx:dx + W + 1,
+                       (g % gpt) * C:(g % gpt + 1) * C]
+                   for g, (dz, dy, dx) in enumerate((dz, dy, dx) for dz in (0, 1)
+                                                    for dy in (0, 1) for dx in (0, 1))],
+                  dim=-1)
+    e = F.pad(e, (0, 0, 0, 0, 0, NY - (H + 1)))
+    return e.reshape(B, (D + 1) * NY * (W + 1), 8 * C)
+
+
+def brick_table_select(fpd: torch.Tensor, NY: int, C: int) -> torch.Tensor:
+    """K10's select form: the duplicated source (duplicated_channels_last)
+    -> the table (B, (D+1) * NY * (W+1), 8C), byte for byte brick_table's.
+    CPU tensors take the plain version, CUDA tensors the kernel (counted in
+    brick_table_select.launches)."""
+    if not select_applies(C) or fpd.shape[-1] != LANE:
+        raise ValueError(f"select form: C {C} must divide {LANE} with 8C a multiple of it, "
+                         f"the source {LANE} elements a voxel (got {fpd.shape[-1]})")
+    if not kernel_lib.use_kernel(fpd):
+        return brick_table_select_plain(fpd, NY, C)
+    B, D2, H2, W2, _ = fpd.shape
+    itemsize = fpd.element_size()
+    if (C * itemsize) % 16:
+        raise ValueError(f"C * itemsize = {C * itemsize}: K10 copies 16-byte chunks")
+    if NY < H2 - 1:
+        raise ValueError(f"NY {NY} < H + 1 = {H2 - 1}")
+    lib = kernel_lib.library()
+    kernel_lib.check(fpd, "duplicated volume", fpd.dtype)
+    out = torch.empty((B, (D2 - 1) * NY * (W2 - 1), 8 * C), dtype=fpd.dtype, device=fpd.device)
+    code = lib.ggd_brick_table_select(fpd.data_ptr(), out.data_ptr(), B, D2 - 2, H2 - 2, W2 - 2,
+                                      NY, C * itemsize // 16, LANE // C, kernel_lib.stream())
+    kernel_lib.raise_on_error(code, "brick_table_kernel<select>")
+    brick_table_select.launches += 1
+    return out
+
+
+brick_table_select.launches = 0
+
+
+def build_brick_table(feats: torch.Tensor, select: bool = False):
     """(B, C, D, H, W) volume -> (table (B, (D+1) * NY * (W+1), 8C), NY) in
-    feats' dtype: the transpose and zero pad in plain PyTorch, then
-    brick_table (K10 on the card)."""
+    feats' dtype: the transpose and zero pad (with select, where
+    select_applies, also the channel tile) in plain PyTorch, then
+    brick_table or brick_table_select (K10's forms on the card)."""
     NY = table_rows_ny(feats.shape[3], feats.element_size())
+    C = feats.shape[1]
+    if select and select_applies(C):
+        return brick_table_select(duplicated_channels_last(feats), NY, C), NY
     return brick_table(padded_channels_last(feats), NY), NY

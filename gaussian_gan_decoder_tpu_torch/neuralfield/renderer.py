@@ -125,17 +125,26 @@ def decode_brick_dtype(triplane_depth: int) -> torch.dtype:
     return torch.int8 if triplane_depth > 1 else torch.bfloat16
 
 
-def build_plane_table(plane_features: torch.Tensor, triplane_depth: int, brick_dtype=None):
+PALLAS_BUILDS = (False, True, "select")
+
+
+def build_plane_table(plane_features: torch.Tensor, triplane_depth: int, brick_dtype=None,
+                      pallas_build=False):
     """The corner-brick table of the planes (N, 3, C*D, H, W), built once
     per frame. Tri-grid: brick_dtype torch.int8 quantises the raw volume
     with symmetric absmax scales per (plane, channel) and expands the int8
     volume -> (e, NY, scales (N*3, C) f32); a float brick_dtype (or None:
     the planes' dtype) -> (e, NY). The expansion is pallas_expand.
     build_brick_table (K10 on the card; on the CPU its plain version, the
-    JAX package's XLA 8-slice concat with NY padded as K10 pads it).
-    Tri-plane (depth 1): a float table only, as in the JAX package ->
-    (e,), e (N*3, (H+1)*(W+1), 4*C), built in plain PyTorch
-    (_bilinear_table)."""
+    JAX package's XLA 8-slice concat with NY padded as K10 pads it):
+    pallas_build False or True (the JAX XLA and Pallas builds of the same
+    table) take K10's rotate form, "select" its select form (JAX
+    _trilinear_table's pallas_build). Tri-plane (depth 1): a float table
+    only, as in the JAX package -> (e,), e (N*3, (H+1)*(W+1), 4*C), built
+    in plain PyTorch (_bilinear_table); pallas_build does not apply."""
+    if pallas_build not in PALLAS_BUILDS:
+        raise ValueError(f"pallas_build {pallas_build!r}: one of {PALLAS_BUILDS}")
+    select = pallas_build == "select"
     N, n_planes, CD, H, W = plane_features.shape
     C, D = CD // triplane_depth, triplane_depth
     if D == 1:
@@ -147,11 +156,11 @@ def build_plane_table(plane_features: torch.Tensor, triplane_depth: int, brick_d
         return _bilinear_table(plane_features.reshape(N * n_planes, C, H, W))
     if brick_dtype == torch.int8:
         q8, scales = _quantize_int8(plane_features.float().reshape(N * n_planes, C, D, H, W))
-        e, NY = build_brick_table(q8)
+        e, NY = build_brick_table(q8, select=select)
         return e, NY, scales
     if brick_dtype is not None:
         plane_features = plane_features.to(brick_dtype)
-    return build_brick_table(plane_features.reshape(N * n_planes, C, D, H, W))
+    return build_brick_table(plane_features.reshape(N * n_planes, C, D, H, W), select=select)
 
 
 def _bilinear_table(feats: torch.Tensor):
@@ -232,7 +241,7 @@ def _trilinear_sample_table(table, C: int, D: int, H: int, W: int, grid: torch.T
 
 def sample_from_planes(plane_axes: np.ndarray, plane_features: torch.Tensor,
                        coordinates: torch.Tensor, box_warp: float,
-                       triplane_depth: int, table=None) -> torch.Tensor:
+                       triplane_depth: int, table=None, pallas_build=False) -> torch.Tensor:
     """Probe of the planes at world coords (torch grid_sample semantics,
     align_corners=False, zeros padding): trilinear on a tri-grid (D > 1),
     bilinear on a tri-plane (D == 1, the plane-local z ignored);
@@ -242,13 +251,18 @@ def sample_from_planes(plane_axes: np.ndarray, plane_features: torch.Tensor,
     With table (build_plane_table's output, reused across calls) it samples
     the brick table: f32 out for int8 bricks, the planes' dtype otherwise.
     Without it it gathers the corners directly, in the planes' dtype,
-    differentiably."""
+    differentiably, unless pallas_build (True or "select") asks for a
+    tri-grid table: then it builds the planes' float table as
+    build_plane_table does (K10's rotate or select form) and samples it, as
+    the JAX function does (no gradient through the kernel)."""
     N, n_planes, CD, H, W = plane_features.shape
     M = coordinates.shape[1]
     D = triplane_depth
     C = CD // D
     proj = project_onto_planes(plane_axes, (2.0 / box_warp) * coordinates)
     proj = proj.reshape(N * n_planes, M, 3)
+    if table is None and pallas_build and D > 1:
+        table = build_plane_table(plane_features, D, pallas_build=pallas_build)
     if D == 1:
         return _sample_tri_plane(plane_features, proj, table).reshape(
             N, n_planes, M, C).to(plane_features.dtype)
@@ -301,11 +315,12 @@ def _sample_tri_plane(plane_features, proj, table=None):
 
 def sample_fused_inputs(plane_axes: np.ndarray, plane_features: torch.Tensor,
                         coordinates: torch.Tensor, box_warp: float, triplane_depth: int,
-                        pad_to: int, table=None):
+                        pad_to: int, table=None, pallas_build=False):
     """Inputs of the gather-fused decode (decoder/pallas_heads.py::
     decode_project_fused, kernel K9) for one scene, from the plane table
-    (built here when table is None: int8 on a tri-grid, bf16 on a depth-1
-    tri-plane, the JAX decoder's brick dtypes): plane_features (1, 3, C*D,
+    (built here when table is None, with pallas_build as build_plane_table
+    takes it: int8 on a tri-grid, bf16 on a depth-1 tri-plane, the JAX
+    decoder's brick dtypes): plane_features (1, 3, C*D,
     H, W), coordinates (1, M, 3) -> (rows, wts, scale_rows), with K = 8
     corners per tap on a tri-grid and 4 on a tri-plane:
 
@@ -319,7 +334,10 @@ def sample_fused_inputs(plane_axes: np.ndarray, plane_features: torch.Tensor,
       scale_rows - (n_planes, C) f32: the int8 dequant scales with the
                    1/n_planes plane mean folded in, or the plane mean alone
                    for a float table (what the JAX kernel's 'bcast' lerp
-                   recovers from its segment matrices)."""
+                   recovers from its segment matrices). The 'dots' lerp
+                   rounds it to bf16 where it applies it (K9 and its plain
+                   version), as the JAX kernel rounds its segment matrices
+                   (smats) before its segment-sum product."""
     N, n_planes, CD, H, W = plane_features.shape
     if N != 1:
         raise ValueError("fused sampling is single-scene (the decode hot path)")
@@ -332,7 +350,7 @@ def sample_fused_inputs(plane_axes: np.ndarray, plane_features: torch.Tensor,
         n_planes, M, 3)
     if table is None:
         table = build_plane_table(plane_features, triplane_depth,
-                                  brick_dtype=decode_brick_dtype(D))
+                                  brick_dtype=decode_brick_dtype(D), pallas_build=pallas_build)
     e = table[0]
     K = 8 if D > 1 else 4
 

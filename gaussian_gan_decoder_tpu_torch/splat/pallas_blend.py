@@ -1,31 +1,48 @@
-"""Per-tile front-to-back alpha blending — port of splat/pallas_blend.py
-(f32 payload, inference path).
+"""Per-tile front-to-back alpha blending — port of splat/pallas_blend.py:
+the frame blend (K3) in its four payload formats, and the training blend
+(K4 / K5) below.
 
-Kernel K3, csrc/blend.cu::blend_kernel, replaces the TPU kernel
-splat/pallas_blend.py::pallas_blend (`_blend_kernel`, payload_format
-'f32'). What bounds it on the H100: the issue rate of the CUDA cores. T
-keeps decaying past the stop, so no pixel stops early: each blended pair is
-evaluated at every pixel of its tile within the pair's reach, each
-evaluation a chain of ~28 f32 operations and an exp (the falloff is rounded
-op by op, without FMAs); the pair stream of a tile is read once. Its design: one block of 128 threads per 16x16 tile, each
-warp 4 of the tile's rows, each thread two pixels of one column, so a pair
-read from shared memory and the falloff's dx terms serve two pixels and two
+Kernel K3, csrc/blend.cu::blend_kernel<format, mxu_power>, replaces the TPU
+kernel splat/pallas_blend.py::pallas_blend (`_blend_kernel`, every
+payload_format and mxu_power). What bounds it on the H100: the issue rate
+of the CUDA cores. T keeps decaying past the stop, so no pixel stops early:
+each blended pair is evaluated at every pixel of its tile within the pair's
+reach, each evaluation a chain of ~28 f32 operations and an exp (the
+falloff is rounded op by op, without FMAs); the pair stream of a tile is
+read once. Its design: one block of 128 threads per 16x16 tile, each warp 4
+of the tile's rows, each thread two pixels of one column, so a pair read
+from shared memory and the falloff's dx terms serve two pixels and two
 independent transmittance chains overlap their latencies; the tile's
-depth-sorted pairs are staged pair-major (three 16-byte loads a pair),
-double-buffered by cp.async in chunks of 64, so the next chunk's loads
-overlap this chunk's blend; a warp skips a pair whose reach (the ellipse
-beyond which its alpha is below 1/255, with margins for rounding) misses its
-rows of the tile, as its alpha would be 0 at each pixel there. The blend is
-the sequential form of the TPU kernel's in-chunk cumprod.
+depth-sorted pair words are staged by cp.async, double-buffered in chunks
+of 64, and the thread that staged a pair unpacks it once into 12 floats
+(three 16-byte shared loads a pair for every reader); a warp skips a pair
+whose reach (the ellipse beyond which its alpha is below 1/255, with
+margins for rounding, from the unpacked conic and opacity) misses its rows
+of the tile, as its alpha would be 0 at each pixel there. The blend is the
+sequential form of the TPU kernel's in-chunk cumprod.
 
 Semantics (kernel and blend_tiles_plain): pixel coords are the integers
-tx + p % ts, ty + p // ts (no +0.5); pairs [start, start + min(end-start,
-max_k)); power = -0.5 (ca dx^2 + cc dy^2) - cb dx dy; alpha = min(0.99,
-op exp(power)), zeroed where power > 0 or alpha < 1/255; the weight is
-alpha * T only while T >= 1e-4, and T keeps decaying past that stop.
+tx + p % ts, ty + p // ts (no +0.5), tile-local (no tile origin) in the
+packed formats, whose pair coordinates are tile-local; pairs [start,
+start + min(end-start, max_k)); power = -0.5 (ca dx^2 + cc dy^2) - cb dx
+dy, dx = pixel x - pair x, or with mxu_power (packed formats only) the
+quadratic polynomial of the pixel's coordinates, ((((c0 + c1 x) + c2 y) +
+c3 x^2) + c4 x y) + c5 y^2 with the JAX kernel's coefficients (c0 = -0.5
+(ca gx gx + cc gy gy) - cb gx gy, c1 = ca gx + cb gy, c2 = cc gy + cb gx,
+c3 = -0.5 ca, c4 = -cb, c5 = -0.5 cc), every product and sum rounded on
+its own in that order; alpha = min(0.99, op exp(power)), zeroed where
+power > 0 or alpha < 1/255; the weight is alpha * T only while T >= 1e-4,
+and T keeps decaying past that stop. The mxu_power form skips no pair:
+its polynomial rounds differently from the direct form, so the reach test
+does not bound it.
 
-Payload rows (field-major, (ROWS, P) f32): px, py, conic_a, conic_b,
-conic_c, opacity, r, g, b.
+Payload rows (field-major f32-bitcast words, (PAYLOAD_ROWS[format], P);
+splat/fast_raster.py packs them): f32 px, py, ca, cb, cc, op, r, g, b;
+bf16_colors px, py, ca, cb, cc, r|g, b|op (bf16 pairs, high half first);
+packed_v2 pxl|pyl (int16, 1/32 px), ca|cb (f16 of conic * 4096), cc, r|g,
+b|op; packed_v3 pxl|pyl, ca|cb, cc|op (f16 * 4096), rgb (10 bits each,
+1/256). Unpacking is the JAX kernel's: an f16 pattern with exponent e
+becomes the f32 of exponent e + 100 (the 4096 folded in), 0 where e = 0.
 """
 from __future__ import annotations
 
@@ -34,6 +51,11 @@ import torch
 from .. import kernel_lib
 
 ROWS = 9
+# payload format -> its words a pair, and the kernel's format id
+PAYLOAD_ROWS = {"f32": 9, "bf16_colors": 7, "packed_v2": 5, "packed_v3": 4}
+PAYLOAD_IDS = {"f32": 0, "bf16_colors": 1, "packed_v2": 2, "packed_v3": 3}
+PACKED = ("packed_v2", "packed_v3")
+F16_REBIAS = 12              # log2 of the conic pre-scale (fast_raster.CONIC_SCALE)
 PLAIN_TILES_PER_CHUNK = 64   # tiles per step of the plain version
 ENTRY_CHUNK = 32             # pairs of a training chunk: K4's entries, K5's unit of work
 # K4's scan takes a chunk's product of (1 - alpha) where the T before the
@@ -43,13 +65,67 @@ ENTRY_CHUNK = 32             # pairs of a training chunk: K4's entries, K5's uni
 FAST_T = (torch.tensor(1e-4) * (1.0 + torch.tensor(1e-4))).item()
 
 
+def blend_form(payload_format: str = "f32", mxu_power: bool = False) -> str:
+    """The name of K3's form (its launch counter is `launches_<form>`,
+    `launches` for f32): the format, '_mxu' appended with mxu_power.
+    Raises for a combination the JAX kernel refuses."""
+    if payload_format not in PAYLOAD_ROWS:
+        raise ValueError(f"payload_format {payload_format!r}: one of {sorted(PAYLOAD_ROWS)}")
+    if mxu_power and payload_format not in PACKED:
+        raise ValueError("mxu_power needs a packed payload format (tile-local coordinates), "
+                         f"not {payload_format!r}")
+    return payload_format + ("_mxu" if mxu_power else "")
+
+
+def _launch_attr(form: str) -> str:
+    return "launches" if form == "f32" else f"launches_{form}"
+
+
+def f16_unpack(u: torch.Tensor, rebias: int = F16_REBIAS) -> torch.Tensor:
+    """IEEE-half patterns (low 16 bits of int32) -> f32 with the exponent
+    re-biased by -rebias powers of two, subnormals to 0: JAX _f16_unpack."""
+    e = (u >> 10) & 0x1F
+    b = ((u & 0x8000) << 16) | ((e + (127 - 15 - rebias)) << 23) | ((u & 0x3FF) << 13)
+    return torch.where(e == 0, torch.zeros((), dtype=torch.float32), b.view(torch.float32))
+
+
+def unpack_payload(a: torch.Tensor, payload_format: str):
+    """Payload words (n, ...) -> the 9 f32 fields (px, py, ca, cb, cc, op,
+    r, g, b), each shaped like a[0]: the JAX kernel's unpacking."""
+    if payload_format == "f32":
+        return tuple(a[i] for i in range(9))
+    w = a.contiguous().view(torch.int32)
+    hi = lambda v: (v & -65536).view(torch.float32)   # noqa: E731
+    lo = lambda v: (v << 16).view(torch.float32)      # noqa: E731
+    if payload_format == "bf16_colors":
+        return (a[0], a[1], a[2], a[3], a[4], lo(w[6]), hi(w[5]), lo(w[5]), hi(w[6]))
+    gx = (w[0] >> 16).float() * (1.0 / 32.0)
+    gy = ((w[0] << 16) >> 16).float() * (1.0 / 32.0)
+    ca, cb = f16_unpack((w[1] >> 16) & 0xFFFF), f16_unpack(w[1] & 0xFFFF)
+    if payload_format == "packed_v2":
+        return (gx, gy, ca, cb, a[2], lo(w[4]), hi(w[3]), lo(w[3]), hi(w[4]))
+    rgb = [((w[3] >> s) & 0x3FF).float() * (1.0 / 256.0) for s in (20, 10, 0)]
+    return (gx, gy, ca, cb, f16_unpack((w[2] >> 16) & 0xFFFF), f16_unpack(w[2] & 0xFFFF), *rgb)
+
+
+def mxu_coefficients(gx, gy, ca, cb, cc):
+    """The JAX kernel's per-pair coefficients (c0 .. c5) of the falloff as a
+    polynomial of the pixel's coordinates, rounded as written."""
+    return (-0.5 * (ca * gx * gx + cc * gy * gy) - cb * gx * gy, ca * gx + cb * gy,
+            cc * gy + cb * gx, -0.5 * ca, -cb, -0.5 * cc)
+
+
 def blend_tiles_plain(tile_starts, attrs, grid_x: int, grid_y: int,
-                      tile_size: int = 16, max_k: int = 1024):
+                      tile_size: int = 16, max_k: int = 1024,
+                      payload_format: str = "f32", mxu_power: bool = False):
     """Plain PyTorch version of K3: vectorised over (tiles, pixels, pairs),
-    chunked over tiles. -> (accum (T, P, 3), trans (T, P))."""
+    chunked over tiles, in any payload format. -> (accum (T, P, 3), trans
+    (T, P))."""
+    blend_form(payload_format, mxu_power)
     dev = attrs.device
     T = grid_x * grid_y
     P = tile_size * tile_size
+    local = payload_format in PACKED
     starts = tile_starts[:-1].long()
     counts = torch.clamp(tile_starts[1:].long() - starts, max=max_k)
     p = torch.arange(P, device=dev)
@@ -62,35 +138,47 @@ def blend_tiles_plain(tile_starts, attrs, grid_x: int, grid_y: int,
         if K == 0:
             continue
         tiles = torch.arange(t0, t1, device=dev)
-        pixx = ((tiles % grid_x) * tile_size)[:, None] + p % tile_size
-        pixy = ((tiles // grid_x) * tile_size)[:, None] + p // tile_size
+        ox = 0 if local else ((tiles % grid_x) * tile_size)[:, None]
+        oy = 0 if local else ((tiles // grid_x) * tile_size)[:, None]
+        pixx = (ox + p % tile_size).expand(t1 - t0, P)[:, :, None].float()
+        pixy = (oy + p // tile_size).expand(t1 - t0, P)[:, :, None].float()
         k = torch.arange(K, device=dev)
         valid = k[None] < cnt[:, None]                                  # (nt, K)
         idx = torch.where(valid, starts[t0:t1, None] + k[None], 0)
-        a = attrs[:, idx]                                               # (9, nt, K)
-        gx, gy, ca, cb, cc, op = (a[i][:, None, :] for i in range(6))
-        dx = pixx[:, :, None].float() - gx                              # (nt, P, K)
-        dy = pixy[:, :, None].float() - gy
-        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        f = [v[:, None, :] for v in unpack_payload(attrs[:, idx], payload_format)]
+        gx, gy, ca, cb, cc, op = f[:6]
+        if mxu_power:
+            c0, c1, c2, c3, c4, c5 = mxu_coefficients(gx, gy, ca, cb, cc)
+            power = ((((c0 + c1 * pixx) + c2 * pixy) + c3 * (pixx * pixx))
+                     + c4 * (pixx * pixy)) + c5 * (pixy * pixy)
+        else:
+            dx = pixx - gx                                              # (nt, P, K)
+            dy = pixy - gy
+            power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
         alpha = torch.clamp(op * torch.exp(power), max=0.99)
         alpha = torch.where((power > 0.0) | (alpha < 1.0 / 255.0) | ~valid[:, None, :],
                             torch.zeros_like(alpha), alpha)
         cp = torch.cumprod(1.0 - alpha, dim=2)
         t_i = torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=2)
         w = torch.where(t_i < 1e-4, torch.zeros_like(alpha), alpha * t_i)
-        accum[t0:t1] = torch.einsum("tpk,ctk->tpc", w, a[6:9])
+        accum[t0:t1] = torch.einsum("tpk,tck->tpc", w, torch.cat(f[6:9], dim=1))
         trans[t0:t1] = cp[..., -1]
     return accum, trans
 
 
 def blend_tiles(tile_starts: torch.Tensor, attrs: torch.Tensor, grid_x: int,
-                grid_y: int, tile_size: int = 16, max_k: int = 1024):
+                grid_y: int, tile_size: int = 16, max_k: int = 1024,
+                payload_format: str = "f32", mxu_power: bool = False):
     """Blend every tile -> (accum (T, P, 3), trans (T, P)). tile_starts
     (T+1,) int32 segment starts of the (tile, depth)-sorted pairs; attrs
-    (9, Ptot) f32 field-major. CPU tensors take the plain version, CUDA
-    tensors the kernel."""
+    (PAYLOAD_ROWS[payload_format], Ptot) f32-bitcast words field-major
+    (splat/fast_raster.py::bin_pairs). CPU tensors take the plain version,
+    CUDA tensors the kernel in that form (blend_form; its own launch
+    counter)."""
+    form = blend_form(payload_format, mxu_power)
     if not kernel_lib.use_kernel(tile_starts, attrs):
-        return blend_tiles_plain(tile_starts, attrs, grid_x, grid_y, tile_size, max_k)
+        return blend_tiles_plain(tile_starts, attrs, grid_x, grid_y, tile_size, max_k,
+                                 payload_format, mxu_power)
     lib = kernel_lib.library()
     T = grid_x * grid_y
     P = tile_size * tile_size
@@ -98,18 +186,24 @@ def blend_tiles(tile_starts: torch.Tensor, attrs: torch.Tensor, grid_x: int,
         raise ValueError(f"tile_size {tile_size}: the kernel blends 16x16 tiles")
     kernel_lib.check(tile_starts, "tile_starts", torch.int32, (T + 1,))
     kernel_lib.check(attrs, "attrs", torch.float32)
-    if attrs.shape[0] != ROWS:
-        raise ValueError(f"attrs: expected {ROWS} field rows, got {attrs.shape[0]}")
+    if attrs.shape[0] != PAYLOAD_ROWS[payload_format]:
+        raise ValueError(f"attrs: expected {PAYLOAD_ROWS[payload_format]} {payload_format} "
+                         f"rows, got {attrs.shape[0]}")
     out = torch.empty((T, P, 4), dtype=torch.float32, device=attrs.device)
     code = lib.ggd_blend_tiles(
-        tile_starts.data_ptr(), attrs.data_ptr(), out.data_ptr(),
-        attrs.shape[1], grid_x, T, tile_size, max_k, kernel_lib.stream())
+        tile_starts.data_ptr(), attrs.data_ptr(), out.data_ptr(), attrs.shape[1], grid_x, T,
+        tile_size, max_k, PAYLOAD_IDS[payload_format], int(mxu_power), kernel_lib.stream())
     kernel_lib.raise_on_error(code, "blend_kernel")
-    blend_tiles.launches += 1
+    attr = _launch_attr(form)
+    setattr(blend_tiles, attr, getattr(blend_tiles, attr) + 1)
     return out[..., :3], out[..., 3]
 
 
-blend_tiles.launches = 0
+# K3's launch counters, one per form (blend_form)
+BLEND_FORMS = [blend_form(f, m) for f in PAYLOAD_ROWS for m in (False, True)
+               if not (m and f not in PACKED)]
+for _form in BLEND_FORMS:
+    setattr(blend_tiles, _launch_attr(_form), 0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,28 @@
-"""Rasterizer configuration and the decoder-path renderer — port of the
-fields of splat/rasterize.py::RasterizeConfig that the port reads, and of
-render_simple on its 'pallas_diff' and 'pallas' backends.
+"""Rasterizer configuration and the decoder-path renderer — port of
+splat/rasterize.py::RasterizeConfig and of render_simple on its
+'pallas_diff' and 'pallas' backends.
 
-The TPU sort-bandwidth trades of the JAX config (static_copies,
-overflow_budget, bf16_colors, packed_payloads, rgb10_payloads,
-fused_sort_key, blend_mxu_power) are not ported: the port bins with one
-64-bit (tile, depth) key sort over exactly the pairs that exist, carries
-the f32 payload, and never drops a pair (n_dropped is always 0).
+The port bins with one stable 64-bit key sort over exactly the pairs that
+exist (splat/fast_raster.py), so the JAX config's pair budgets
+(max_pairs, chunk, overflow_budget) have no counterpart: no pair is ever
+dropped for want of room. Its payload options are the JAX ones, with the
+JAX defaults (all off) and constraints:
+
+  * bf16_colors: (r, g) and (b, opacity) as bf16 pairs (7 payload words);
+  * packed_payloads: tile-local int16 pixel coordinates (1/32 px), f16
+    conics, bf16 colours (5 words, 'packed_v2'); supersedes bf16_colors;
+  * rgb10_payloads (with packed_payloads): cc|op as an f16 pair and rgb in
+    one 10-bit fixed-point word (4 words, 'packed_v3');
+  * fused_sort_key (with packed_payloads): the 32-bit key tile << 21 |
+    depth-bits >> 11 (2^-12 relative depth); its frequent depth ties keep
+    the JAX sort's order, copy class (a pair's rank in its Gaussian's tile
+    rect, capped at static_copies) first, then the Gaussian;
+  * blend_mxu_power (with packed_payloads): the blend's falloff as the
+    quadratic polynomial of the pixel's tile-local coordinates.
+
+static_copies (the JAX structural copies) is read only as that tie-order
+class cap. The training blend (rasterize_fast(differentiable=True), K4 /
+K5) reads f32 payloads whatever the config, as the JAX one does.
 """
 from __future__ import annotations
 
@@ -20,6 +36,30 @@ import torch
 class RasterizeConfig:
     tile_size: int = 16
     tile_capacity: int = 1024   # per-tile depth-ordered blend budget (max_k)
+    static_copies: int = 4      # the fused key's tie-order class cap
+    bf16_colors: bool = False
+    packed_payloads: bool = False
+    fused_sort_key: bool = False
+    blend_mxu_power: bool = False
+    rgb10_payloads: bool = False
+
+    @property
+    def payload_format(self) -> str:
+        """The blend's payload format, as the JAX _blend_and_assemble picks
+        it: 'packed_v3', 'packed_v2', 'bf16_colors' or 'f32'."""
+        if self.packed_payloads:
+            return "packed_v3" if self.rgb10_payloads else "packed_v2"
+        return "bf16_colors" if self.bf16_colors else "f32"
+
+    @property
+    def fused_key(self) -> bool:
+        """Whether binning sorts by the fused 32-bit key (packed formats only)."""
+        return self.fused_sort_key and self.packed_payloads
+
+    @property
+    def mxu_power(self) -> bool:
+        """Whether the blend takes the quadratic-basis falloff (packed only)."""
+        return self.blend_mxu_power and self.packed_payloads
 
 
 BACKENDS = ("pallas_diff", "pallas", "xla")

@@ -139,7 +139,8 @@ def main(argv=None) -> int:
         out3 = torch.empty((T, 256, 4), device=dev)
         calls.setdefault(("K3", "frame"), {})[name] = (
             lambda lib=lib, s=starts, a=attrs, o=out3, g=g, T=T: lib.ggd_blend_tiles(
-                s.data_ptr(), a.data_ptr(), o.data_ptr(), a.shape[1], g, T, 16, 640, stream),
+                s.data_ptr(), a.data_ptr(), o.data_ptr(), a.shape[1], g, T, 16, 640, 0, 0,
+                stream),
             out3)
         for label in ("step", "frame", "wide"):
             starts, attrs, dout = inputs[label]

@@ -98,6 +98,7 @@ def _pair(b, decoder_type, emb, seed, hidden=128, gelu="exact", **jkw):
             jax.random.PRNGKey(seed))
     td = GaussianDecoder(copy.deepcopy(b["gen"]), gelu=gelu, decoder_type=decoder_type,
                          use_xyz_embedding=emb, hidden_dim=hidden,
+                         fused_lerp=jkw.get("fused_lerp", "dots"),
                          **{k: jkw.get(k, False)
                             for k in ("heads_bf16", "pallas_heads", "pallas_heads_train")})
     load_decoder_state(td, decoder_state_dict(jd, params))

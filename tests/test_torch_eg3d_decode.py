@@ -202,7 +202,7 @@ def test_k9_triplane_matches_jax(eg3d):
                               fused_lerp="bcast")
     jrows, _ = jdf.decode_project(s["params"], jnp.asarray(s["planes"]), pos, s["jcam"])
     dec = GaussianDecoder(s["td"].G, gelu="poly", fused_sampling=True, pallas_heads=True,
-                          heads_bf16=True)
+                          heads_bf16=True, fused_lerp="bcast")
     dec.load_state_dict(s["td"].state_dict())
     drows, _ = dec.decode_project(dec.fold(), torch.tensor(s["planes"]), s["cam"],
                                   init_position=tpos)

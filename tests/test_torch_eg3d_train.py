@@ -58,6 +58,7 @@ from gaussian_gan_decoder_tpu_torch.losses import VGG16LPIPS, lpips_loss
 from gaussian_gan_decoder_tpu_torch.models.triplane import TriPlaneGenerator
 from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import RenderDraws
 from gaussian_gan_decoder_tpu_torch.port import torch_pickle
+from gaussian_gan_decoder_tpu_torch.splat.rasterize import RasterizeConfig
 from gaussian_gan_decoder_tpu_torch.port.from_jax import (
     load_decoder_state, load_generator_state, load_vgg16_lpips_state)
 from gaussian_gan_decoder_tpu_torch.train import distill
@@ -199,13 +200,14 @@ def test_eg3d_frame_matches_jax(frame_models, route):
     assert int(jaux["n_dropped"]) == 0
 
     dec = GaussianDecoder(td.G, gelu="poly", fused_sampling=route == "fused",
-                          pallas_heads=True, heads_bf16=True)
+                          pallas_heads=True, heads_bf16=True, fused_lerp="bcast")
     dec.load_state_dict(td.state_dict())
     tcp, tc2w = flagship.default_camera_params(device="cpu")
     ctx = dec.make_slab_context(pos, block=BLOCK) if route == "slab" else None
     img, decoded, aux = flagship.decode_and_render(
         dec, dec.fold(), torch.tensor(z), tcp, tc2w, ctx, FOV, image_size=FRAME, bg=BG,
-        return_aux=True, init_position=torch.tensor(pos))
+        return_aux=True, init_position=torch.tensor(pos),
+        raster_cfg=RasterizeConfig(tile_capacity=cfg.tile_capacity))
     img, jimg = img.numpy(), np.asarray(jimg)
     assert img.shape == jimg.shape == (3, FRAME, FRAME) and np.isfinite(img).all()
     assert jimg.max() > 0.1 and img.std() > 0

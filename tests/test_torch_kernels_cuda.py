@@ -610,3 +610,99 @@ def test_heads_train_kernels_parallel_embedding(cuda):
     assert float((dst - dst_p).abs().max() / dst_p.abs().max()) <= 1e-4
     for a, b in zip(grads, grads_p):
         assert float((a - b).abs().max() / b.abs().max().clamp(min=1e-30)) <= 1e-4
+
+
+def test_blend_kernel_payload_forms(cuda):
+    """K3 in every payload form (f32, bf16_colors, packed_v2, packed_v3, the
+    packed two with mxu_power) against its plain version on the same binned
+    words, on a small frame's pairs and on them widened (conic / 16,
+    opacity raised) until pixels saturate, at max_k 640 and 7; each launch
+    counted on its form's own counter."""
+    from gaussian_gan_decoder_tpu_torch.splat.rasterize import RasterizeConfig
+
+    w, ctx, cam, vol, scales = _small_frame(cuda)
+    rows = pallas_heads.decode_project_slab_plain(w.chain, vol, scales, ctx, cam)
+    wide = rows.clone()
+    pr = pallas_heads.PROJ_ROWS
+    wide[pr["conic_a"]:pr["conic_c"] + 1] /= 16.0
+    wide[pr["radius_f"]] *= 4.0
+    wide[pr["opac"]] = 0.6 + 0.4 * wide[pr["opac"]]
+    forms = [("f32", False), ("bf16_colors", False), ("packed_v2", False),
+             ("packed_v3", False), ("packed_v2", True), ("packed_v3", True)]
+    for src in (rows, wide):
+        for fmt, mxu in forms:
+            cfg = RasterizeConfig(bf16_colors=fmt == "bf16_colors",
+                                  packed_payloads=fmt.startswith("packed"),
+                                  rgb10_payloads=fmt == "packed_v3",
+                                  fused_sort_key=fmt.startswith("packed"), blend_mxu_power=mxu)
+            starts, attrs = fast_raster.bin_pairs(src, 4, 4, 16, cfg)
+            assert attrs.shape[0] == pallas_blend.PAYLOAD_ROWS[fmt]
+            attr = ("launches" if fmt == "f32"
+                    else f"launches_{pallas_blend.blend_form(fmt, mxu)}")
+            for max_k in (640, 7):
+                before = getattr(pallas_blend.blend_tiles, attr)
+                acc, tr = pallas_blend.blend_tiles(starts, attrs, 4, 4, 16, max_k,
+                                                   payload_format=fmt, mxu_power=mxu)
+                assert getattr(pallas_blend.blend_tiles, attr) == before + 1
+                acc_p, tr_p = pallas_blend.blend_tiles_plain(starts, attrs, 4, 4, 16, max_k,
+                                                             payload_format=fmt, mxu_power=mxu)
+                torch.cuda.synchronize()
+                err = max(float((acc - acc_p).abs().max()), float((tr - tr_p).abs().max()))
+                assert err <= 1e-4, (fmt, mxu, max_k, err)
+
+
+def test_fused_decode_dots_kernels(cuda):
+    """K9's 'dots' lerp in its four forms (8 int8 / 4 bf16 corners, bf16 /
+    f32 chain) against its plain version on sample_fused_inputs' rows;
+    the bf16 forms' rows bit-identical to K8's on the staging of
+    the plain 'dots' features (the lerp witness); each launch counted on
+    launches_dots / launches_dots_f32."""
+    ph = pallas_heads
+    b = _small_brick(cuda)
+    cases = [(b[0], b[1], b[2], b[3], b[4], 3)]
+    for build, D in ((lambda: _small_eg3d(cuda), 1),
+                     (lambda: _option_frame(cuda, "parallel", True, False), 3),
+                     (lambda: _option_frame(cuda, "parallel", True, False, "eg3d"), 1)):
+        dec, cw, pos, _, cam, planes = build()
+        cases.append((dec, cw, pos, cam, planes, D))
+    for dec, cw, pos, cam, planes, D in cases:
+        M = pos.shape[0]
+        dt = ph.chain_dtype(cw)
+        cond = dec.cond0(pos)
+        aux, Mpad = ph.build_brick_staging(pos.new_zeros((M, 32)), cond, pos, dtype=dt)
+        rows_in, wts, scale_rows = sample_fused_inputs(dec.G.plane_axes, planes, pos[None],
+                                                       1.0, D, pad_to=Mpad)
+        attr = "launches_dots" if dt == torch.bfloat16 else "launches_dots_f32"
+        before = getattr(ph.decode_project_fused, attr)
+        rows = ph.decode_project_fused(cw, aux, rows_in, wts, scale_rows, cam, M, lerp="dots")
+        assert getattr(ph.decode_project_fused, attr) == before + 1
+        ref = ph.decode_project_fused_plain(cw, aux, rows_in, wts, scale_rows, cam, M,
+                                            lerp="dots")
+        torch.cuda.synchronize()
+        real = torch.arange(Mpad, device=cuda) < M
+        if dt == torch.bfloat16:
+            _hold_decode_rows(rows, ref, real, cw, cam)
+            feats = ph.fused_features_plain(rows_in, wts, scale_rows, "dots")[:M]
+            st, _ = ph.build_brick_staging(feats, cond, pos, dtype=dt)
+            assert torch.equal(rows, ph.decode_project(cw, st, cam, M)), (D, "witness")
+        else:
+            _hold_f32_rows(rows, ref, real, cw, cam)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+def test_brick_table_select_kernel(cuda, dtype):
+    """K10's select form (the duplicated source) against its plain version
+    and against K10's rotate table: byte for byte, the rows y0 > H
+    included; counted on brick_table_select.launches."""
+    for shape in ((3, 32, 3, 16, 16), (2, 32, 2, 21, 13), (2, 16, 2, 9, 7)):
+        g = torch.Generator().manual_seed(shape[3])
+        feats = (torch.randn(shape, generator=g) * 30).to(dtype).to(cuda)
+        before = pallas_expand.brick_table_select.launches
+        e, NY = pallas_expand.build_brick_table(feats, select=True)
+        assert pallas_expand.brick_table_select.launches == before + 1
+        rot, _ = pallas_expand.build_brick_table(feats)
+        ref = pallas_expand.brick_table_select_plain(
+            pallas_expand.duplicated_channels_last(feats), NY, shape[1])
+        torch.cuda.synchronize()
+        assert torch.equal(e.view(torch.uint8), ref.view(torch.uint8))
+        assert torch.equal(e.view(torch.uint8), rot.view(torch.uint8))

@@ -23,6 +23,7 @@ from gaussian_gan_decoder_tpu_torch.flagship import flagship_raster_config
 from gaussian_gan_decoder_tpu_torch.gaussians.cameras import make_camera
 from gaussian_gan_decoder_tpu_torch.splat.fast_raster import bin_pairs, render_rows
 from gaussian_gan_decoder_tpu_torch.splat.pallas_blend import blend_tiles
+from gaussian_gan_decoder_tpu_torch.splat.rasterize import RasterizeConfig
 from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 TS, M, BLOCK, IMG, FOV = 32, 1000, 256, 64, 0.227
@@ -92,10 +93,12 @@ def test_binning_matches_jax(frame):
 
 
 def test_render_rows_matches_jax(frame):
+    """f32 payloads on both sides (the flagship's packed_v3 frame is held in
+    test_torch_raster_payloads.py)."""
     cam = make_camera(IMG, FOV, frame["c2w"])
     before = blend_tiles.launches
-    out = render_rows(cam, torch.tensor(frame["rows"]), torch.tensor(BG),
-                      flagship_raster_config())
+    cfg = RasterizeConfig(tile_capacity=flagship_raster_config().tile_capacity)
+    out = render_rows(cam, torch.tensor(frame["rows"]), torch.tensor(BG), cfg)
     assert blend_tiles.launches == before
     img = out["render"].numpy()
     ref = frame["img"]
