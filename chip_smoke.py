@@ -7,9 +7,11 @@ Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
 (nvcc, sm_90a, into gaussian_gan_decoder_tpu_torch/_build/), then:
 
   1. requires TF32 HMMA in K6's SASS and LDS.128 in K3's (cuobjdump -sass
-     of the built library; every kernel's HMMA, SHFL and LDS.128 counts are
-     printed), then checks each kernel against its plain PyTorch version on
-     the card, at the flagship frame's own shapes, and times both; K1 at
+     of the built library; every kernel's HMMA, SHFL, LDS.128 and local
+     load / store counts are printed, and each f32 decode kernel's
+     registers, stack and spills), then checks each kernel against its
+     plain PyTorch version on the card, at the flagship frame's own
+     shapes, and times both; K1 at
      batch 1 and at the stream's batch 4 with a random camera; K1 and K3-K5
      timed by CUDA events around calls queued behind a device sleep (their
      device time, not the wrappers' host time); the training blend kernels
@@ -77,7 +79,8 @@ Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
      torch.profiler; and apps/train_decoder.py --generator_arch eg3d_ffhq
      --random_init for 1 + EG3D_TRAIN_STEPS steps and one profiled step;
      the f32 forms of K2's bilinear and K9's tri-plane forms against their
-     plain versions, timed;
+     plain versions, timed beside their bounds, and 1 + 1 frames of each
+     ('bcast') on an f32 chain of the same heads;
   5d. the decoder-options phase (decoder_options_phase): on the flagship
      generator, D-par (parallel heads, the xyz embedding, f32 heads, exact
      GELU) and D-seq (sequential heads: the real camera at the mapping;
@@ -194,6 +197,11 @@ KERNELS = {
                          "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:615"),
     "heads_fwd_bf16": ("gaussian_gan_decoder_tpu_torch/csrc/heads_bf16.cu",
                        "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:255"),
+    # the f32 forms of K2's bilinear and K9's tri-plane forms (the EG3D phase)
+    "slab_decode_bilinear_f32": ("gaussian_gan_decoder_tpu_torch/csrc/decode_f32.cu",
+                                 "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:836"),
+    "fused_decode_triplane_f32": ("gaussian_gan_decoder_tpu_torch/csrc/decode_f32.cu",
+                                  "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:615"),
     # K3's payload forms, K9's 'dots' lerp and K10's select form (the
     # frame-options phase; K9-dots also in the EG3D and decoder-options
     # phases)
@@ -267,17 +275,21 @@ def queued_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def cuda_tool(name):
+    from gaussian_gan_decoder_tpu_torch import kernel_lib
+    return os.path.join(os.path.dirname(kernel_lib._nvcc()), name)
+
+
 def sass_counts(so):
     """The instructions that show each kernel's design, from cuobjdump -sass
     of the built library -> {kernel: {mnemonic: count}}: HMMA (tensor
-    cores), SHFL (warp shuffles) and LDS.128 (16-byte shared loads)."""
+    cores), SHFL (warp shuffles), LDS.128 (16-byte shared loads), and LDL /
+    STL (local memory: register spills)."""
     import re
-    from gaussian_gan_decoder_tpu_torch import kernel_lib
-    tool = os.path.join(os.path.dirname(kernel_lib._nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
-                          check=True).stdout
+    text = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
     counts, fn = {}, None
-    pattern = re.compile(r"\b(HMMA\.[\w.]+|SHFL\.\w+|LDS\.128)\b")
+    pattern = re.compile(r"\b(HMMA\.[\w.]+|SHFL\.\w+|LDS\.128|LDL|STL)\b")
     for line in text.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
@@ -285,6 +297,29 @@ def sass_counts(so):
         elif fn is not None and (m := pattern.search(line)):
             counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
     return counts
+
+
+def res_usage(so):
+    """Each kernel's registers a thread at launch, stack and local memory
+    (cuobjdump -res-usage of the built library) -> {kernel: {REG, STACK,
+    LOCAL}}, with the demangled name beside: {kernel: (name, usage)}."""
+    import re
+    text = subprocess.run([cuda_tool("cuobjdump"), "-res-usage", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    use, fn = {}, None
+    for line in text.splitlines():
+        if "Function " in line:
+            fn = line.split("Function ", 1)[1].strip().rstrip(":")
+        elif fn is not None and "REG:" in line:
+            use[fn] = {k: int(v) for k, v in re.findall(r"\b(REG|STACK|LOCAL):(\d+)", line)}
+    names = list(use)
+    filt = cuda_tool("cu++filt")
+    pretty = names
+    if names and os.path.exists(filt):
+        out = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                             text=True).stdout.splitlines()
+        pretty = out if len(out) == len(names) else names
+    return {fn: (name, use[fn]) for fn, name in zip(names, pretty)}
 
 
 def tile_stats(torch, starts, max_k, label):
@@ -1517,24 +1552,37 @@ def eg3d_phase(torch, seed, results):
         del st
 
         # -- the f32 forms of K2's bilinear form and K9's tri-plane form, on
-        # an f32 chain of the same heads (held and timed; printed)
+        # an f32 chain of the same heads (held, timed beside their bounds;
+        # their frames follow the main paths')
         cw32 = ph.pack_chain(dec.heads(), dec.chain_spec, dec.position_dim, dec.scale_offset,
                              dec.gelu, dtype=torch.float32)
         ctx32 = dataclasses.replace(ctx, aux=ph.build_staging(ctx.positions, ctx.positions,
                                                               ctx.valid, dtype=torch.float32))
         aux32, _ = ph.build_brick_staging(pos.new_zeros((M, ph.C)), pos, pos, dtype=torch.float32)
-        for label, kern, plain, real_r in (
-                ("K2-f32 bilinear slab decode",
+        weights32 = (cw32.w1, cw32.b1, cw32.w2, cw32.b2, cw32.w3, cw32.b3, cw32.w4, cw32.b4,
+                     cw32.meta)
+        for label, key, kern, plain, real_r, ins, lerp_flops in (
+                ("K2-f32 bilinear slab decode", "slab_decode_bilinear_f32",
                  lambda: ph.decode_project_slab(cw32, vol, scales, ctx32, cam),
-                 lambda: ph.decode_project_slab_plain(cw32, vol, scales, ctx32, cam), v),
-                ("K9-f32 tri-plane fused decode",
+                 lambda: ph.decode_project_slab_plain(cw32, vol, scales, ctx32, cam), v,
+                 (vol, scales, ctx32.positions, ctx32.idx16, ctx32.aux, ctx32.inv_axes), 4),
+                ("K9-f32 tri-plane fused decode", "fused_decode_triplane_f32",
                  lambda: ph.decode_project_fused(cw32, aux32, rows_in, wts, scale_rows, cam, M),
                  lambda: ph.decode_project_fused_plain(cw32, aux32, rows_in, wts, scale_rows,
-                                                       cam, M), real)):
-            hold_decode_f32(torch, kern(), plain(), real_r, cw32, cam, label)
+                                                       cam, M), real,
+                 (aux32, *rows_in, wts, scale_rows), 4)):
+            rows32 = kern()
+            err = hold_decode_f32(torch, rows32, plain(), real_r, cw32, cam, label)
             ms, plain_ms = paired_ms(torch, kern, plain, 2)
-            print(f"{label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        del f_k, f_p, rows_in, wts, aux, vol, aux32, ctx32
+            # per point the chain, the 3 x 4-corner lerp of 32 channels and
+            # ~150 FLOPs of projection, over the template's points
+            b = bound(nbytes(*ins, *weights32, rows32),
+                      M * (chain_flops(cw32) + 3 * lerp_flops * 32 * 2 + 150), "tf32x3")
+            print(f"{label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound {b[0]:.4f} ms "
+                  f"({b[1]}, {b[2]})")
+            results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b)
+            del rows32
+        del f_k, f_p, rows_in, wts, aux, vol, aux32
 
         # -- the all-plain frames of the three routes -------------------------
         def plain_frame(z, route):
@@ -1579,7 +1627,20 @@ def eg3d_phase(torch, seed, results):
         require(fr_psnr >= 30.0, f"{label} frame disagrees with the plain frame: "
                 f"{fr_psnr:.2f} dB")
         launches[route] = run["launches"][f"{route}_decode"]
-    del fdec, weights, ctx, planes, ref_imgs
+    # -- the f32 'bcast' forms on their routes: an f32 chain of the same heads
+    for route, key, kernel in (("slab", "slab_decode_bilinear_f32", ph.decode_project_slab),
+                               ("fused", "fused_decode_triplane_f32", ph.decode_project_fused)):
+        d32 = flagship.flagship_decoder(gen=G, device=dev, fused_sampling=route == "fused")
+        d32.config = dataclasses.replace(d32.config, heads_bf16=False, fused_lerp="bcast")
+        d32.load_state_dict(dec.state_dict())
+        d32 = d32.eval()
+        kw = {"slab_ctx": ctx32} if route == "slab" else {"init_position": pos}
+        counters = {key: FormCount(kernel, "launches_f32")}
+        run = frame_run(torch, d32, d32.fold(), zs[1:], cp, c2w, counters, 1, bg=EG3D_BG, **kw)
+        report_frames(torch, run, f"EG3D {route}-route (f32 heads)")
+        launches[key] = run["launches"][key]
+        del d32, run
+    del fdec, weights, ctx, ctx32, planes, ref_imgs
     torch.cuda.empty_cache()
 
     # -- K9's 'dots' tri-plane forms on the fused route: the flagship decoder's
@@ -1629,7 +1690,9 @@ def eg3d_phase(torch, seed, results):
     return {"slab_decode_bilinear": launches["slab"],
             "fused_decode_triplane": launches["fused"],
             "fused_decode_triplane_dots": launches["fused_decode_triplane_dots"],
-            "fused_decode_triplane_dots_f32": launches["fused_decode_triplane_dots_f32"]}
+            "fused_decode_triplane_dots_f32": launches["fused_decode_triplane_dots_f32"],
+            "slab_decode_bilinear_f32": launches["slab_decode_bilinear_f32"],
+            "fused_decode_triplane_f32": launches["fused_decode_triplane_f32"]}
 
 
 def hold_heads_train(torch, captured, label):
@@ -2326,8 +2389,18 @@ def main(argv=None) -> int:
     require(k6_sass and all(any("TF32" in op for op in ops) for ops in k6_sass),
             "heads_fwd_kernel has no TF32 HMMA in its SASS")
     f32_sass = [ops for fn, ops in sass.items() if "decode_f32_kernel" in fn]
-    require(len(f32_sass) == 7 and all(any("TF32" in op for op in ops) for ops in f32_sass),
+    # 7 forms x 5 GELU kinds (a template argument, as K6's)
+    require(len(f32_sass) == 35 and all(any("TF32" in op for op in ops) for ops in f32_sass),
             "the f32 decode kernels lack TF32 HMMA in their SASS")
+    # the f32 decode kernels' registers and spills (and their projection
+    # kernel's): registers a thread, stack and local memory, and the local
+    # loads and stores in the SASS
+    for fn, (name, use) in sorted(res_usage(kernel_lib.build()).items(), key=lambda x: x[1][0]):
+        if "decode_f32_kernel" in fn or "project_rows_kernel" in fn:
+            ops = sass.get(fn, {})
+            print(f"registers {name[:110]}: {use.get('REG')} a thread, stack {use.get('STACK')} "
+                  f"B, local {use.get('LOCAL')} B; spills: STL x {ops.get('STL', 0)}, LDL x "
+                  f"{ops.get('LDL', 0)}")
     bf16_sass = [ops for fn, ops in sass.items() if "heads_bf16_kernel" in fn]
     require(bf16_sass and all(any("BF16" in op for op in ops) for ops in bf16_sass),
             "heads_bf16_kernel has no bf16 HMMA in its SASS")

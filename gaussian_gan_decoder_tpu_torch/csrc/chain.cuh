@@ -3,9 +3,9 @@
 // K6's bf16 form (heads_bf16.cu), and the f32 kernels (K6/K7, heads_train.cu;
 // the f32 decode tails, decode_f32.cu): the GELU variants, softplus, the
 // bf16 chain on the tensor cores (chain_bf16: bf16 mma.sync with f32
-// accumulators), the EWA projection of one point (project_point, which the
-// f32 tails share) and the decode kernels' tail of the two
-// (chain_project_tail).
+// accumulators), the EWA projection of one point (project_point; its
+// screen rows alone, project_screen, are the f32 tails' projection kernel)
+// and the decode kernels' tail of the two (chain_project_tail).
 //
 // The tail per point, before and after it moved to the tensor cores: the
 // same 5 x (3 x 128 x 128 + 128 x 16) MACs (5.12e5 FLOPs, the first layer
@@ -305,14 +305,12 @@ __device__ __forceinline__ void chain_bf16(const DecodeSmem& s, const int* sMeta
   __syncthreads();
 }
 
-// One point's rows: its raw head outputs o (16, f32) at rows [0:16), then
-// the EWA projection, opacity and SH-C0 colour, written to dst[row * Mpad].
-// valid scales opac and radius_f; vis_mask scales visible.
-__device__ __forceinline__ void project_point(const float* o, const float* sCam,
-                                              const int* sMeta, float valid, float vis_mask,
-                                              float* __restrict__ dst, int Mpad) {
-#pragma unroll
-  for (int r = 0; r < kOutW; ++r) dst[(size_t)r * Mpad] = o[r];
+// One point's projection rows [16:32) from its raw head outputs o (16,
+// f32): the EWA projection, opacity and SH-C0 colour, written to
+// dst[row * Mpad]. valid scales opac and radius_f; vis_mask scales visible.
+__device__ __forceinline__ void project_screen(const float* o, const float* sCam,
+                                               const int* sMeta, float valid, float vis_mask,
+                                               float* __restrict__ dst, int Mpad) {
   const float* wv = sCam;
   const float* pj = sCam + 16;
   const float tanx = sCam[32], tany = sCam[33], imw = sCam[34], imh = sCam[35];
@@ -399,6 +397,16 @@ __device__ __forceinline__ void project_point(const float* o, const float* sCam,
   dst[(size_t)kVis * Mpad] = (visible ? 1.f : 0.f) * vis_mask;
 #pragma unroll
   for (int r = kVis + 1; r < kNRows; ++r) dst[(size_t)r * Mpad] = 0.f;
+}
+
+// One point's rows: its raw head outputs o at rows [0:16), then its
+// projection rows (project_screen)
+__device__ __forceinline__ void project_point(const float* o, const float* sCam,
+                                              const int* sMeta, float valid, float vis_mask,
+                                              float* __restrict__ dst, int Mpad) {
+#pragma unroll
+  for (int r = 0; r < kOutW; ++r) dst[(size_t)r * Mpad] = o[r];
+  project_screen(o, sCam, sMeta, valid, vis_mask, dst, Mpad);
 }
 
 // The decode kernels' tail (K2, K8, K9): the chain over X, then the

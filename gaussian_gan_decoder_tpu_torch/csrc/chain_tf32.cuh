@@ -216,24 +216,6 @@ __device__ __forceinline__ void chain_f32_setup(const F32Smem& s, int* sMeta, co
         make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// bias + GELU of a layer's accumulators, the GELU kind a template argument
-// (kGelu >= 0, K6) or chosen at run time from gk (kGelu < 0: the decode
-// tails, one kernel for every kind)
-template <int kGelu>
-__device__ __forceinline__ void bias_gelu_kind(float (&v)[16][4], const float* bias, int gk) {
-  if constexpr (kGelu >= 0) {
-    bias_gelu<kGelu>(v, bias);
-  } else {
-    switch (gk) {
-      case 0: bias_gelu<0>(v, bias); break;
-      case 1: bias_gelu<1>(v, bias); break;
-      case 2: bias_gelu<2>(v, bias); break;
-      case 3: bias_gelu<3>(v, bias); break;
-      default: bias_gelu<4>(v, bias); break;
-    }
-  }
-}
-
 // The chain over the staging tile: head h reads the staging prefix, 3 x
 // (128 x 128 linear + GELU) and a 128 x 16 linear, then the scale / xyz
 // transform; the transformed output lands in the tile's packed-output
@@ -245,12 +227,13 @@ __device__ __forceinline__ void bias_gelu_kind(float (&v)[16][4], const float* b
 // Stage st of the weight stream goes to ring slot st & 1; each ring_step
 // waits for stage st, then starts stage st + 1, and at a head's first
 // stage that head's W4 (the barrier frees it: every warp is past the last
-// head's layer 4).
+// head's layer 4). The GELU kind is a template argument: one kernel a kind
+// (K6 and the f32 decode tails alike), the epilogue straight-line code.
 template <int kGelu>
 __device__ __forceinline__ void chain_f32(const F32Smem& s, const int* sMeta,
                                           const int* __restrict__ meta, const ChainF32& cw,
                                           const float* __restrict__ wsplit, int n_heads,
-                                          float scale_offset, int gk) {
+                                          float scale_offset) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, q = lane & 3;
   const int n_stages = 6 * n_heads;
   const float* xr = s.X + (16 * warp + g) * kF32Ld;
@@ -287,7 +270,7 @@ __device__ __forceinline__ void chain_f32(const F32Smem& s, const int* sMeta,
       for (int j = 0; j < 16; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) act[j][e] = acc[j][e];
-      bias_gelu_kind<kGelu>(act, bh + l * kStage, gk);
+      bias_gelu<kGelu>(act, bh + l * kStage);
     }
     // layer 4: head h's W4 landed with the wait of the stage after its fetch
     float o[2][4];

@@ -9,19 +9,21 @@
 // activations — nothing is rounded to bf16, neither the features, the
 // conditioning, the fed-back chain outputs nor `init`.
 //
-// One body, three entries. The chain is K6's (chain_tf32.cuh::chain_f32:
-// 3xTF32 on the tensor cores, each warp's 16 points in registers, the
-// weights split into TF32 (hi, lo) pairs once per call and streamed by
-// cp.async through a two-slot ring); after it comes chain.cuh's
-// project_point on the tile's packed f32 outputs. The entries differ only
-// in how they fill the staging tile's feature columns 0:32:
-//   * K8 (brick_decode_f32_kernel): the prebuilt f32 staging as it is;
-//   * K9 (fused_decode_f32_kernel<K, Row, kDots>): the lerp of the gathered
-//     brick rows (gather.cuh::fused_point_features: 8 int8 tri-grid
+// One body (decode_f32.cuh), three entries, then one projection kernel.
+// The chain is K6's (chain_tf32.cuh::chain_f32: 3xTF32 on the tensor
+// cores, each warp's 16 points in registers, the weights split into TF32
+// (hi, lo) pairs once per call and streamed by cp.async through a two-slot
+// ring); the block writes its tile's packed f32 outputs as rows 0:16, and
+// project_rows_kernel projects them into rows 16:32
+// (chain.cuh::project_screen). The entries differ only in how they fill
+// the staging tile's feature columns 0:32:
+//   * K8 (brick_decode_f32_kernel<kGelu>): the prebuilt f32 staging;
+//   * K9 (fused_decode_f32_kernel<kGelu, K, Row, kDots>): the lerp of the
+//     gathered brick rows (gather.cuh::fused_point_features: 8 int8 tri-grid
 //     corners times their dequant scale, or 4 bf16 tri-plane corners), in
 //     f32 ('bcast') or with the bf16 products of 'dots', which the JAX
 //     decoder keeps at f32 heads too;
-//   * K2 (slab_decode_f32_kernel<kBilinear>): the slab corners in f32
+//   * K2 (slab_decode_f32_kernel<kGelu, kBilinear>): the slab corners in f32
 //     (gather.cuh::slab_point_features: 8 a plane for the tri-grid, 4 for
 //     the bilinear form), zero at pad slots.
 // The lerps round every product and sum on their own in the plain
@@ -30,140 +32,77 @@
 // visible, opac and radius_f by the staging's valid column; K8 and K9 mask
 // visible by column < n_points.
 //
-// Shared memory per block of 128 points: the f32 staging tile (128 x 144:
-// 128 staging columns and the 16 packed outputs, 73.7 KB), the weight ring
-// (2 x 64 split rows, 131 KB), layer 4 (10 KB) and the biases (8 KB): 223 KB
-// of the 227 KB a block may take, one block an SM. K6 runs the same
-// configuration.
-//
 // Bound on the H100: the chain's operations at f32 accuracy, 3xTF32 at a
 // third of the 495 TFLOP/s TF32 rate (the f32 CUDA cores give 67 TFLOP/s);
 // the gathers read ~0.8 KB a point.
-#include "chain_tf32.cuh"
-#include "gather.cuh"
+//
+// What bounds them now (H100 80GB HBM3, 700 W; scripts/f32_decode_ablation.py,
+// device time on D-par's shapes): the chain. K8-f32 runs within 0.1 ms of
+// K6 on the same rows, K2-f32 within 0.4 and K9-f32 within 0.5-0.7, the
+// rest K9's and K2's gathers (0.26-0.67 ms a call, latency: a 128-point
+// block takes the SM's shared memory, 223 KB of the 227 KB, so one block an
+// SM runs its gather with nothing beside it) and the projection kernel
+// (0.05-0.16 ms).
+//
+// Design: the projection, which cost 1.6-1.8 ms a call at the end of each
+// block (one point a thread on 128 threads, its code fetched cold once a
+// tile, long dependent chains; K2-f32 8.71 ms of which the chain alone was
+// 6.50), leaves the chain's kernel. The block writes its points' 16 packed
+// outputs as rows 0:16 (all 256 threads, coalesced) and retires;
+// project_rows_kernel then reads those rows back, one thread a point in
+// 256-thread blocks at full occupancy, and writes rows 16:32 (chain.cuh::
+// project_screen): 64 bytes a point more of device memory each way, the
+// rows the parent's bit for bit. The staging rows arrive by cp.async with
+// the chain's first weights, the gather's loads in flight beside them; the
+// GELU kind is a template argument, as in K6 (the run-time switch cost
+// 0.11-0.26 ms a call): 5 kinds x 7 forms, each kind in a file of its own
+// (decode_f32_gelu_*.cu), which nvcc builds in parallel. Not a
+// warp-specialised block: a producer warpgroup loading, gathering and
+// projecting beside the chain's warps needs two tiles in shared memory,
+// hence a weight ring of 32-row slots, and measured slower in every form
+// (K2-f32 11.79 ms against 8.88): the chain lost 28 % to the ring's twice
+// as many steps, and the producers' projection slowed it by 2.9-3.2 ms more.
+#include "decode_f32.cuh"
+
+// the GELU kinds' instances live in decode_f32_gelu_*.cu
+extern template struct ggd::DecodeF32<0>;
+extern template struct ggd::DecodeF32<1>;
+extern template struct ggd::DecodeF32<2>;
+extern template struct ggd::DecodeF32<3>;
+extern template struct ggd::DecodeF32<4>;
 
 namespace {
 
-using ggd::kF32Ld;
-using ggd::kF32OutCol;
-using ggd::kF32Pts;
-using ggd::kF32Threads;
+using ggd::kOutW;
 using ggd::kStage;
 using ggd::kValidCol;
 
-// Block prologue of the three entries: the chain's weights in flight, then
-// the block's n_rows rows of the f32 staging (Mpad x 128; the rest zero)
-// and the camera by plain loads. Ends with a barrier.
-__device__ __forceinline__ void decode_f32_prologue(const ggd::F32Smem& s, int* sMeta,
-                                                    float* sCam, const ggd::ChainF32& cw,
-                                                    const float* __restrict__ wsplit,
-                                                    const int* __restrict__ meta,
-                                                    const float* __restrict__ cam,
-                                                    const float* __restrict__ staging, int m0,
-                                                    int n_rows) {
-  const int tid = threadIdx.x;
-  ggd::chain_f32_setup(s, sMeta, cw, wsplit, meta, meta[0]);
-  for (int i = tid; i < kF32Pts * 32; i += kF32Threads) {
-    const int r = i >> 5, c = (i & 31) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_rows) v = *reinterpret_cast<const float4*>(staging + (size_t)(m0 + r) * kStage + c);
-    *reinterpret_cast<float4*>(s.X + r * kF32Ld + c) = v;
-  }
+// The projection rows 16:32 of every point from its head rows 0:16 of out
+// (chain.cuh::project_screen), one thread a point. Cull: with valid_src
+// (K2: its static staging, the valid column 123) visible, opac and
+// radius_f are multiplied by the valid column; without it (K8, K9) visible
+// is masked by column < n_points, as chain.cuh's chain_project_tail does
+// for the bf16 forms.
+constexpr int kProjThreads = 256;
+
+__global__ void __launch_bounds__(kProjThreads) project_rows_kernel(
+    float* __restrict__ out, const float* __restrict__ valid_src, const float* __restrict__ cam,
+    const int* __restrict__ meta, int Mpad, int n_points) {
+  __shared__ int sMeta[32];
+  __shared__ float sCam[36];
+  __shared__ float sO[kProjThreads * (kOutW + 1)];   // a point's outputs a row
+  const int tid = threadIdx.x, m = blockIdx.x * kProjThreads + tid;
+  if (tid < 32) sMeta[tid] = meta[tid];
   if (tid < 36) sCam[tid] = cam[tid];
-  __syncthreads();
-}
-
-// The chain over the tile, then one thread per point projects it, as
-// chain.cuh's chain_project_tail does for the bf16 forms
-__device__ __forceinline__ void decode_f32_tail(const ggd::F32Smem& s, const int* sMeta,
-                                                const float* sCam, const ggd::ChainF32& cw,
-                                                const float* __restrict__ wsplit,
-                                                const int* __restrict__ meta,
-                                                float* __restrict__ out, int Mpad, int m0,
-                                                int gk, float scale_offset, bool valid_col,
-                                                int n_points) {
-  ggd::chain_f32<-1>(s, sMeta, meta, cw, wsplit, meta[0], scale_offset, gk);
-  __syncthreads();
-  const int tid = threadIdx.x, m = m0 + tid;
-  if (tid < kF32Pts && m < Mpad) {
-    const float* xrow = s.X + tid * kF32Ld;
-    const float valid = valid_col ? xrow[kValidCol] : 1.f;
-    const float vis_mask = valid_col ? valid : (m < n_points ? 1.f : 0.f);
-    ggd::project_point(xrow + kF32OutCol, sCam, sMeta, valid, vis_mask, out + m, Mpad);
-  }
-}
-
-__global__ void __launch_bounds__(kF32Threads, 1) brick_decode_f32_kernel(
-    const float* __restrict__ staging, const ggd::ChainF32 cw, const float* __restrict__ wsplit,
-    const int* __restrict__ meta, const float* __restrict__ cam, float* __restrict__ out,
-    int Mpad, int n_points, int gk, float scale_offset) {
-  extern __shared__ __align__(16) float smem[];
-  const ggd::F32Smem s = ggd::f32_smem(smem);
-  __shared__ int sMeta[32];
-  __shared__ float sCam[36];
-  const int m0 = blockIdx.x * kF32Pts;
-  decode_f32_prologue(s, sMeta, sCam, cw, wsplit, meta, cam, staging, m0,
-                      min(kF32Pts, Mpad - m0));
-  decode_f32_tail(s, sMeta, sCam, cw, wsplit, meta, out, Mpad, m0, gk, scale_offset, false,
-                  n_points);
-}
-
-template <int kCorners, typename Row, bool kDots>
-__global__ void __launch_bounds__(kF32Threads, 1) fused_decode_f32_kernel(
-    const float* __restrict__ aux, const Row* __restrict__ rows0, const Row* __restrict__ rows1,
-    const Row* __restrict__ rows2, const float* __restrict__ wts,
-    const float* __restrict__ scale_rows, const ggd::ChainF32 cw,
-    const float* __restrict__ wsplit, const int* __restrict__ meta,
-    const float* __restrict__ cam, float* __restrict__ out, int Mpad, int n_points, int gk,
-    float scale_offset) {
-  extern __shared__ __align__(16) float smem[];
-  const ggd::F32Smem s = ggd::f32_smem(smem);
-  __shared__ int sMeta[32];
-  __shared__ float sCam[36];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * kF32Pts;
-  const int n_rows = min(kF32Pts, Mpad - m0);
-  decode_f32_prologue(s, sMeta, sCam, cw, wsplit, meta, cam, aux, m0, n_rows);
-  // features, 4 threads per point x 8 channels (seen by layer 1 after the
-  // chain's first barrier)
-  for (int pt = tid >> 2; pt < n_rows; pt += kF32Threads / 4) {
-    const int part = tid & 3;
-    float acc[8];
-    ggd::fused_point_features<kCorners, Row, kDots>(rows0, rows1, rows2, wts, scale_rows,
-                                                    m0 + pt, part, Mpad, acc);
+  float* o = sO + tid * (kOutW + 1);
+  if (m < Mpad)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) s.X[pt * kF32Ld + part * 8 + c] = acc[c];
-  }
-  decode_f32_tail(s, sMeta, sCam, cw, wsplit, meta, out, Mpad, m0, gk, scale_offset, false,
-                  n_points);
-}
-
-template <bool kBilinear>
-__global__ void __launch_bounds__(kF32Threads, 1) slab_decode_f32_kernel(
-    const int8_t* __restrict__ vol, const float* __restrict__ scale_rows,
-    const float* __restrict__ positions, const int16_t* __restrict__ idx16,
-    const float* __restrict__ aux, const float* __restrict__ inv_axes, const ggd::ChainF32 cw,
-    const float* __restrict__ wsplit, const int* __restrict__ meta,
-    const float* __restrict__ cam, float* __restrict__ out, int Mpad, int D, int H, int W,
-    int DZ, int YP, int XP, int gk, float box_warp, float scale_offset) {
-  extern __shared__ __align__(16) float smem[];
-  const ggd::F32Smem s = ggd::f32_smem(smem);
-  __shared__ int sMeta[32];
-  __shared__ float sCam[36];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * kF32Pts;
-  const int n_rows = min(kF32Pts, Mpad - m0);
-  decode_f32_prologue(s, sMeta, sCam, cw, wsplit, meta, cam, aux, m0, n_rows);
-  for (int pt = tid >> 2; pt < n_rows; pt += kF32Threads / 4) {
-    const int part = tid & 3;
-    float acc[8];
-    ggd::slab_point_features<kBilinear>(vol, scale_rows, positions, idx16, inv_axes, m0 + pt,
-                                        part, D, H, W, DZ, YP, XP, box_warp, acc);
-    const bool valid = s.X[pt * kF32Ld + kValidCol] > 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) s.X[pt * kF32Ld + part * 8 + c] = valid ? acc[c] : 0.f;
-  }
-  decode_f32_tail(s, sMeta, sCam, cw, wsplit, meta, out, Mpad, m0, gk, scale_offset, true, Mpad);
+    for (int r = 0; r < kOutW; ++r) o[r] = out[(size_t)r * Mpad + m];
+  __syncthreads();
+  if (m >= Mpad) return;
+  const float valid = valid_src != nullptr ? valid_src[(size_t)m * kStage + kValidCol] : 1.f;
+  const float vis_mask = valid_src != nullptr ? valid : (m < n_points ? 1.f : 0.f);
+  ggd::project_screen(o, sCam, sMeta, valid, vis_mask, out + m, Mpad);
 }
 
 // the checks and the weight split every entry makes before its launch
@@ -176,11 +115,23 @@ int f32_entry_setup(const void* const* aligned, int n_aligned, const ggd::ChainF
   return (int)ggd::split_weights(cw, wsplit, n_heads, stream);
 }
 
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)ggd::kF32SmemBytes);
+// after a decode kernel's launch (err): its error, else the projection
+// kernel's
+int project_rows(cudaError_t err, void* out, const void* valid_src, const void* cam,
+                 const void* meta, int Mpad, int n_points, cudaStream_t s) {
+  if (err != cudaSuccess) return (int)err;
+  project_rows_kernel<<<(Mpad + kProjThreads - 1) / kProjThreads, kProjThreads, 0, s>>>(
+      (float*)out, (const float*)valid_src, (const float*)cam, (const int*)meta, Mpad, n_points);
+  return (int)cudaGetLastError();
 }
+
+// the launch of DecodeF32<gk>::member(args...)
+#define GGD_BY_GELU(member, ...)                                 \
+  (gk == 0   ? ggd::DecodeF32<0>::member(__VA_ARGS__)            \
+   : gk == 1 ? ggd::DecodeF32<1>::member(__VA_ARGS__)            \
+   : gk == 2 ? ggd::DecodeF32<2>::member(__VA_ARGS__)            \
+   : gk == 3 ? ggd::DecodeF32<3>::member(__VA_ARGS__)            \
+             : ggd::DecodeF32<4>::member(__VA_ARGS__))
 
 }  // namespace
 
@@ -191,36 +142,17 @@ extern "C" int ggd_brick_decode_f32(const void* staging, const void* w1, const v
                                     const void* w2, const void* b2, const void* w3,
                                     const void* b3, const void* w4, const void* b4,
                                     const void* cam, const void* meta, void* wsplit, void* out,
-                                    int Mpad, int n_points, int n_heads, int gelu,
+                                    int Mpad, int n_points, int n_heads, int gk,
                                     float scale_offset, void* stream) {
   if (Mpad <= 0 || n_points > Mpad) return (int)cudaErrorInvalidValue;
   const ggd::ChainF32 cw = ggd::chain_f32_ptrs(w1, b1, w2, b2, w3, b3, w4, b4);
   const void* aligned[] = {staging, w1, b1, w2, b2, w3, b3, w4, b4, wsplit};
   const cudaStream_t s = (cudaStream_t)stream;
-  int e = f32_entry_setup(aligned, 10, cw, wsplit, n_heads, gelu, s);
+  int e = f32_entry_setup(aligned, 10, cw, wsplit, n_heads, gk, s);
   if (e != 0) return e;
-  cudaError_t err = allow_smem(brick_decode_f32_kernel);
-  if (err != cudaSuccess) return (int)err;
-  brick_decode_f32_kernel<<<(Mpad + kF32Pts - 1) / kF32Pts, kF32Threads, ggd::kF32SmemBytes, s>>>(
-      (const float*)staging, cw, (const float*)wsplit, (const int*)meta, (const float*)cam,
-      (float*)out, Mpad, n_points, gelu, scale_offset);
-  return (int)cudaGetLastError();
-}
-
-template <int kCorners, typename Row, bool kDots>
-static int launch_fused_f32(const void* aux, const void* rows0, const void* rows1,
-                            const void* rows2, const void* wts, const void* scale_rows,
-                            const ggd::ChainF32& cw, const void* wsplit, const void* meta,
-                            const void* cam, void* out, int Mpad, int n_points, int gelu,
-                            float scale_offset, cudaStream_t s) {
-  auto kernel = fused_decode_f32_kernel<kCorners, Row, kDots>;
-  cudaError_t err = allow_smem(kernel);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(Mpad + kF32Pts - 1) / kF32Pts, kF32Threads, ggd::kF32SmemBytes, s>>>(
-      (const float*)aux, (const Row*)rows0, (const Row*)rows1, (const Row*)rows2,
-      (const float*)wts, (const float*)scale_rows, cw, (const float*)wsplit, (const int*)meta,
-      (const float*)cam, (float*)out, Mpad, n_points, gelu, scale_offset);
-  return (int)cudaGetLastError();
+  const cudaError_t err = GGD_BY_GELU(brick, (const float*)staging, cw, (const float*)wsplit,
+                                      (const int*)meta, (float*)out, Mpad, scale_offset, s);
+  return project_rows(err, out, nullptr, cam, meta, Mpad, n_points, s);
 }
 
 // K9-f32. aux (Mpad, 128) f32 with zero feature columns; rows0..2 (Mpad,
@@ -233,26 +165,20 @@ extern "C" int ggd_fused_decode_f32(const void* aux, const void* rows0, const vo
                                     const void* b2, const void* w3, const void* b3,
                                     const void* w4, const void* b4, const void* cam,
                                     const void* meta, void* wsplit, void* out, int Mpad,
-                                    int n_points, int corners, int dots, int n_heads, int gelu,
+                                    int n_points, int corners, int dots, int n_heads, int gk,
                                     float scale_offset, void* stream) {
   if (Mpad <= 0 || n_points > Mpad) return (int)cudaErrorInvalidValue;
   const ggd::ChainF32 cw = ggd::chain_f32_ptrs(w1, b1, w2, b2, w3, b3, w4, b4);
   const void* aligned[] = {aux, rows0, rows1, rows2, w1, b1, w2, b2, w3, b3, w4, b4, wsplit};
   const cudaStream_t s = (cudaStream_t)stream;
   if (corners != 8 && corners != 4) return (int)cudaErrorInvalidValue;
-  int e = f32_entry_setup(aligned, 13, cw, wsplit, n_heads, gelu, s);
+  int e = f32_entry_setup(aligned, 13, cw, wsplit, n_heads, gk, s);
   if (e != 0) return e;
-#define GGD_FUSED_F32(K, ROW, DOTS)                                                         \
-  return launch_fused_f32<K, ROW, DOTS>(aux, rows0, rows1, rows2, wts, scale_rows, cw,      \
-                                        wsplit, meta, cam, out, Mpad, n_points, gelu,       \
-                                        scale_offset, s)
-  if (corners == 8) {
-    if (dots) GGD_FUSED_F32(8, int8_t, true);
-    GGD_FUSED_F32(8, int8_t, false);
-  }
-  if (dots) GGD_FUSED_F32(4, __nv_bfloat16, true);
-  GGD_FUSED_F32(4, __nv_bfloat16, false);
-#undef GGD_FUSED_F32
+  const cudaError_t err = GGD_BY_GELU(fused, (const float*)aux, rows0, rows1, rows2,
+                                      (const float*)wts, (const float*)scale_rows, cw,
+                                      (const float*)wsplit, (const int*)meta, (float*)out, Mpad,
+                                      corners, dots != 0, scale_offset, s);
+  return project_rows(err, out, nullptr, cam, meta, Mpad, n_points, s);
 }
 
 // K2-f32. aux (Mpad, 128) f32 static staging (cond, init, valid at 123);
@@ -264,23 +190,18 @@ extern "C" int ggd_slab_decode_f32(const void* vol, const void* scale_rows,
                                    const void* b3, const void* w4, const void* b4,
                                    const void* cam, const void* meta, void* wsplit, void* out,
                                    int Mpad, int D, int H, int W, int DZ, int YP, int XP,
-                                   int n_heads, int gelu, float box_warp, float scale_offset,
+                                   int n_heads, int gk, float box_warp, float scale_offset,
                                    void* stream) {
   // depth 1 (DZ 1) takes the bilinear form; a tri-grid has D + 2 z layers
-  const bool bilinear = D == 1;
-  if (Mpad <= 0 || D < 1 || DZ != (bilinear ? 1 : D + 2)) return (int)cudaErrorInvalidValue;
+  if (Mpad <= 0 || D < 1 || DZ != (D == 1 ? 1 : D + 2)) return (int)cudaErrorInvalidValue;
   const ggd::ChainF32 cw = ggd::chain_f32_ptrs(w1, b1, w2, b2, w3, b3, w4, b4);
   const void* aligned[] = {aux, w1, b1, w2, b2, w3, b3, w4, b4, wsplit};
   const cudaStream_t s = (cudaStream_t)stream;
-  int e = f32_entry_setup(aligned, 10, cw, wsplit, n_heads, gelu, s);
+  int e = f32_entry_setup(aligned, 10, cw, wsplit, n_heads, gk, s);
   if (e != 0) return e;
-  auto kernel = bilinear ? slab_decode_f32_kernel<true> : slab_decode_f32_kernel<false>;
-  cudaError_t err = allow_smem(kernel);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(Mpad + kF32Pts - 1) / kF32Pts, kF32Threads, ggd::kF32SmemBytes, s>>>(
-      (const int8_t*)vol, (const float*)scale_rows, (const float*)positions,
+  const cudaError_t err = GGD_BY_GELU(
+      slab, (const int8_t*)vol, (const float*)scale_rows, (const float*)positions,
       (const int16_t*)idx16, (const float*)aux, (const float*)inv_axes, cw, (const float*)wsplit,
-      (const int*)meta, (const float*)cam, (float*)out, Mpad, D, H, W, DZ, YP, XP, gelu, box_warp,
-      scale_offset);
-  return (int)cudaGetLastError();
+      (const int*)meta, (float*)out, Mpad, D, H, W, DZ, YP, XP, box_warp, scale_offset, s);
+  return project_rows(err, out, aux, cam, meta, Mpad, Mpad, s);
 }

@@ -1,0 +1,5 @@
+// The f32 decode kernels with the none GELU (GELU id 4; decode_f32.cuh,
+// one file a kind, so that nvcc compiles the kinds in parallel)
+#include "decode_f32.cuh"
+
+template struct ggd::DecodeF32<4>;

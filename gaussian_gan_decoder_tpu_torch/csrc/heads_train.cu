@@ -121,7 +121,7 @@ __global__ void __launch_bounds__(kThreads, 1) heads_fwd_kernel(
       *reinterpret_cast<float4*>(s.X + r * ggd::kF32Ld + c) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   ggd::chain_f32_setup(s, sMeta, cw, wsplit, meta, n_heads);
-  ggd::chain_f32<kGelu>(s, sMeta, meta, cw, wsplit, n_heads, scale_offset, kGelu);
+  ggd::chain_f32<kGelu>(s, sMeta, meta, cw, wsplit, n_heads, scale_offset);
   for (int i = lane; i < 16 * 4; i += 32) {
     const int r = 16 * warp + (i >> 2), c = (i & 3) * 4;
     if (r < n_rows)

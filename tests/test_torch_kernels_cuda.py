@@ -12,7 +12,7 @@ import torch
 
 from gaussian_gan_decoder_tpu_torch import flagship
 from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads
-from gaussian_gan_decoder_tpu_torch.decoder.heads import GaussianDecoder
+from gaussian_gan_decoder_tpu_torch.decoder.heads import DecoderHead, GaussianDecoder
 from gaussian_gan_decoder_tpu_torch.gaussians.cameras import make_camera
 from gaussian_gan_decoder_tpu_torch.models import pallas_mapping
 from gaussian_gan_decoder_tpu_torch.models.stylegan2 import MappingNetwork
@@ -484,27 +484,31 @@ OPTION_DECODERS = [("parallel", True, False), ("parallel", True, True),
                    ("sequential", False, True), ("sequential", True, False)]
 
 
-def _option_frame(cuda, decoder_type, emb, bf16, variant="panohead", block=256):
+def _option_frame(cuda, decoder_type, emb, bf16, variant="panohead", block=256,
+                  n_points=3000, gelu="exact"):
     """A decoder of the given options on a small generator (32^2 tri-grid of
-    depth 3, or an EG3D tri-plane), seeded heads with the exact GELU, a
-    3000-point template with its slab context, a camera and seeded planes."""
+    depth 3, or an EG3D tri-plane), seeded heads with the given GELU (exact
+    by default), an n_points template with its slab context, a camera and
+    seeded planes."""
     g = torch.Generator().manual_seed(6)
     depth = 3 if variant == "panohead" else 1
     gen = TriPlaneGenerator(z_dim=32, c_dim=25, w_dim=32, img_resolution=64, variant=variant,
                             channel_base=512, channel_max=32, without_sr=variant == "eg3d",
                             rendering_kwargs={"triplane_size": 32}, generator=g)
-    dec = GaussianDecoder(gen, gelu="exact", rng=g, decoder_type=decoder_type,
+    dec = GaussianDecoder(gen, gelu=gelu, rng=g, decoder_type=decoder_type,
                           use_xyz_embedding=emb, heads_bf16=bf16).to(cuda)
-    pos_np = ((np.random.RandomState(7).rand(3000, 3) - 0.5) * 0.4).astype(np.float32)
+    pos_np = ((np.random.RandomState(7).rand(n_points, 3) - 0.5) * 0.4).astype(np.float32)
     ctx = dec.make_slab_context(pos_np, block=block, device=cuda)
     cam = make_camera(64, 0.227, flagship.default_camera_params(device=cuda)[1], device=cuda)
     planes = torch.randn(1, 3, 32 * depth, 32, 32, generator=g).to(cuda)
     return dec, dec.fold().chain, torch.tensor(pos_np, device=cuda), ctx, cam, planes
 
 
-def _route_rows(dec, cw, pos, ctx, cam, planes, route, kernel):
+def _route_rows(dec, cw, pos, ctx, cam, planes, route, kernel, block=pallas_heads.DECODE_BLOCK,
+                lerp="bcast"):
     """One route's decode with its kernel (kernel=True) or its plain version
-    -> (rows, real-column mask, the wrapper)."""
+    -> (rows, real-column mask, the wrapper); the brick routes' staging
+    padded to a multiple of block, the fused route's lerp."""
     ph = pallas_heads
     D = dec.G.triplane_depth
     dt = ph.chain_dtype(cw)
@@ -517,15 +521,15 @@ def _route_rows(dec, cw, pos, ctx, cam, planes, route, kernel):
     cond = dec.cond0(pos)
     if route == "table":
         feats = sample_from_planes(dec.G.plane_axes, planes, pos[None], 1.0, D, table=table)[0]
-        staging, Mpad = ph.build_brick_staging(feats.mean(0), cond, pos, dtype=dt)
+        staging, Mpad = ph.build_brick_staging(feats.mean(0), cond, pos, block, dtype=dt)
         fn = ph.decode_project if kernel else ph.decode_project_plain
         return (fn(cw, staging, cam, M), torch.arange(Mpad, device=pos.device) < M,
                 ph.decode_project)
-    aux, Mpad = ph.build_brick_staging(pos.new_zeros((M, 32)), cond, pos, dtype=dt)
+    aux, Mpad = ph.build_brick_staging(pos.new_zeros((M, 32)), cond, pos, block, dtype=dt)
     rows_in, wts, scale_rows = sample_fused_inputs(dec.G.plane_axes, planes, pos[None], 1.0, D,
                                                    table=table, pad_to=Mpad)
     fn = ph.decode_project_fused if kernel else ph.decode_project_fused_plain
-    return (fn(cw, aux, rows_in, wts, scale_rows, cam, M),
+    return (fn(cw, aux, rows_in, wts, scale_rows, cam, M, lerp=lerp),
             torch.arange(Mpad, device=pos.device) < M, ph.decode_project_fused)
 
 
@@ -706,3 +710,69 @@ def test_brick_table_select_kernel(cuda, dtype):
         torch.cuda.synchronize()
         assert torch.equal(e.view(torch.uint8), ref.view(torch.uint8))
         assert torch.equal(e.view(torch.uint8), rot.view(torch.uint8))
+
+
+# ---- the f32 decode kernels over many tiles (csrc/decode_f32.cu: a
+# 128-point block a tile, the chain then the tile's head rows; the
+# projection kernel over every point after it) ----
+
+F32_FORMS = [("slab", "panohead", "bcast"), ("slab", "eg3d", "bcast"),
+             ("table", "panohead", "bcast"), ("fused", "panohead", "bcast"),
+             ("fused", "panohead", "dots"), ("fused", "eg3d", "bcast"),
+             ("fused", "eg3d", "dots")]
+
+
+@pytest.mark.parametrize("route,variant,lerp", F32_FORMS)
+def test_decode_f32_many_tiles(cuda, route, variant, lerp):
+    """Each f32 decode form on D-par's options over 40,000 points: 313 tiles
+    of 128, more than the card's SMs and not a multiple of them, the last
+    ragged (64 rows); held against its plain version (_hold_f32_rows), and
+    a second launch bit-identical to the first (a tile's rows do not depend
+    on the order its blocks run in)."""
+    dec, cw, pos, ctx, cam, planes = _option_frame(cuda, "parallel", True, False, variant,
+                                                   block=64, n_points=40_000)
+    rows, real, _ = _route_rows(dec, cw, pos, ctx, cam, planes, route, True, 32, lerp)
+    again, _, _ = _route_rows(dec, cw, pos, ctx, cam, planes, route, True, 32, lerp)
+    ref, _, _ = _route_rows(dec, cw, pos, ctx, cam, planes, route, False, 32, lerp)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_tiles = -(-rows.shape[1] // 128)
+    assert n_tiles > sms and n_tiles % sms and rows.shape[1] % 128 == 64, (n_tiles, sms)
+    assert torch.equal(rows, again)
+    _hold_f32_rows(rows, ref, real, cw, cam)
+
+
+@pytest.mark.parametrize("gelu", ["exact", "tanh", "poly", "poly6", "none"])
+def test_decode_f32_gelu_kinds_and_heads(cuda, gelu):
+    """K8-f32 with each GELU kind (a template argument: one kernel instance
+    a kind) on 3,000 points (24 tiles, fewer than the card's SMs, the last
+    ragged), with the decoder's 5 heads and with a chain of 1 head (14
+    outputs, projected from its columns); held against the plain version,
+    two launches bit-identical."""
+    ph = pallas_heads
+    dec, cw, pos, _, cam, planes = _option_frame(cuda, "sequential_reversed", False, False,
+                                                 gelu=gelu)
+    g = torch.Generator().manual_seed(8)
+    head = DecoderHead(32 + dec.position_dim, 14, generator=g).to(cuda)
+    one = ph.pack_chain({"all": head}, [("all", 14)], dec.position_dim, dec.scale_offset, gelu,
+                        dtype=torch.float32)
+    meta = one.meta.clone()
+    meta[21:26] = torch.tensor([0, 3, 7, 10, 13], dtype=torch.int32)
+    one = one._replace(meta=meta, layout={"xyz": (0, 3), "rotation": (3, 4), "scale": (7, 3),
+                                          "color": (10, 3), "opacity": (13, 1)})
+    M = pos.shape[0]
+    table = build_plane_table(planes, 3, brick_dtype=torch.int8)
+    feats = sample_from_planes(dec.G.plane_axes, planes, pos[None], 1.0, 3, table=table)[0]
+    staging, Mpad = ph.build_brick_staging(feats.mean(0), dec.cond0(pos), pos, 32,
+                                           dtype=torch.float32)
+    assert -(-Mpad // 128) < torch.cuda.get_device_properties(0).multi_processor_count
+    assert Mpad % 128
+    real = torch.arange(Mpad, device=cuda) < M
+    for chain in (cw, one):
+        assert chain.w1.shape[0] == (5 if chain is cw else 1) and chain.gelu == gelu
+        rows = ph.decode_project(chain, staging, cam, M)
+        again = ph.decode_project(chain, staging, cam, M)
+        ref = ph.decode_project_plain(chain, staging, cam, M)
+        torch.cuda.synchronize()
+        assert torch.equal(rows, again)
+        _hold_f32_rows(rows, ref, real, chain, cam)
