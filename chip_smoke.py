@@ -105,6 +105,24 @@ Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
      sound references; a 6-bit control must fail them); K10's select form
      byte for byte K10's table, timed beside K10's sources and torch.cat,
      and table-route frames with pallas_sampling "select";
+  5f. the trainer-options phase (trainer_options_phase): on the flagship
+     trainer of phase 5, built from the CLI's flags, on the same draws:
+     --int8_probe --pallas_probe_build --no-sigma_separable for 1 + 2 steps
+     (K10 builds the frozen target's probe table in every step, byte for
+     byte its plain version's, timed; the int8 and f32 targets by PSNR; the
+     gather sigma grid of the f32 table against the separable grid at the
+     CPU test's limit; K10 at bf16 and f32 too; the target's parts timed
+     with and without the table), 1 + 1 steps each with --bf16_probe,
+     --no-mt_two_stage, --no-use_marching_cubes and --bf16_lpips (single-
+     and two-stage face counts; the voxels over sigma 10), 1 + 1
+     --batch_views 2 steps (the first one's loss the mean of its two
+     single-view losses), 1 + 1 --raster_backend xla steps (JAX's
+     RasterizeConfig; n_dropped, the loss beside the pallas_diff loss; no
+     K4 launch), each with its device time, stage split and peak memory;
+     then
+     apps/render_decoder.py with --backend xla and --backend pallas on a
+     snapshot (PSNR printed at 500k points, held at >= 50 dB on 200k with
+     tile_capacity 2176);
   6. prints the per-frame and per-step times, stage splits, each kernel's
      time beside its plain version's and its bound, peak device memory,
      then a JSON line of per-kernel results, the card's name and power
@@ -225,6 +243,10 @@ KERNELS = {
                                        "gaussian_gan_decoder_tpu/decoder/pallas_heads.py:615"),
     "brick_table_select": ("gaussian_gan_decoder_tpu_torch/csrc/brick_table.cu",
                            "gaussian_gan_decoder_tpu/neuralfield/pallas_expand.py:149"),
+    # K10 on the training path: the frozen target's int8 probe table (the
+    # trainer-options phase)
+    "brick_table_probe": ("gaussian_gan_decoder_tpu_torch/csrc/brick_table.cu",
+                          "gaussian_gan_decoder_tpu/neuralfield/pallas_expand.py:149"),
 }
 # K3's forms: kernels-line name -> (payload_format, mxu_power)
 K3_FORMS = {"blend": ("f32", False), "blend_bf16_colors": ("bf16_colors", False),
@@ -644,9 +666,9 @@ def _detached(torch, x):
 
 
 def train_path(torch, run, steps):
-    """Drive run.step (apps/train_decoder.build) for one warm-up step and
-    `steps` timed ones, launch counters at 0 first; each training kernel
-    must launch in every step. The warm-up step's
+    """Drive run.step (apps/train_decoder.build, one view a step) for one
+    warm-up step and `steps` timed ones, launch counters at 0 first; each
+    training kernel must launch in every step. The warm-up step's
     kernel inputs (and cotangents) are recorded on the way through the
     wrappers, which still launch their kernels. -> dict of the readings."""
     from gaussian_gan_decoder_tpu_torch.decoder.target_pipeline import TargetDraws
@@ -683,7 +705,7 @@ def train_path(torch, run, steps):
         torch.cuda.synchronize()
         t_host = time.perf_counter()
         timer("start")
-        state, metrics, _ = run.step(state, draws[i], zs[i], i, stage_timer=timer)
+        state, metrics, _ = run.step(state, [draws[i]], zs[i][None], i, stage_timer=timer)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t_host) * 1e3
         loss = float(metrics["Loss/total"])
@@ -920,7 +942,11 @@ def train_kernels(torch, captured, results):
 
 
 def profile_step(torch, run, state, draws, z, iteration):
-    """One more step under torch.profiler -> (device ms, largest kernels)."""
+    """One more step under torch.profiler -> (device ms, largest kernels);
+    draws and z are one view's, or a list of views' and their (B, 1, z_dim)
+    latents."""
+    if not isinstance(draws, list):
+        draws, z = [draws], z[None]
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -998,7 +1024,7 @@ def snapshot_phase(torch, run, state, seed, workdir):
     saved_sd, saved_opt, saved_step = (clone(run.decoder.state_dict()),
                                        clone(state.optimizer.state_dict()), state.step)
     z1, d1 = _draw_until(torch, rng, run, run.cfg, False)
-    m_next, _, _ = _timed_step(torch, run.step, state, d1, z1, saved_step)
+    m_next, _, _ = _timed_step(torch, run.step, state, [d1], z1[None], saved_step)
     t0 = time.perf_counter()
     checkpoint.restore(path, state)
     torch.cuda.synchronize()
@@ -1015,7 +1041,7 @@ def snapshot_phase(torch, run, state, seed, workdir):
                     f"restored optimizer state {i}/{k} differs from the saved one")
             n_moments += k.startswith("exp_avg")
     require(opt["param_groups"] == saved_opt["param_groups"], "optimizer groups differ")
-    m_again, _, _ = _timed_step(torch, run.step, state, d1, z1, saved_step)
+    m_again, _, _ = _timed_step(torch, run.step, state, [d1], z1[None], saved_step)
     rel = abs(m_again["Loss/total"] - m_next["Loss/total"]) / abs(m_next["Loss/total"])
     print(f"train state: {out['state_bytes']} bytes, write {out['state_write_s']:.3f} s, "
           f"read {out['state_read_s']:.3f} s; step {saved_step}, {len(saved_sd)} decoder "
@@ -1058,7 +1084,7 @@ def snapshot_phase(torch, run, state, seed, workdir):
     m_f, _, _ = _timed_step(torch, step_id, state, df, zf, i)
     m_n, _, _ = _timed_step(torch, step_id, state, dn, zn, i + 1)
     m_f2, id_dev, id_host = _timed_step(torch, step_id, state, df, zf, i + 2)
-    _, plain_dev, plain_host = _timed_step(torch, run.step, state, df, zf, i + 3)
+    _, plain_dev, plain_host = _timed_step(torch, run.step, state, [df], zf[None], i + 3)
     w = cfg_id
     parts = (m_f["Loss/L1"] * w.l1_weight + m_f["Loss/L2"] * w.l2_weight
              + m_f["Loss/LPIPS"] * w.lpips_weight + m_f["Loss/DSSIM"] * w.ssim_weight
@@ -2339,6 +2365,286 @@ def frame_options_phase(torch, dec, weights, rows_k, ctx, template, cam, cp, c2w
     return launches
 
 
+
+def option_steps(torch, run, steps, counters, label):
+    """run.step (apps/train_decoder.build) over steps, a list of (draws, z)
+    (with --batch_views: (a list of draws, zs (B, 1, z_dim))), step 0 a
+    warm-up, each counter at 0 first and launched in every step. -> dict of
+    losses, metrics (the last step's), the timed steps' median (device,
+    host) ms and stage split, peak memory, launches."""
+    dev = run.dev
+    batched = isinstance(steps[0][0], list)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, losses, step_ms, stage_ms, seen, metrics = run.state, [], [], [], dict.fromkeys(
+        counters, 0), None
+    for i, (d, z) in enumerate(steps):
+        marks = []
+        timer = make_timer(torch, marks)
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        timer("start")
+        if not batched:
+            d, z = [d], z[None]
+        state, metrics, _ = run.step(state, d, z, i, stage_timer=timer)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t_host) * 1e3
+        loss = float(metrics["Loss/total"])
+        require(np.isfinite(loss), f"{label} step {i}: loss {loss}")
+        losses.append(loss)
+        for k, fn in counters.items():
+            require(fn.launches > seen[k], f"{label}: {k} not launched in step {i}")
+            seen[k] = fn.launches
+        if i == 0 and len(steps) > 1:
+            continue
+        step_ms.append((marks[0][1].elapsed_time(marks[-1][1]), host_ms))
+        stage_ms.append([(name, a.elapsed_time(b)) for (_, a), (name, b)
+                         in zip(marks[:-1], marks[1:])])
+    peak = torch.cuda.max_memory_allocated(dev)
+    dev_ms = sorted(d for d, _ in step_ms)[len(step_ms) // 2]
+    host_ms = sorted(h for _, h in step_ms)[len(step_ms) // 2]
+    if batched:       # each stage summed over the views, median over the steps
+        sums = []
+        for st in stage_ms:
+            split = {}
+            for n, t in st:
+                split[n] = split.get(n, 0.0) + t
+            sums.append(list(split.items()))
+        stage_ms = sums
+    split = stage_split(torch, stage_ms)
+    print(f"{label}: 1 + {len(steps) - 1} step(s), median {dev_ms:.3f} ms device, {host_ms:.3f} "
+          f"ms host wall; losses "
+          + ", ".join(f"{v:.5f}" for v in losses)
+          + f"; peak device memory {peak / 2 ** 30:.3f} GiB; launches "
+          + str({k: fn.launches for k, fn in counters.items()}))
+    print(f"{label} stage split (ms): " + ", ".join(f"{n} {t:.3f}" for n, t in split.items()))
+    return dict(state=state, losses=losses, metrics=metrics, dev_ms=dev_ms, host_ms=host_ms,
+                peak=peak, launches={k: fn.launches for k, fn in counters.items()})
+
+
+def profile_option(torch, run, state, draws, z, label):
+    """One more step of run under torch.profiler: its device time and the
+    largest kernels, printed."""
+    busy, on_card = profile_step(torch, run, state, draws, z, 2)
+    print(f"{label} profiler: {busy:.3f} ms device time in one step; largest: "
+          + "; ".join(f"{k[:48]} {t:.3f} ms" for t, k in on_card[:6]))
+
+
+def trainer_options_phase(torch, seed, level, results):
+    """5f: the trainer's options on the flagship trainer of phase 5
+    (apps/train_decoder.py --random_init, 500k points, 128^3 sigma grid,
+    512^2 target and render), each from the CLI's flags, on the same draws:
+    (a) the int8 probe table built by K10 (--int8_probe --pallas_probe_build
+    --no-sigma_separable: 1 + 2 steps, K10 launched in every step, its table
+    byte for byte its plain version's, the int8-probe target against the f32
+    one, the gather sigma grid of the f32 table against the separable grid,
+    the target's parts) and --bf16_probe; (b) --no-mt_two_stage,
+    --no-use_marching_cubes and --bf16_lpips, the single- and two-stage face
+    counts; (c) --batch_views 2, its loss against its two single-view
+    losses; (d) --raster_backend xla beside the pallas_diff loss; each
+    option 1 + 1 steps; (e) the render app with --backend xla and --backend
+    pallas. -> K10's launches on the target path."""
+    import tempfile
+    from gaussian_gan_decoder_tpu_torch.apps import render_decoder, train_decoder
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads_vjp, surface
+    from gaussian_gan_decoder_tpu_torch.decoder.snapshot import (
+        load_decoder, render_with_decoder, save_decoder)
+    from gaussian_gan_decoder_tpu_torch.decoder.target_pipeline import TargetDraws, sample_target
+    from gaussian_gan_decoder_tpu_torch.neuralfield import pallas_expand as pe
+    from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import _quantize_int8
+    from gaussian_gan_decoder_tpu_torch.splat import pallas_blend
+    from gaussian_gan_decoder_tpu_torch.splat.rasterize import RasterizeConfig
+    from gaussian_gan_decoder_tpu_torch.train.distill import make_loss_fn
+
+    base = ["--random_init", "--seed", str(seed), "--mc_level", repr(level)]
+
+    def build(*flags):
+        torch.cuda.empty_cache()
+        return train_decoder.build(train_decoder.build_argparser().parse_args(base + list(flags)))
+
+    train_counters = {"blend_train_fwd": pallas_blend.blend_train,
+                      "heads_bwd": pallas_heads_vjp.decode_heads_bwd}
+    run = build("--int8_probe", "--pallas_probe_build", "--no-sigma_separable")
+    dev, gen = run.dev, run.gen
+    rng = torch.Generator().manual_seed(seed + 5)
+    zs = [torch.randn((1, gen.z_dim), generator=rng).to(dev) for _ in range(4)]
+    draws = [TargetDraws.make(rng, gen, run.tcfg, dev) for _ in range(4)]
+    steps = list(zip(draws, zs))
+
+    # -- (a) the probe tables: K10 on the frozen target's tri-grid ----------
+    a = option_steps(torch, run, steps[:3], {"brick_table": pe.brick_table, **train_counters},
+                     "5f(a) --int8_probe --pallas_probe_build --no-sigma_separable")
+    probe_launches = a["launches"]["brick_table"]
+    profile_option(torch, run, a["state"], draws[3], zs[3], "5f(a)")
+    f32_cfg = dataclasses.replace(run.tcfg, int8_probe=False, pallas_probe_build=False,
+                                  sigma_separable=True)
+    with torch.no_grad():
+        t8 = sample_target(draws[0], gen, zs[0], 0, run.tcfg)
+        t32 = sample_target(draws[0], gen, zs[0], 0, f32_cfg)
+        print(f"5f(a) target image, int8 probe table vs the planes sampled directly (f32), "
+              f"same draws: {psnr(t8.img, t32.img):.2f} dB")
+        planes = t32.feature_planes
+        n_planes, CD, H, W = planes.shape[1:]
+        D = gen.triplane_depth
+        table = gen.build_sampling_table(planes, brick_dtype=torch.int8, pallas_build=True)
+        q8, scales = _quantize_int8(planes.float().reshape(n_planes, CD // D, D, H, W))
+        fp = pe.padded_channels_last(q8)
+        NY = table[1]
+        e_p = pe.brick_table_plain(fp, NY)
+        torch.cuda.synchronize()
+        err = int((table[0].int() - e_p.int()).abs().max())
+        require(torch.equal(table[0], e_p) and torch.equal(table[2], scales),
+                "the int8 probe table (K10) differs from its plain version")
+        # the card's int8 scales against the quotient that the CPU and JAX take
+        absmax = planes.float().reshape(n_planes, CD // D, -1).abs().amax(dim=2).cpu().numpy()
+        host = np.maximum(absmax / np.float32(127.0), np.float32(1e-12))
+        off = int((table[2].cpu().numpy() != host).sum())
+        print(f"5f(a) int8 probe scales: {off} of {host.size} differ from the host quotient")
+        require(off == 0, "the card's int8 scales are not the host's quotient")
+        p1 = queued_ms(torch, lambda: pe.brick_table_plain(fp, NY), 20)
+        lib1 = queued_ms(torch, lambda: pe.concat_corners(fp), 20)
+        k1 = queued_ms(torch, lambda: pe.brick_table(fp, NY), 20)
+        k2 = queued_ms(torch, lambda: pe.brick_table(fp, NY), 20)
+        lib2 = queued_ms(torch, lambda: pe.concat_corners(fp), 20)
+        p2 = queued_ms(torch, lambda: pe.brick_table_plain(fp, NY), 20)
+        ms, plain_ms, lib_ms = (k1 + k2) / 2, (p1 + p2) / 2, (lib1 + lib2) / 2
+        results["brick_table_probe"] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                                            library_ms=lib_ms,
+                                            bound=bound(nbytes(q8, table[0]), 0, "bf16"))
+        print(f"5f(a) K10 probe table (int8, {tuple(table[0].shape)}): bit-exact to its plain "
+              f"version {err == 0}, scales equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.cat of the 8 views {lib_ms:.4f} ms; launches {probe_launches} in "
+              f"{len(draws)} steps")
+        del table, q8, fp, e_p
+        for dt in (torch.bfloat16, torch.float32):
+            vol = planes.to(dt).reshape(n_planes, CD // D, D, H, W)
+            fpd = pe.padded_channels_last(vol)
+            ny = pe.table_rows_ny(H, fpd.element_size())
+            same = torch.equal(pe.brick_table(fpd, ny), pe.brick_table_plain(fpd, ny))
+            kt = queued_ms(torch, lambda: pe.brick_table(fpd, ny), 10)
+            print(f"5f(a) K10 probe table ({dt}): bit-exact to its plain version {same}; "
+                  f"kernel {kt:.4f} ms")
+            require(same, f"K10 ({dt}) differs from its plain version")
+            del vol, fpd
+        f32_table = gen.build_sampling_table(planes, pallas_build=True)
+        res, chunk = run.tcfg.shape_res, run.tcfg.sigma_chunk
+        gather = surface.sigma_grid(gen, planes, res, chunk, table=f32_table, separable=False)
+        sep = surface.sigma_grid(gen, planes, res, chunk)
+        d = (gather - sep).abs()
+        worst = float((d / (2e-5 + 2e-5 * sep.abs())).max())
+        print(f"5f(a) gather sigma grid (f32 table) vs separable ({tuple(sep.shape)}): max |d| "
+              f"{float(d.max()):.3e}, {worst:.3f} of the CPU test's limit (2e-5 + 2e-5 |s|)")
+        require(worst <= 1.0, "the gather sigma grid departs from the separable one")
+        # the target stage's parts with and without the int8 table (events)
+        table8 = gen.build_sampling_table(planes, brick_dtype=torch.int8, pallas_build=True)
+        ws, cp = t32.ws, t32.gan_camera_params
+        nr = run.tcfg.neural_rendering_resolution
+        parts = {
+            "int8 table": lambda: gen.build_sampling_table(planes, brick_dtype=torch.int8,
+                                                           pallas_build=True),
+            "render, int8 table": lambda: gen.render_planes(planes, ws, cp, draws[0].render, nr,
+                                                            plane_table=table8),
+            "render, planes": lambda: gen.render_planes(planes, ws, cp, draws[0].render, nr),
+            "gather grid, int8 table": lambda: surface.sigma_grid(
+                gen, planes, res, chunk, table=table8, separable=False),
+            "separable grid": lambda: surface.sigma_grid(gen, planes, res, chunk),
+            "marching tetrahedra + sample": lambda: surface.marching_tetrahedra_sample(
+                sep, draws[0].face_u, draws[0].weight_u, draws[0].thickness_n, level,
+                face_capacity=run.tcfg.face_capacity)}
+        print("5f(a) target parts, device ms (events, mean of 3): "
+              + ", ".join(f"{k} {cuda_ms(torch, fn, 3):.3f}" for k, fn in parts.items()))
+        del table8, parts
+        sig = t32.sigmas
+        faces = {two: surface.marching_tetrahedra_faces(sig, level, run.tcfg.face_capacity,
+                                                        two_stage=two)[1:]
+                 for two in (True, False)}
+        over10 = int((sig > 10.0).sum())
+        del f32_table, gather, sep, d, t8, t32, ws, cp
+    print(f"5f(b) marching tetrahedra at level {level:.4f}: two-stage {faces[True][0]} faces "
+          f"({faces[True][1]} cubes dropped), single-stage {faces[False][0]}; voxels over "
+          f"sigma 10: {over10}")
+    require(faces[True][1] > 0 or faces[True][0] == faces[False][0],
+            "single- and two-stage marching tetrahedra disagree with no cube dropped")
+    del run, gen, a
+    option_runs = {"bf16_probe": ("--bf16_probe",), "single_stage": ("--no-mt_two_stage",),
+                   "voxel_filter": ("--no-use_marching_cubes",), "bf16_lpips": ("--bf16_lpips",)}
+    for name, flags in option_runs.items():
+        run = build(*flags)
+        counters = dict(train_counters, **({"brick_table": pe.brick_table}
+                                           if name == "bf16_probe" else {}))
+        o = option_steps(torch, run, steps[:2], counters, f"5f {' '.join(flags)}")
+        profile_option(torch, run, o["state"], draws[2], zs[2], f"5f {' '.join(flags)}")
+        del run, o
+
+    # -- (c) two views a step -----------------------------------------------
+    run = build("--batch_views", "2")
+    loss_fn = make_loss_fn(run.decoder, run.gen, run.vgg, run.cfg, run.tcfg, run.rcfg, run.irse)
+    with torch.no_grad():
+        single = [float(loss_fn(draws[b], zs[b], 0)[0]) for b in range(2)]
+    c = option_steps(torch, run, [(draws[:2], torch.stack(zs[:2])),
+                                  (draws[2:4], torch.stack(zs[2:4]))],
+                     train_counters, "5f(c) --batch_views 2")
+    profile_option(torch, run, c["state"], draws[:2], torch.stack(zs[:2]), "5f(c)")
+    mean = (single[0] + single[1]) / 2
+    print(f"5f(c) batched loss {c['losses'][0]:.7f}, mean of the two single-view losses "
+          f"{mean:.7f} ({single[0]:.7f}, {single[1]:.7f}); |d| {abs(c['losses'][0] - mean):.3e}")
+    require(abs(c["losses"][0] - mean) <= 1e-6 * abs(mean),
+            "the batched loss is not the mean of its views' losses")
+    del run, c
+
+    # -- (d) the f32 tile rasterizer in the step, JAX's RasterizeConfig ------
+    run = build("--raster_backend", "xla")
+    require(run.rcfg.max_pairs == 2 ** 21 and run.rcfg.tile_capacity == 1024
+            and run.rcfg.chunk == 64, f"not JAX's RasterizeConfig defaults: {run.rcfg}")
+    diff_fn = make_loss_fn(run.decoder, run.gen, run.vgg,
+                           dataclasses.replace(run.cfg, raster_backend="pallas_diff"),
+                           run.tcfg, run.rcfg, run.irse)
+    with torch.no_grad():
+        diff_loss = float(diff_fn(draws[0], zs[0], 0)[0])
+    blend_before = pallas_blend.blend_train.launches
+    x = option_steps(torch, run, steps[:2], {"heads_bwd": pallas_heads_vjp.decode_heads_bwd},
+                     "5f(d) --raster_backend xla")
+    require(pallas_blend.blend_train.launches == blend_before, "K4 launched in the 'xla' steps")
+    profile_option(torch, run, x["state"], draws[2], zs[2], "5f(d)")
+    m = {k: float(v) for k, v in x["metrics"].items()}
+    print(f"5f(d) xla step 0: loss {x['losses'][0]:.6f} beside the pallas_diff loss "
+          f"{diff_loss:.6f} on the same draws and weights; step 1: n_dropped "
+          f"{int(m['General/n_dropped'])}, {int(m['General/n_pairs'])} pairs blended")
+
+    # -- (e) the render app on both backends ---------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "snap")
+        save_decoder(snap, run.decoder, run.gen, target_cfg=run.tcfg)
+        del run, x
+        outs = {}
+        for backend in ("xla", "pallas"):
+            t0 = time.perf_counter()
+            outs[backend] = render_decoder.main(["--checkpoint", snap, "--backend", backend,
+                                                 "--out", os.path.join(tmp, f"{backend}.png")])
+            torch.cuda.synchronize()
+            print(f"5f(e) render_decoder --backend {backend}: {time.perf_counter() - t0:.2f} s "
+                  f"host wall (snapshot load and surface included)")
+        full = psnr(outs["xla"]["render"], outs["pallas"]["render"])
+        o = outs["xla"]
+        dec, _ = load_decoder(snap, device=dev)
+        n = 200_000
+        cfg = RasterizeConfig(tile_capacity=2176)
+        with torch.no_grad():
+            imgs = [render_with_decoder(dec, o["z"], o["camera_params"], o["cam2world"],
+                                        o["vertices"][:n], float(np.radians(13.0)), raster_cfg=cfg,
+                                        backend=b)[0] for b in ("xla", "pallas")]
+        held = psnr(*imgs)
+        print(f"5f(e) render app, xla vs pallas: {full:.2f} dB on the snapshot's 500k surface "
+              f"points (tile_capacity 1024); {held:.2f} dB on the first {n} (tile_capacity "
+              f"2176, f32 payload)")
+        require(held >= 50.0, f"xla and pallas renders disagree: {held:.2f} dB")
+        del dec, outs, imgs
+    torch.cuda.empty_cache()
+    return {"brick_table_probe": probe_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2627,6 +2933,10 @@ def main(argv=None) -> int:
         print(f"blend inputs saved to {args.dump}")
     del captured, dump
     torch.cuda.empty_cache()
+
+    # -- the trainer-options phase: the probe tables (K10 on the target path),
+    # the surface options, bf16 LPIPS, two views a step, the 'xla' rasterizer
+    launches.update(trainer_options_phase(torch, args.seed, level, results))
 
     # -- the EG3D phase: the tri-plane forms of K2 and K9, frames and steps ---
     launches.update(eg3d_phase(torch, args.seed, results))

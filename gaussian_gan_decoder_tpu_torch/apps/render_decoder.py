@@ -8,9 +8,10 @@ main/load_decoder.py:12-43) and the .ply export for splatviz / SIBR viewers
         --ply head.ply [--force_cpu]
 
 The surface points come from the snapshot's frozen generator at the given
-yaw, pitch and fov; the frame is blended by K3 (--backend pallas; the JAX
-package's 'xla' oracle is not ported, ROADMAP A3). The image is a PNG
-through PIL, or <out>.npy without PIL.
+yaw, pitch and fov; the frame is blended by K3 (--backend pallas, the
+default) or by the f32 tile rasterizer in plain PyTorch (--backend xla, the
+JAX app's default). The image is a PNG through PIL, or <out>.npy without
+PIL.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ def build_argparser():
 
 
 def main(argv=None):
+    """-> {image (the path written)[, ply], render (3, H, W), z,
+    camera_params, cam2world, vertices (the surface decoded)}."""
     args = build_argparser().parse_args(argv)
     import numpy as np
     import torch
@@ -47,9 +50,6 @@ def main(argv=None):
     from ..gaussians.ply import save_ply
     from ..utils.loggers import write_image
 
-    if args.backend == "xla":
-        raise NotImplementedError("--backend xla (the f32 oracle rasterize) is not ported yet "
-                                  "(ROADMAP.md queue A item A3)")
     dev = resolve_device("cpu" if args.force_cpu else "cuda")
     decoder, configs = load_decoder(args.checkpoint, device=dev)
     frozen = configs.get("frozen_G", decoder.G)
@@ -67,7 +67,9 @@ def main(argv=None):
         decoder, z, cp, pose[0], target.vertices, math.radians(args.fov_deg),
         image_size=args.image_size, truncation_psi=args.truncation_psi, backend=args.backend)
     arr = np.clip(img.cpu().numpy().transpose(1, 2, 0) * 255, 0, 255).astype(np.uint8)
-    out = {"image": write_image(arr, args.out)}
+    # the written paths, and what the frame was made from
+    out = {"image": write_image(arr, args.out), "render": img, "z": z, "camera_params": cp,
+           "cam2world": pose[0], "vertices": target.vertices}
     print(f"wrote {out['image']}")
     if args.ply:
         save_ply(gaussian_scene_from_decoded(decoded), args.ply)

@@ -20,6 +20,17 @@ normal camera sampling, marching-tetrahedra surface points, the training
 rasterizer, a VGG16 for LPIPS (seeded random without --vgg_weights) and,
 with --id_weights, the IR-SE50 ID term on frontal views.
 
+Every flag of the JAX trainer runs: --raster_backend xla renders with the
+f32 tile rasterizer in plain PyTorch instead of the training blend K4 / K5;
+--bf16_probe, --int8_probe (tri-grid only, overrides --bf16_probe) and
+--pallas_probe_build build one probe table of the frozen target's planes a
+step (K10 on the card), which its render and, with --no-sigma_separable,
+its gather sigma grid read; --no-mt_two_stage takes the single-stage
+marching tetrahedra, --no-use_marching_cubes the sigma > 10 voxel filter;
+--bf16_lpips runs the VGG16 features in bf16; --batch_views B takes B
+views a step (each its own latent and draws, the mean loss, one update;
+the per-step compare images are not written).
+
 Outputs in <outdir>/run<run_name>_<n>/, as the JAX loop writes them:
 stats.jsonl (scalars every --scalars_interval steps, 50 as in the JAX
 loop, then the final eval), images/render_<step>.png (render | target every
@@ -28,9 +39,7 @@ and the reference-named decoder<i>.pt every --save_model_interval steps,
 then run_eval over min(--eval_steps, 100) steps and decoder_final.
 --load_checkpoint restores a train state written by train/checkpoint.save
 and runs on from its step (the JAX loop writes no train state itself; on
-resume, as in the JAX loop, the draws start again from the seed). Flags of
-paths the port does not run raise NotImplementedError naming the ROADMAP
-item.
+resume, as in the JAX loop, the draws start again from the seed).
 """
 from __future__ import annotations
 
@@ -49,8 +58,6 @@ ARCH_PRESETS = {
     "eg3d_lpff": (0.2, 0.2, 5.0, 12.0, (0.0, 0.0, 0.0), "eg3d"),
     "eg3d_cats": (0.2, 0.2, 5.0, 12.0, (0.0, 0.0, 0.0), "eg3d"),
 }
-ROADMAP_DECODE = "ROADMAP.md queue A item A4"
-ROADMAP_RASTER = "ROADMAP.md queue A item A3"
 
 
 def build_argparser():
@@ -111,42 +118,23 @@ def build_argparser():
     return p
 
 
-def _refuse_unported(args):
-    """Raise NotImplementedError for every flag whose path the port lacks."""
-    unported = {
-        "--batch_views": (args.batch_views > 0, ROADMAP_DECODE),
-        "--pallas_probe_build": (args.pallas_probe_build, ROADMAP_DECODE),
-        "--int8_probe": (args.int8_probe, ROADMAP_DECODE),
-        "--bf16_probe": (args.bf16_probe, ROADMAP_DECODE),
-        "--bf16_lpips": (args.bf16_lpips, ROADMAP_DECODE),
-        "--no-use_marching_cubes": (not args.use_marching_cubes, ROADMAP_DECODE),
-        "--no-mt_two_stage": (not args.mt_two_stage, ROADMAP_DECODE),
-        "--no-sigma_separable": (not args.sigma_separable, ROADMAP_DECODE),
-        "--raster_backend xla": (args.raster_backend != "pallas_diff", ROADMAP_RASTER),
-    }
-    bad = [(flag, item) for flag, (on, item) in unported.items() if on]
-    if bad:
-        raise NotImplementedError("; ".join(f"{flag}: not ported to the PyTorch trainer yet "
-                                            f"({item})" for flag, item in bad))
-    if not (args.random_init or args.network_pkl or args.smoke):
-        raise SystemExit("--network_pkl or --random_init required")
-
-
 def build(args):
     """Parsed flags -> SimpleNamespace(dev, gen, decoder, vgg, irse, cfg,
-    tcfg, rcfg, state, step): the frozen generator, the decoder with its
-    trainable G copy, the LPIPS VGG16, the IR-SE50 (or None), the configs,
-    the train state and the step of make_train_step. Raises for a flag
-    whose path is not ported."""
-    _refuse_unported(args)
+    tcfg, rcfg, state, views, step): the frozen generator, the decoder with
+    its trainable G copy, the LPIPS VGG16, the IR-SE50 (or None), the
+    configs, the train state, the views a step (--batch_views, at least 1)
+    and make_parallel_train_step's step over them."""
+    if not (args.random_init or args.network_pkl or args.smoke):
+        raise SystemExit("--network_pkl or --random_init required")
     from ..decoder.heads import GaussianDecoder
     from ..decoder.target_pipeline import TargetSamplerConfig
     from ..flagship import flagship_generator, resolve_device
     from ..losses import IRSE50, VGG16LPIPS, load_irse50_state
     from ..models.triplane import TriPlaneGenerator
+    from ..parallel import make_parallel_train_step
     from ..port.from_jax import load_vgg16_lpips_state
     from ..splat.rasterize import RasterizeConfig
-    from ..train.distill import DistillConfig, init_train_state, make_train_step
+    from ..train.distill import DistillConfig, init_train_state
 
     dev = resolve_device("cpu" if args.force_cpu else "cuda")
     v_std, h_std, fov_off, fov_scale, bg, variant = ARCH_PRESETS[args.generator_arch]
@@ -172,6 +160,9 @@ def build(args):
     else:
         gen = flagship_generator(variant=variant, rng=rng, device=dev)
         print("random-init generator (full shapes)")
+    if args.int8_probe and gen.triplane_depth <= 1:
+        raise SystemExit("--int8_probe requires a tri-grid generator (triplane_depth > 1); "
+                         "eg3d tri-planes have no int8 brick path")
     # the JAX trainer's decoder: exact GELU, f32 heads; --no-pallas_heads_train
     # (and any hidden width but 128) trains the plain chain
     decoder = GaussianDecoder(copy.deepcopy(gen), gelu="exact", rng=rng, device=dev,
@@ -184,7 +175,8 @@ def build(args):
         sobel_weight=args.sobel_weight, id_loss_weight=args.id_loss_weight,
         image_size=args.image_size, apply_mask_to_rendering=args.apply_mask_to_rendering,
         bg_color=bg, use_gen_finetune=args.use_gen_finetune,
-        reuse_frozen_planes=args.reuse_frozen_planes)
+        reuse_frozen_planes=args.reuse_frozen_planes, raster_backend=args.raster_backend,
+        lpips_bf16=args.bf16_lpips)
     tcfg = TargetSamplerConfig(
         truncation=args.truncation, init_truncation=args.init_truncation,
         truncation_ramp=args.truncation_ramp, camera_sampling=args.camera_sampling,
@@ -192,7 +184,11 @@ def build(args):
         fov_offset_scale=fov_scale, surface_thickness=args.surface_thickness,
         shape_res=args.shape_res, num_points=args.num_points, mc_level=args.mc_level,
         face_capacity=min(2 ** 20, 12 * (args.shape_res - 1) ** 3),
-        neural_rendering_resolution=min(64, args.image_size))
+        neural_rendering_resolution=min(64, args.image_size),
+        use_marching_cubes=args.use_marching_cubes, bf16_probe=args.bf16_probe,
+        int8_probe=args.int8_probe, pallas_probe_build=args.pallas_probe_build,
+        mt_two_stage=args.mt_two_stage, sigma_separable=args.sigma_separable,
+        sigma_chunk=min(2 ** 18, args.shape_res ** 3))
     vgg = VGG16LPIPS(generator=torch.Generator().manual_seed(7), device=dev)
     if args.vgg_weights:
         load_vgg16_lpips_state(vgg, args.vgg_weights)
@@ -204,9 +200,10 @@ def build(args):
         load_irse50_state(irse, args.id_weights)
     rcfg = RasterizeConfig()
     state = init_train_state(decoder, gen, cfg)
-    step = make_train_step(decoder, gen, vgg, cfg, tcfg, rcfg, irse)
+    step = make_parallel_train_step(decoder, gen, vgg, cfg, tcfg, rcfg, irse)
     return SimpleNamespace(dev=dev, gen=gen, decoder=decoder, vgg=vgg, irse=irse, cfg=cfg,
-                           tcfg=tcfg, rcfg=rcfg, state=state, step=step)
+                           tcfg=tcfg, rcfg=rcfg, state=state, views=max(1, args.batch_views),
+                           step=step)
 
 
 def reference_state_dict(decoder):
@@ -244,14 +241,15 @@ def main(argv=None):
     z, last = None, {}
     for i in range(state.step, args.num_iter):
         if z is None or args.repeat_id <= 1 or i % args.repeat_id == 0:
-            z = torch.randn((1, run.gen.z_dim), generator=draw_rng).to(run.dev)
-        draws = TargetDraws.make(draw_rng, run.gen, run.tcfg, run.dev)
+            z = torch.randn((run.views, 1, run.gen.z_dim), generator=draw_rng).to(run.dev)
+        draws = [TargetDraws.make(draw_rng, run.gen, run.tcfg, run.dev)
+                 for _ in range(run.views)]
         state, metrics, aux = run.step(state, draws, z, i)
         last = metrics
         if i % args.scalars_interval == 0:
             row = logger.log_scalars(i, metrics)
             print(f"[{i}] total={row['Loss/total']:.4f} L1={row['Loss/L1']:.4f}")
-        if i % args.logging_interval == 0:
+        if i % args.logging_interval == 0 and args.batch_views <= 0:
             logger.log_compare_image(i, aux["image"], aux["target"])
         if i % args.save_model_interval == 0 and i > 0:
             save_decoder(os.path.join(outdir, f"decoder_{i:06d}"), run.decoder, run.gen,

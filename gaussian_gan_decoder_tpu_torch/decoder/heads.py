@@ -91,7 +91,6 @@ CHAINS = {
 CHAIN = CHAINS["sequential_reversed"]
 SCALE_OFFSET = -2.5
 HIDDEN = 128
-ROADMAP_A4 = "ROADMAP.md queue A item A4"
 
 
 class DecoderHead(nn.Module):
@@ -378,7 +377,7 @@ class GaussianDecoder(nn.Module):
             raise ValueError(
                 f"hidden_dim {self.hidden_dim}: the kernels' chain takes {STAGE}-wide heads "
                 f"(as the JAX package's Pallas kernels do); apply / decode_from_planes and "
-                f"training run other widths on the plain chain ({ROADMAP_A4})")
+                "training run other widths on the plain chain")
         return pack_chain(self.heads(), self.chain_spec, self.position_dim, self.scale_offset,
                           self.gelu, parallel=self.parallel, dtype=dtype)
 

@@ -60,8 +60,8 @@ def render_with_decoder(decoder: GaussianDecoder, z, camera_params, cam2world, v
                         backend: str = "pallas"):
     """decode -> scene -> camera -> render (ref load_decoder.py:12-26) ->
     ((3, H, W) image, decoded). fov in radians. backend 'pallas' blends
-    with K3 (the JAX package's default 'xla' oracle is not ported,
-    render_simple)."""
+    with K3; 'xla' (the JAX function's default) with the f32 tile
+    rasterizer (render_simple)."""
     decoded = decoder.apply(z, camera_params, vertices, truncation_psi)
     dev = vertices.device
     cam = make_camera(image_size, float(fov), cam2world, device=dev)

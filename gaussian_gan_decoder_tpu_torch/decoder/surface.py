@@ -1,12 +1,15 @@
 """Iso-surface point sampling from a density grid — port of
-decoder/surface.py: the separable sigma grid, marching tetrahedra (the
-two-stage compaction) and barycentric surface sampling.
+decoder/surface.py: the sampling lattice (create_samples), the separable
+and the gather sigma grids, marching tetrahedra (the two-stage and the
+single-stage compaction) and barycentric surface sampling.
 
-Faces come out in the JAX package's order: crossed cubes by ascending cube
-id (the first CUBE_CAPACITY of them), then faces by (tet*2 + tri) slot
-major and cube slot minor, the first face_capacity of them — the order of
-its sort keys tt * CC + slot, which a row-major nonzero over the (12, CC)
-validity mask reproduces.
+Faces come out in the JAX package's order. Two-stage: crossed cubes by
+ascending cube id (the first CUBE_CAPACITY of them), then faces by
+(tet*2 + tri) slot major and cube slot minor, the first face_capacity of
+them — the order of its sort keys tt * CC + slot, which a row-major nonzero
+over the (12, CC) validity mask reproduces. Single-stage: every cube, faces
+by (tet*2 + tri) major and cube id minor (its keys tt * C + cube), the
+first face_capacity; it drops no cube.
 """
 from __future__ import annotations
 
@@ -77,40 +80,62 @@ def _corner_values(sigmas):
                         for i in (0, 1) for j in (0, 1) for k in (0, 1)])
 
 
+def create_samples(samples_per_axis: int = 256, cube_length: float = 1.0,
+                   device=None) -> torch.Tensor:
+    """(1, R^3, 3) world-coordinate lattice, index order i (x) slowest, k
+    (z) fastest (ref marching_cube/sample.py:5-26, voxel origin 0), built
+    on the device."""
+    r = samples_per_axis
+    idx = (torch.arange(r, dtype=torch.float32, device=device) * (cube_length / (r - 1))
+           - cube_length / 2)
+    return torch.stack(torch.meshgrid(idx, idx, idx, indexing="ij"), dim=-1).reshape(1, r ** 3, 3)
+
+
+def _tet_faces(ins):
+    """ins (8, n) int64 corner inside-flags -> (case (6, n), valid (12, n)):
+    each tet's 16-way case and, per (tet*2 + tri) slot, whether it has that
+    triangle."""
+    b = ins[torch.tensor(_TETS, device=ins.device)]             # (6, 4, n)
+    case = b[:, 0] + (b[:, 1] << 1) + (b[:, 2] << 2) + (b[:, 3] << 3)
+    n_in = b.sum(1)
+    valid = torch.stack([(n_in > 0) & (n_in < 4), n_in == 2], dim=1).reshape(12, -1)
+    return case, valid
+
+
 def marching_tetrahedra_faces(sigmas: torch.Tensor, level: float, face_capacity: int,
-                              cube_capacity: int = CUBE_CAPACITY):
-    """Two-stage marching tetrahedra -> (packed (F, 9) vertex coordinates in
-    INDEX space, n_faces, n_dropped_cubes); F = max(1, min(n_faces,
-    face_capacity)) — with no face, one capacity-fill row (cube 0, combo 0)
-    as in the JAX package."""
+                              cube_capacity: int = CUBE_CAPACITY, two_stage: bool = True):
+    """Marching tetrahedra -> (packed (F, 9) vertex coordinates in INDEX
+    space, n_faces, n_dropped_cubes); F = max(1, min(n_faces,
+    face_capacity)). two_stage compacts the crossed cubes first (the first
+    cube_capacity of them; the rest are counted in n_dropped_cubes and
+    give no face); single-stage enumerates the faces of every cube and
+    drops none (its only loss is the face_capacity clamp). With no face,
+    one capacity-fill row as in the JAX package: cube 0 and combo 0
+    (two-stage) or combo cases[0, 0] (single-stage)."""
     R = sigmas.shape[0]
     C = (R - 1) ** 3
     dev = sigmas.device
     v = _corner_values(sigmas)                                   # (8, C)
-    CC = min(cube_capacity, C)
-    n_in8 = (v > level).sum(0)
-    crossed = (n_in8 > 0) & (n_in8 < 8)
-    cube_ids = torch.nonzero(crossed).squeeze(1)
-    n_dropped = max(int(cube_ids.numel()) - CC, 0)
-    cube_ids = cube_ids[:CC]
-    ins = (v[:, cube_ids] > level).long()                        # (8, n_cubes)
-    tets = torch.tensor(_TETS, device=dev)
-    b = ins[tets]                                                # (6, 4, n)
-    case = b[:, 0] + (b[:, 1] << 1) + (b[:, 2] << 2) + (b[:, 3] << 3)   # (6, n)
-    n_in = b.sum(1)
-    tri0 = (n_in > 0) & (n_in < 4)
-    tri1 = n_in == 2
-    valid = torch.stack([tri0, tri1], dim=1).reshape(12, -1)    # (tt, slot)
+    if two_stage:
+        CC = min(cube_capacity, C)
+        n_in8 = (v > level).sum(0)
+        crossed = (n_in8 > 0) & (n_in8 < 8)
+        cube_ids = torch.nonzero(crossed).squeeze(1)
+        n_dropped = max(int(cube_ids.numel()) - CC, 0)
+        cube_ids = cube_ids[:CC]
+        case, valid = _tet_faces((v[:, cube_ids] > level).long())   # valid (tt, slot)
+    else:
+        n_dropped = 0
+        case, valid = _tet_faces((v > level).long())                # valid (tt, cube)
     n_faces = int(valid.sum())
     tt, slot = torch.nonzero(valid, as_tuple=True)
     tt, slot = tt[:face_capacity], slot[:face_capacity]
     if tt.numel() == 0:
-        tt = torch.zeros(1, dtype=torch.long, device=dev)
         cube = torch.zeros(1, dtype=torch.long, device=dev)
-        combo = torch.zeros(1, dtype=torch.long, device=dev)
+        combo = cube if two_stage else case[0, :1]
     else:
-        cube = cube_ids[slot]
-        combo = tt * 16 + case.reshape(6, 1, -1).expand(6, 2, -1).reshape(12, -1)[tt, slot]
+        cube = cube_ids[slot] if two_stage else slot
+        combo = tt * 16 + case[tt // 2, slot]
     crow = torch.tensor(_COMBO_TAB, device=dev)[combo]           # (F, 24)
     vrow = v[:, cube].t()                                        # (F, 8)
     r1 = R - 1
@@ -133,12 +158,14 @@ def marching_tetrahedra_faces(sigmas: torch.Tensor, level: float, face_capacity:
 def marching_tetrahedra_sample(sigmas: torch.Tensor, face_u: torch.Tensor,
                                weight_u: torch.Tensor, thickness_n: torch.Tensor,
                                level: float = 10.0, surface_thickness: float = 0.1,
-                               face_capacity: int = 2 ** 20) -> torch.Tensor:
+                               face_capacity: int = 2 ** 20,
+                               two_stage: bool = True) -> torch.Tensor:
     """Surface point cloud (P, 3) as the reference's marching-cubes +
     barycentric + thickness pipeline. Draws: face_u (P,) uniform (face
     choice), weight_u (P, 3) uniform (barycentric weights, sum-normalised),
     thickness_n (P,) standard normal (shrink jitter)."""
-    packed, n_faces, _ = marching_tetrahedra_faces(sigmas, level, face_capacity)
+    packed, n_faces, _ = marching_tetrahedra_faces(sigmas, level, face_capacity,
+                                                   two_stage=two_stage)
     R = sigmas.shape[0]
     n_eff = max(min(n_faces, face_capacity), 1)
     fidx = torch.clamp(torch.floor(face_u * float(n_eff)).long(), max=n_eff - 1)
@@ -196,3 +223,28 @@ def sigma_grid_separable(generator, planes: torch.Tensor, shape_res: int = 128,
     sig = torch.cat([generator.decoder(feats[None, None, i:i + chunk])["sigma"][0, :, 0]
                      for i in range(0, R ** 3, chunk)])
     return sig.reshape(R, R, R)
+
+
+def sigma_grid(generator, planes: torch.Tensor, shape_res: int = 128, chunk: int = SIGMA_CHUNK,
+               table=None, separable: bool = True) -> torch.Tensor:
+    """(R, R, R) density of the OSG decoder over the sampling cube. separable
+    (the port's default; the JAX function's is the gather): the separable
+    lattice resampling of the raw planes, which takes no table — handing it
+    one is an error, since the table's bf16 / int8 quantisation would be
+    ignored. Otherwise the gather grid: create_samples' R^3 points probed
+    through `table` (build_sampling_table's output; the planes' float
+    table when None, built once) in chunks of `chunk` points."""
+    if separable:
+        assert table is None, (
+            "sigma_grid(separable=True) samples the raw planes directly; a probe table (and "
+            "any bf16 / int8 quantisation in it) would be ignored: build none on this path")
+        return sigma_grid_separable(generator, planes, shape_res=shape_res, chunk=chunk)
+    samples = create_samples(shape_res, generator.rk["box_warp"], device=planes.device)[0]
+    n = samples.shape[0]
+    assert n % chunk == 0, (n, chunk)
+    if table is None:
+        table = generator.build_sampling_table(planes)
+    sig = [generator.sample_mixed_from_planes(planes, samples[None, i:i + chunk],
+                                              table=table)["sigma"][0, :, 0]
+           for i in range(0, n, chunk)]
+    return torch.cat(sig).reshape(shape_res, shape_res, shape_res)

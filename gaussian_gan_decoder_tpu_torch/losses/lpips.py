@@ -47,11 +47,17 @@ class VGG16LPIPS(nn.Module):
             1, 3, 1, 1), persistent=False)
 
     def tap_features(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """x (N, 3, H, W) in [0, 255] -> unit-normalised tap features."""
+        """x (N, 3, H, W) in [0, 255] -> unit-normalised tap features, in x's
+        dtype end to end (a bf16 input convolves with bf16 weights and adds a
+        bf16 bias, as the JAX features do)."""
         x = x - self.mean.to(x.dtype)
         feats, conv_i = [], 0
         for layer in self.features:
-            x = layer(x)
+            if isinstance(layer, nn.Conv2d) and x.dtype != layer.weight.dtype:
+                x = (F.conv2d(x, layer.weight.to(x.dtype), padding=1)
+                     + layer.bias.to(x.dtype).reshape(1, -1, 1, 1))
+            else:
+                x = layer(x)
             if isinstance(layer, nn.ReLU):
                 if conv_i in _LPIPS_TAPS:
                     feats.append(x * torch.rsqrt(x.square().sum(1, keepdim=True) + 1e-10))
@@ -66,14 +72,18 @@ class VGG16LPIPS(nn.Module):
                           for f in self.tap_features(img)], dim=1)
 
 
-def lpips_loss(vgg: VGG16LPIPS, target, image, downsampling: bool = True):
+def lpips_loss(vgg: VGG16LPIPS, target, image, downsampling: bool = True,
+               dtype: Optional[torch.dtype] = None):
     """Area-pool to 256^2, map (img + 1) / 2 * 255 (the reference training
     loop feeds [0, 1] images to a wrapper expecting [-1, 1]; replicated),
-    then the LPIPS distance, f32."""
+    then the LPIPS distance, f32. dtype (e.g. torch.bfloat16): the pooled
+    images and every feature in that dtype; the distance stays f32."""
     if downsampling and image.shape[2] > 256:
         image = area_downsample(image, 256)
     if downsampling and target.shape[2] > 256:
         target = area_downsample(target, 256)
+    if dtype is not None:
+        image, target = image.to(dtype), target.to(dtype)
     fi = vgg.embed((image + 1.0) / 2.0 * 255.0)
     ft = vgg.embed((target + 1.0) / 2.0 * 255.0)
     return (fi.float() - ft.float()).square().sum(1).mean()

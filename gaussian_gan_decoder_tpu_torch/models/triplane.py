@@ -4,9 +4,10 @@ models/triplane.py.
 The config (`rk`, `triplane_depth`: 1 for 'eg3d'), the StyleGAN2
 `backbone`, the OSG decoder (`decoder.net.{0,2}`; always sigmoid on
 'eg3d'), the raw ToRGB (`torgb`, PanoHead only), the super-resolution
-stack (`superresolution`, unless without_sr), `mapping`, `synthesis_planes`
-and `render_planes` (volume render + raw ToRGB + SR from precomputed
-planes). t_mapping and the background synthesis (PanoHead) are not ported:
+stack (`superresolution`, unless without_sr), `mapping`, `synthesis_planes`,
+`render_planes` (volume render + raw ToRGB + SR from precomputed planes,
+optionally through a probe table) and the probe-table APIs
+(`build_sampling_table`, `sample_mixed_from_planes`). t_mapping and the background synthesis (PanoHead) are not ported:
 the reference's target render never evaluates them (it forces the
 background to -1, triplane.py:252); their weights are dropped on import
 (port/from_jax.py DROPPED_PREFIXES). EG3D has neither.
@@ -28,7 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..neuralfield.ray_sampler import sample_rays
-from ..neuralfield.renderer import ImportanceRenderer, RenderDraws, generate_planes
+from ..neuralfield.renderer import (ImportanceRenderer, RenderDraws, build_plane_table,
+                                   generate_planes)
 from .stylegan2 import FullyConnectedLayer, Generator as StyleGAN2Backbone, ToRGBLayer
 from .superresolution import make_superresolution
 
@@ -166,14 +168,16 @@ class TriPlaneGenerator(nn.Module):
                               planes.shape[-2], planes.shape[-1])
 
     def render_planes(self, planes, ws, c, draws: RenderDraws,
-                      neural_rendering_resolution: int = 64) -> Dict[str, torch.Tensor]:
+                      neural_rendering_resolution: int = 64,
+                      plane_table=None) -> Dict[str, torch.Tensor]:
         """Volume render + raw ToRGB + SR from precomputed planes (the JAX
         package's render_planes, noise_mode 'const'). draws: the renderer's
-        stratified and importance draws. -> {image_raw, image_depth,
+        stratified and importance draws; plane_table (build_sampling_table's
+        output): the table both passes probe. -> {image_raw, image_depth,
         feature_planes[, image_mask][, image]}: PanoHead blends the
         background forced to -1, runs the raw ToRGB and returns the mask;
         EG3D takes the first 3 feature channels as rgb and has no mask."""
-        rk = self.rk
+        rk = self.rk if plane_table is None else {**self.rk, "plane_table": plane_table}
         cam2world = c[:, :16].reshape(-1, 4, 4)
         intrinsics = c[:, 16:25].reshape(-1, 3, 3)
         N, res = c.shape[0], neural_rendering_resolution
@@ -202,3 +206,23 @@ class TriPlaneGenerator(nn.Module):
         if raw_alias is not None:
             out["image_raw"] = raw_alias.float()
         return out
+
+    # -- point probes ------------------------------------------------------------
+
+    def sample_mixed_from_planes(self, planes, coordinates, directions=None, table=None):
+        """{rgb, sigma, xyz} of the OSG decoder at world coords (N, M, 3) from
+        precomputed planes; table (build_sampling_table's output) reuses one
+        brick table across chunked probes. directions are not read (the
+        decoder takes none), as in the JAX package."""
+        rk = self.rk if table is None else {**self.rk, "plane_table": table}
+        return self.renderer.run_model(planes, self.decoder, coordinates, rk)
+
+    def build_sampling_table(self, planes, brick_dtype=None, pallas_build=False):
+        """The probe table of the planes for render_planes / sample_mixed_from_planes
+        (neuralfield.renderer.build_plane_table): on a tri-grid K10 builds it
+        on the card (brick_dtype torch.int8, torch.bfloat16 or None: the
+        planes' dtype; pallas_build True or False the rotate form, "select"
+        the select form); a depth-1 tri-plane takes the bilinear float table
+        and ignores pallas_build."""
+        return build_plane_table(planes, self.triplane_depth, brick_dtype=brick_dtype,
+                                 pallas_build=pallas_build if self.triplane_depth > 1 else False)

@@ -109,10 +109,13 @@ def _corner_weights_1d(g, size):
 
 def _quantize_int8(feats: torch.Tensor):
     """Symmetric absmax int8 per (volume, channel): feats (B, C, ...) f32 ->
-    (q8 int8, scales (B, C) f32), the JAX package's quantisation."""
+    (q8 int8, scales (B, C) f32), the JAX package's quantisation. The
+    divisor is a tensor: PyTorch divides a CUDA tensor by a Python scalar
+    as the product with its reciprocal, which can leave a scale one f32
+    spacing off the quotient that the CPU and JAX take."""
     dims = tuple(range(2, feats.dim()))
     absmax = feats.abs().amax(dim=dims)
-    scales = torch.clamp(absmax / 127.0, min=1e-12)
+    scales = torch.clamp(absmax / absmax.new_full((), 127.0), min=1e-12)
     inv = (1.0 / scales).reshape(scales.shape + (1,) * len(dims))
     q8 = torch.clamp(torch.round(feats * inv), -127, 127).to(torch.int8)
     return q8, scales
@@ -458,15 +461,20 @@ class ImportanceRenderer:
         return generate_planes(self.plane_variant)
 
     def run_model(self, planes, decoder_fn: Callable, coords, opts: Dict) -> Dict:
+        """Probe the planes (through opts['plane_table'], build_plane_table's
+        output, when there is one) and decode."""
         feats = sample_from_planes(self.plane_axes, planes, coords, opts["box_warp"],
-                                   opts["triplane_depth"])
+                                   opts["triplane_depth"], table=opts.get("plane_table"))
         out = decoder_fn(feats)
         out["xyz"] = coords
         return out
 
     def __call__(self, draws: RenderDraws, planes, decoder_fn: Callable, ray_origins,
                  ray_directions, opts: Dict, triplane_crop: Optional[float] = 0.1):
-        """-> (rgb (N, R, C), depth (N, R, 1), weight sum (N, R, 1))."""
+        """-> (rgb (N, R, C), depth (N, R, 1), weight sum (N, R, 1)). The
+        coarse and the importance passes probe one table, opts['plane_table']
+        (build_plane_table's output), when the caller hands one; without it
+        they sample the planes directly."""
         if self.plane_variant not in ("panohead", "eg3d"):
             raise ValueError(f"unknown plane variant {self.plane_variant!r}")
         track_xyz = self.plane_variant == "panohead"

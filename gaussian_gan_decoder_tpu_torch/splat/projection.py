@@ -10,13 +10,18 @@ math per point. Everything is elementwise over (N,) vectors:
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from ..gaussians.cameras import Camera
 
 
-def project_channels(cam: Camera, mx, my, mz, q, s):
-    """-> dict of (N,) tensors: px, py, depth, conic_a/b/c, radius_f, visible."""
+def project_channels(cam: Camera, mx, my, mz, q, s, scale_modifier: float = 1.0,
+                     cov3d6=None):
+    """-> dict of (N,) tensors: px, py, depth, conic_a/b/c, radius_f, visible.
+    cov3d6, the six upper-triangle entries (00, 01, 02, 11, 12, 22) of a
+    precomputed 3D covariance, takes the place of q and s."""
     W = cam.world_view_transform
     P = cam.full_proj_transform
 
@@ -54,28 +59,31 @@ def project_channels(cam: Camera, mx, my, mz, q, s):
     v1 = j11 * V[1, 1] + j12 * V[2, 1]
     v2 = j11 * V[1, 2] + j12 * V[2, 2]
 
-    r, x, y, z = q
-    norm = torch.sqrt(r * r + x * x + y * y + z * z) + 1e-12
-    r, x, y, z = r / norm, x / norm, y / norm, z / norm
-    r00 = 1 - 2 * (y * y + z * z)
-    r01 = 2 * (x * y - r * z)
-    r02 = 2 * (x * z + r * y)
-    r10 = 2 * (x * y + r * z)
-    r11 = 1 - 2 * (x * x + z * z)
-    r12 = 2 * (y * z - r * x)
-    r20 = 2 * (x * z - r * y)
-    r21 = 2 * (y * z + r * x)
-    r22 = 1 - 2 * (x * x + y * y)
-    s0, s1, s2 = s
-    m00, m01, m02 = r00 * s0, r01 * s1, r02 * s2
-    m10, m11, m12 = r10 * s0, r11 * s1, r12 * s2
-    m20, m21, m22 = r20 * s0, r21 * s1, r22 * s2
-    s_00 = m00 * m00 + m01 * m01 + m02 * m02
-    s_01 = m00 * m10 + m01 * m11 + m02 * m12
-    s_02 = m00 * m20 + m01 * m21 + m02 * m22
-    s_11 = m10 * m10 + m11 * m11 + m12 * m12
-    s_12 = m10 * m20 + m11 * m21 + m12 * m22
-    s_22 = m20 * m20 + m21 * m21 + m22 * m22
+    if cov3d6 is None:
+        r, x, y, z = q
+        norm = torch.sqrt(r * r + x * x + y * y + z * z) + 1e-12
+        r, x, y, z = r / norm, x / norm, y / norm, z / norm
+        r00 = 1 - 2 * (y * y + z * z)
+        r01 = 2 * (x * y - r * z)
+        r02 = 2 * (x * z + r * y)
+        r10 = 2 * (x * y + r * z)
+        r11 = 1 - 2 * (x * x + z * z)
+        r12 = 2 * (y * z - r * x)
+        r20 = 2 * (x * z - r * y)
+        r21 = 2 * (y * z + r * x)
+        r22 = 1 - 2 * (x * x + y * y)
+        s0, s1, s2 = (si * scale_modifier for si in s)
+        m00, m01, m02 = r00 * s0, r01 * s1, r02 * s2
+        m10, m11, m12 = r10 * s0, r11 * s1, r12 * s2
+        m20, m21, m22 = r20 * s0, r21 * s1, r22 * s2
+        s_00 = m00 * m00 + m01 * m01 + m02 * m02
+        s_01 = m00 * m10 + m01 * m11 + m02 * m12
+        s_02 = m00 * m20 + m01 * m21 + m02 * m22
+        s_11 = m10 * m10 + m11 * m11 + m12 * m12
+        s_12 = m10 * m20 + m11 * m21 + m12 * m22
+        s_22 = m20 * m20 + m21 * m21 + m22 * m22
+    else:
+        s_00, s_01, s_02, s_11, s_12, s_22 = cov3d6
 
     su0 = s_00 * u0 + s_01 * u1 + s_02 * u2
     su1 = s_01 * u0 + s_11 * u1 + s_12 * u2
@@ -100,3 +108,30 @@ def project_channels(cam: Camera, mx, my, mz, q, s):
         conic_a=cov_c * det_inv, conic_b=-cov_b * det_inv, conic_c=cov_a * det_inv,
         radius_f=radius_f, visible=visible & (radius_f > 0),
     )
+
+
+class ProjectedGaussians(NamedTuple):
+    pix_xy: torch.Tensor    # (N, 2) pixel-space means
+    depth: torch.Tensor     # (N,) view-space z
+    conic: torch.Tensor     # (N, 3) inverse 2D covariance (a, b, c)
+    radius: torch.Tensor    # (N,) int32 screen radius, 0 when culled
+    visible: torch.Tensor   # (N,) bool
+
+
+def project_gaussians(cam: Camera, means3d: torch.Tensor, scales: torch.Tensor,
+                      rotations: torch.Tensor, scale_modifier: float = 1.0,
+                      cov3d_precomp: Optional[torch.Tensor] = None) -> ProjectedGaussians:
+    """Row-major API over project_channels (the JAX package's
+    project_gaussians): means3d (N, 3), scales (N, 3) activated, rotations
+    (N, 4), cov3d_precomp (N, 3, 3) in place of scales and rotations."""
+    cov6 = None
+    if cov3d_precomp is not None:
+        cov6 = tuple(cov3d_precomp[:, i, j] for i, j in ((0, 0), (0, 1), (0, 2), (1, 1),
+                                                          (1, 2), (2, 2)))
+    ch = project_channels(cam, means3d[:, 0], means3d[:, 1], means3d[:, 2],
+                          tuple(rotations[:, k] for k in range(4)),
+                          tuple(scales[:, k] for k in range(3)), scale_modifier, cov3d6=cov6)
+    return ProjectedGaussians(
+        pix_xy=torch.stack([ch["px"], ch["py"]], dim=1), depth=ch["depth"],
+        conic=torch.stack([ch["conic_a"], ch["conic_b"], ch["conic_c"]], dim=1),
+        radius=ch["radius_f"].to(torch.int32), visible=ch["visible"])

@@ -10,8 +10,10 @@ G copy. The frontal gate (ref :243-251) is decided on the host from the
 step's camera draws, so the IR-SE50 runs only on frontal views and the
 step reads nothing back from the card for it.
 
-The step runs eagerly; its kernels are K6 / K7 (head chain) and K4 / K5
-(training blend). A stage_timer, when given, is called with each stage's
+The step runs eagerly; its kernels are K6 / K7 (head chain), K4 / K5
+(training blend, raster_backend 'pallas_diff'; 'xla' renders with the f32
+tile rasterizer in plain PyTorch) and, with a probe option in the target
+config, K10 (the frozen target's probe table). A stage_timer, when given, is called with each stage's
 name as the stage is issued: target, decode, render, losses, backward,
 optimizer.
 """
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,7 +35,9 @@ from ..splat.rasterize import RasterizeConfig, render_simple
 
 @dataclass(frozen=True)
 class DistillConfig:
-    """The JAX package's DistillConfig fields this slice runs."""
+    """The JAX package's DistillConfig. raster_backend defaults to
+    'pallas_diff' here, the JAX trainer's default and the path the kernels
+    serve (the JAX dataclass's default is 'xla')."""
     lr: float = 9e-5
     l1_weight: float = 0.2
     l2_weight: float = 0.1
@@ -52,6 +56,8 @@ class DistillConfig:
     # the copy may have diverged from the frozen generator. Never for the
     # 'sequential' decoder, whose mapping sees the real camera
     reuse_frozen_planes: bool = True
+    raster_backend: str = "pallas_diff"   # 'pallas_diff' (K4 / K5) | 'xla'
+    lpips_bf16: bool = False   # VGG16 features in bf16; the distance stays f32
 
 
 @dataclass
@@ -128,7 +134,7 @@ def make_loss_fn(decoder: GaussianDecoder, frozen_generator, vgg: VGG16LPIPS,
         fov = float(target.fov_deg) / 360.0 * 2 * math.pi
         cam = make_camera(cfg.image_size, fov, target.cam2world_pose[0], device=dev)
         bg = torch.tensor(cfg.bg_color, dtype=torch.float32, device=dev)
-        render_out = render_simple(cam, decoded, bg, raster_cfg)
+        render_out = render_simple(cam, decoded, bg, raster_cfg, backend=cfg.raster_backend)
         image = render_out["render"][:3]
         target_img = target.img[0]
         if cfg.apply_mask_to_rendering and target.img_mask is not None:
@@ -140,7 +146,8 @@ def make_loss_fn(decoder: GaussianDecoder, frozen_generator, vgg: VGG16LPIPS,
         ll2 = l2_loss(image, target_img)
         lssim = 1.0 - ssim(image, target_img)[0]
         lsobel = sobel_loss(image, target_img)[0]
-        llpips = lpips_loss(vgg, target_img[None], image[None])
+        llpips = lpips_loss(vgg, target_img[None], image[None],
+                            dtype=torch.bfloat16 if cfg.lpips_bf16 else None)
         loss = (ll1 * cfg.l1_weight + ll2 * cfg.l2_weight + llpips * cfg.lpips_weight
                 + lssim * cfg.ssim_weight + lsobel * cfg.sobel_weight)
         lid = torch.zeros((), device=dev)
@@ -160,27 +167,54 @@ def make_loss_fn(decoder: GaussianDecoder, frozen_generator, vgg: VGG16LPIPS,
     return losses_and_metrics
 
 
+def make_batched_train_step(decoder: GaussianDecoder, frozen_generator, vgg: VGG16LPIPS,
+                            cfg: DistillConfig = DistillConfig(),
+                            target_cfg: TargetSamplerConfig = TargetSamplerConfig(),
+                            raster_cfg: RasterizeConfig = RasterizeConfig(),
+                            irse: Optional[IRSE50] = None):
+    """-> step(state, draws (B TargetDraws), zs (B, 1, z_dim), iteration,
+    stage_timer=None) -> (state, metrics, aux): the mean loss's gradient
+    over the B views, one Adam update in place on the state's decoder and
+    optimizer, the per-view metrics' means and the last view's aux. The
+    views run one after another and each view's backward of loss / B
+    accumulates into the gradients, so B views never hold B sets of
+    activations at once."""
+    losses_and_metrics = make_loss_fn(decoder, frozen_generator, vgg, cfg, target_cfg,
+                                      raster_cfg, irse)
+
+    def step(state: TrainState, draws: Sequence[TargetDraws], zs: torch.Tensor, iteration,
+             stage_timer: Optional[Callable[[str], None]] = None):
+        mark = stage_timer or (lambda name: None)
+        B = len(draws)
+        if zs.shape[0] != B:
+            raise ValueError(f"{zs.shape[0]} latents for {B} views")
+        state.optimizer.zero_grad(set_to_none=True)
+        sums = {}
+        for b in range(B):
+            loss, metrics, aux = losses_and_metrics(draws[b], zs[b], iteration, stage_timer)
+            (loss / B).backward()
+            mark("backward")
+            sums = {k: v + sums[k] if sums else v for k, v in metrics.items()}
+        state.optimizer.step()
+        mark("optimizer")
+        state.step += 1
+        return state, ({k: v / B for k, v in sums.items()} if B > 1 else sums), aux
+
+    return step
+
+
 def make_train_step(decoder: GaussianDecoder, frozen_generator, vgg: VGG16LPIPS,
                     cfg: DistillConfig = DistillConfig(),
                     target_cfg: TargetSamplerConfig = TargetSamplerConfig(),
                     raster_cfg: RasterizeConfig = RasterizeConfig(),
                     irse: Optional[IRSE50] = None):
     """-> step(state, draws, z, iteration, stage_timer=None) -> (state,
-    metrics, aux): loss, backward and one Adam update, in place on the
-    state's decoder and optimizer."""
-    losses_and_metrics = make_loss_fn(decoder, frozen_generator, vgg, cfg, target_cfg,
-                                      raster_cfg, irse)
+    metrics, aux): make_batched_train_step's step on one view."""
+    views_step = make_batched_train_step(decoder, frozen_generator, vgg, cfg, target_cfg,
+                                         raster_cfg, irse)
 
     def step(state: TrainState, draws: TargetDraws, z: torch.Tensor, iteration,
              stage_timer: Optional[Callable[[str], None]] = None):
-        mark = stage_timer or (lambda name: None)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics, aux = losses_and_metrics(draws, z, iteration, stage_timer)
-        loss.backward()
-        mark("backward")
-        state.optimizer.step()
-        mark("optimizer")
-        state.step += 1
-        return state, metrics, aux
+        return views_step(state, [draws], z[None], iteration, stage_timer)
 
     return step

@@ -127,7 +127,7 @@ def _runs(args, out: Path, torch):
     draws = TargetDraws.make(g, fresh.gen, fresh.tcfg, fresh.dev)
     fit, fit_pairs = [], None
     for i in range(args.fit_steps):
-        metrics = fresh.step(fresh.state, draws, z, i)[1]
+        metrics = fresh.step(fresh.state, [draws], z[None], i)[1]
         fit.append(float(metrics["Loss/total"]))
         fit_pairs = fit_pairs or int(metrics["General/n_pairs"])
     del fresh, draws

@@ -278,7 +278,7 @@ def step():
         draws = _draws(key)
     vgg64 = copy.deepcopy(vgg).double()
 
-    def lpips64(_, target, image):
+    def lpips64(_, target, image, dtype=None):
         return lpips_loss(vgg64, target.double(), image.double()).float()
 
     with pytest.MonkeyPatch.context() as mp:

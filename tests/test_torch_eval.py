@@ -9,7 +9,8 @@ and the near-frontal sampler, and repeats itself from the same seed; the
 'pallas' backend (the frame blend K3, forward only) gives the 'pallas_diff'
 forward (K4) within 1e-4 (the training rule stops a pixel once T falls
 below 1e-4, the frame rule does not), and within 1e-6 on the pixels the
-training rule did not stop; 'xla' raises naming ROADMAP A3."""
+training rule did not stop; 'xla' (the f32 tile rasterizer) renders as the
+JAX 'xla' backend does."""
 import math
 
 import jax
@@ -18,9 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+from gaussian_gan_decoder_tpu.gaussians import cameras as jcameras
 from gaussian_gan_decoder_tpu.losses import image as jimage
 from gaussian_gan_decoder_tpu.losses.lpips import VGG16LPIPS as JVGG
 from gaussian_gan_decoder_tpu.losses.lpips import lpips_loss as jlpips
+from gaussian_gan_decoder_tpu.splat.rasterize import render_simple as jrender_simple
 from gaussian_gan_decoder_tpu_torch.apps import train_decoder
 from gaussian_gan_decoder_tpu_torch.gaussians.cameras import make_camera
 from gaussian_gan_decoder_tpu_torch.losses import VGG16LPIPS
@@ -127,9 +130,23 @@ def test_render_simple_pallas_matches_pallas_diff():
 
 @pytest.mark.parametrize("backend", ["xla", "other"])
 def test_render_simple_unported_backends(backend):
-    """'xla' (the f32 oracle rasterize) raises NotImplementedError naming
-    ROADMAP A3; an unknown backend raises ValueError."""
+    """'xla' (the f32 tile rasterizer) renders as JAX render_simple(backend=
+    'xla') does on the same camera matrices: the image and alpha within
+    rtol 1e-5 and atol 1e-6; an unknown backend raises ValueError."""
     decoded = _gaussians(2, 100)
-    err = NotImplementedError if backend == "xla" else ValueError
-    with pytest.raises(err, match="A3" if backend == "xla" else "backend"):
-        render_simple(_camera(), decoded, torch.zeros(3), backend=backend)
+    if backend != "xla":
+        with pytest.raises(ValueError, match="backend"):
+            render_simple(_camera(), decoded, torch.zeros(3), backend=backend)
+        return
+    cam = _camera()
+    jcam = jcameras.Camera(*(jnp.asarray(getattr(cam, f).numpy()) for f in (
+        "world_view_transform", "full_proj_transform", "camera_center")),
+        cam.tanfovx, cam.tanfovy, cam.image_width, cam.image_height)
+    bg = torch.tensor([0.1, 0.5, 0.9])
+    with jax.enable_x64(False):
+        ref = jrender_simple(jcam, {k: jnp.asarray(v.numpy()) for k, v in decoded.items()},
+                             jnp.asarray(bg.numpy()), backend="xla")
+    out = render_simple(cam, decoded, bg, backend="xla")
+    for k in ("render", "alpha"):
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), rtol=1e-5, atol=1e-6)
+    assert out["n_dropped"] == int(ref["n_dropped"]) == 0 and float(out["alpha"].max()) > 0.1

@@ -152,7 +152,7 @@ def step(setup):
     dec = copy.deepcopy(dec)
     vgg64 = copy.deepcopy(vgg).double()
 
-    def lpips64(_, target, image):
+    def lpips64(_, target, image, dtype=None):
         return lpips_loss(vgg64, target.double(), image.double()).float()
 
     with pytest.MonkeyPatch.context() as mp:
