@@ -123,6 +123,16 @@ Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
      apps/render_decoder.py with --backend xla and --backend pallas on a
      snapshot (PSNR printed at 500k points, held at >= 50 dB on 200k with
      tile_capacity 2176);
+  5g. the generation phase (generation_phase): the PanoHead flagship
+     generator at full width, TriPlaneGenerator.apply at batch 1 (checked,
+     timed, and held against the same call on the CPU: image by PSNR,
+     image_raw by max abs), gen_shapes' path at 128^3, apps/gen_videos.py's
+     frame on a reloaded flagship decoder snapshot with pallas_mapping (1 +
+     2 frames with --backend pallas, K1, K3, K6's bf16 form and K10 in every
+     frame, the first frame against the same frame with the plain versions
+     of K1, K6 and K3 on 200k points at >= 50 dB, one --backend xla frame),
+     gen_interpolation's grid and
+     gen_videos_proj from a --finetuned checkpoint;
   6. prints the per-frame and per-step times, stage splits, each kernel's
      time beside its plain version's and its bound, peak device memory,
      then a JSON line of per-kernel results, the card's name and power
@@ -164,6 +174,9 @@ EG3D_TRAIN_STEPS = 2  # timed EG3D train steps, after one warm-up step
 EG3D_BG = (0.0, 0.0, 0.0)   # the eg3d presets' background (apps/train_decoder.py)
 OPT_FRAMES = 2        # timed decoder-options frames per route, after one warm-up frame
 OPT_TRAIN_STEPS = 2   # timed decoder-options train steps, after one warm-up step
+# 5g(a): the flagship apply on the card against the same call on the CPU
+APPLY_PSNR = 40.0      # image, dB over [0, 1]
+APPLY_RAW_ERR = 5e-2   # image_raw, max abs
 
 # the card's published peaks (H100 SXM data sheet, dense), for the bounds.
 # "tf32x3" is f32 accuracy on the tensor cores: each f32 product as three
@@ -2645,6 +2658,225 @@ def trainer_options_phase(torch, seed, level, results):
     return {"brick_table_probe": probe_launches}
 
 
+def timed(torch, fn):
+    """fn() -> (its result, device ms by CUDA events, host wall ms)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def generation_phase(torch, seed, card):
+    """5g: the GAN side and the generation apps on the PanoHead flagship
+    generator at full width (z/w 512, 256^2 tri-grid of depth 3, neural
+    rendering 64, 48 + 48 samples, SR to 512^2, seeded random weights):
+    (a) TriPlaneGenerator.apply at batch 1 (mapping, t_mapping, synthesis,
+    the two-pass render, raw ToRGB, SR), checked and timed, and the same call
+    on the CPU with the same weights and draws (image by PSNR, image_raw by
+    max abs); (b) gen_shapes' path on the same generator: the gather sigma
+    grid at 128^3, single-stage marching tetrahedra at the SURFACE_QUANTILE
+    level, the .mrc and .ply; (c) gen_videos' per-frame path on a flagship
+    decoder snapshot saved and reloaded here, with pallas_mapping as the
+    JAX benchmark's decoder (int8 probe table built by K10 in its target
+    config): 1 warm-up + 2 timed frames with --backend pallas, counters at 0
+    first, K1, K3, K6's bf16 form and K10 in every frame; the first frame
+    on its first 200k points with tile_capacity 2176 against the same frame
+    with the plain versions of K1, K6 and K3 (decoder/snapshot.py::
+    plain_kernels), at 5f(e)'s >= 50 dB; one --backend xla frame; (d) gen_interpolation (2 cuts x 3 views) and gen_videos_proj (2
+    frames from an npz of ws, image and image_depth) at full width. ->
+    {kernel: phase-5g launches}."""
+    import math
+    import tempfile
+    from types import SimpleNamespace
+
+    from gaussian_gan_decoder_tpu_torch import flagship
+    from gaussian_gan_decoder_tpu_torch.apps import (gen_interpolation, gen_samples, gen_shapes,
+                                                     gen_videos, gen_videos_proj)
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads
+    from gaussian_gan_decoder_tpu_torch.decoder.snapshot import (load_decoder, plain_kernels,
+                                                                 render_with_decoder,
+                                                                 save_decoder)
+    from gaussian_gan_decoder_tpu_torch.decoder.surface import sigma_grid
+    from gaussian_gan_decoder_tpu_torch.decoder.target_pipeline import TargetSamplerConfig
+    from gaussian_gan_decoder_tpu_torch.models import pallas_mapping
+    from gaussian_gan_decoder_tpu_torch.neuralfield import pallas_expand
+    from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import RenderDraws
+    from gaussian_gan_decoder_tpu_torch.splat import pallas_blend
+    from gaussian_gan_decoder_tpu_torch.splat.rasterize import RasterizeConfig
+    from gaussian_gan_decoder_tpu_torch.train import checkpoint
+
+    dev = torch.device("cuda:0")
+    gseed = seed + 31
+    gen = flagship.flagship_generator(rng=torch.Generator().manual_seed(gseed), device=dev).eval()
+    assert gen.t_mapping is not None and gen.bcg_synthesis is not None
+    nrr, S = 64, gen.rk["depth_resolution"]
+    rng = torch.Generator().manual_seed(seed + 32)
+    z = torch.randn((1, 512), generator=rng)
+    c = gen_samples.orbit_camera(math.pi / 2 + 0.3, math.pi / 2 - 0.1, 18.837)[0]
+    draws = RenderDraws.make(rng, 1, nrr * nrr, S, gen.rk["depth_resolution_importance"], "cpu")
+    on_card = RenderDraws(draws.stratified.to(dev), draws.importance.to(dev))
+
+    # -- (a) TriPlaneGenerator.apply at batch 1, and on the CPU ---------------
+    def apply():
+        with torch.no_grad():
+            return gen.apply(z.to(dev), c.to(dev), truncation_psi=0.7,
+                             neural_rendering_resolution=nrr, draws=on_card)
+    apply()
+    runs = [timed(torch, apply) for _ in range(3)]
+    out = runs[-1][0]
+    dev_ms = sorted(r[1] for r in runs)[1]
+    host_ms = sorted(r[2] for r in runs)[1]
+    shapes = {k: tuple(out[k].shape) for k in ("image", "image_raw", "image_depth", "image_mask")}
+    require(shapes == {"image": (1, 3, 512, 512), "image_raw": (1, 3, nrr, nrr),
+                       "image_depth": (1, 1, nrr, nrr), "image_mask": (1, 1, nrr, nrr)},
+            f"5g(a) apply: shapes {shapes}")
+    for k in shapes:
+        require(bool(torch.isfinite(out[k]).all()) and float(out[k].std()) > 0,
+                f"5g(a) apply: {k} not finite or constant")
+    mask = out["image_mask"]
+    # the bounds in f32, as the mask is computed: weights * 1.002 - 0.001
+    require(float(mask.min()) >= float(np.float32(-0.001))
+            and float(mask.max()) <= float(np.float32(1.001)),
+            f"5g(a) mask outside [-0.001, 1.001]: {float(mask.min())}..{float(mask.max())}")
+    print(f"5g(a) apply (batch 1, 64^2 render of 48 + 48 samples, SR to 512^2): median "
+          f"{dev_ms:.3f} ms device, {host_ms:.3f} ms host wall of 3 calls; image mean "
+          f"{float(out['image'].mean()):.4f} std {float(out['image'].std()):.4f}; mask "
+          f"{float(mask.min()):.4f}..{float(mask.max()):.4f} ({card})")
+    cpu = flagship.flagship_generator(rng=torch.Generator().manual_seed(gseed), device="cpu")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = cpu.eval().apply(z, c, truncation_psi=0.7, neural_rendering_resolution=nrr,
+                               draws=draws)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    img_psnr = psnr((out["image"].cpu() + 1) / 2, (ref["image"] + 1) / 2)
+    raw_err = float((out["image_raw"].cpu() - ref["image_raw"]).abs().max())
+    print(f"5g(a) apply, card vs CPU (the same weights and draws; CPU call {cpu_s:.1f} s host, "
+          f"{torch.get_num_threads()} threads): image {img_psnr:.2f} dB (limit >= "
+          f"{APPLY_PSNR} dB), image_raw max|d| {raw_err:.3e} (limit <= {APPLY_RAW_ERR})")
+    require(img_psnr >= APPLY_PSNR, f"5g(a) card and CPU images disagree: {img_psnr:.2f} dB")
+    require(raw_err <= APPLY_RAW_ERR, f"5g(a) card and CPU raw images disagree: {raw_err:.3e}")
+    del out, ref, runs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- (b) gen_shapes' path: gather sigma grid, marching tetrahedra -----
+        zd = z.to(dev)
+        level, _ = surface_level(torch, gen, zd, 128, 2 ** 20)
+        shape = os.path.join(tmp, "shape")
+        sh, sh_ms, sh_host = timed(torch, lambda: gen_shapes.export_shape(
+            gen, zd, shape, shape_res=128, level=level))
+        require(sh["n_faces"] > 0 and sh["n_dropped"] == 0, f"5g(b) no surface: {sh}")
+        print(f"5g(b) gen_shapes path (128^3 gather grid, single-stage marching tetrahedra at "
+              f"level {level:.4f}): {sh['n_faces']} faces; .mrc {os.path.getsize(shape + '.mrc')} "
+              f"bytes, .ply {os.path.getsize(shape + '.ply')} bytes; {sh_ms:.3f} ms device, "
+              f"{sh_host:.3f} ms host wall (files included)")
+        with torch.no_grad():
+            planes = gen.synthesis_planes(gen.mapping(zd, torch.zeros_like(c).to(dev), 0.7))
+        _, grid_ms, _ = timed(torch, lambda: sigma_grid(gen, planes, shape_res=128,
+                                                        separable=False))
+        print(f"5g(b) the gather sigma grid alone: {grid_ms:.3f} ms device")
+        del planes, sh
+
+        # -- (c) gen_videos' per-frame path on a reloaded flagship snapshot ---
+        tcfg = TargetSamplerConfig(mc_level=level, int8_probe=True, pallas_probe_build=True)
+        snap = os.path.join(tmp, "snap")
+        dec = flagship.flagship_decoder(gen, rng=torch.Generator().manual_seed(seed + 33),
+                                        device=dev)
+        dec.config = dataclasses.replace(dec.config, pallas_mapping=True)
+        save_decoder(snap, dec, gen, target_cfg=tcfg)
+        del dec
+        dec, configs = load_decoder(snap, device=dev)
+        dec.eval()
+        frozen = configs["frozen_G"]
+        require(configs["target_cfg"] == tcfg and dec.config.heads_bf16
+                and dec.config.pallas_heads and dec.config.pallas_mapping,
+                "5g(c) the snapshot's configs")
+        args = gen_videos.build_argparser().parse_args(
+            ["--checkpoint", snap, "--backend", "pallas", "--seeds", "0,1,2",
+             "--frames_per_seed", "1"])
+        zs = gen_videos.seed_latents([0, 1, 2], frozen.z_dim)
+        counters = {"mapping": (pallas_mapping.mapping_forward, "launches"),
+                    "blend": (pallas_blend.blend_tiles, "launches"),
+                    "heads_fwd_bf16": (pallas_heads.decode_heads, "launches_bf16"),
+                    "brick_table_probe": (pallas_expand.brick_table, "launches")}
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        seen, frame_ms, first = dict.fromkeys(counters, 0), [], None
+        for i in range(3):
+            f, d_ms, h_ms = timed(torch, lambda: gen_videos.frame(dec, frozen, tcfg, zs, i,
+                                                                  args))
+            for name, (fn, attr) in counters.items():
+                n = getattr(fn, attr)
+                require(n > seen[name], f"5g(c) {name} not launched in frame {i}")
+                seen[name] = n
+            img = f.image
+            require(tuple(img.shape) == (3, IMAGE, IMAGE) and bool(torch.isfinite(img).all())
+                    and float(img.std()) > 1e-4, f"5g(c) frame {i}: bad image")
+            if i == 0:
+                first = f
+            else:
+                frame_ms.append((d_ms, h_ms))
+        launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+        print(f"5g(c) gen_videos frame (--backend pallas, {f.vertices.shape[0]} points, 512^2; "
+              f"target with K10's int8 probe table, mapping K1, decode K6 bf16, blend K3): "
+              + ", ".join(f"{d:.3f} ms device / {h:.3f} ms host" for d, h in frame_ms)
+              + f"; phase-5g launches {launches} in 3 frames ({card})")
+        n = 200_000
+        cfg = RasterizeConfig(tile_capacity=2176)
+
+        def hold():
+            return render_with_decoder(dec, first.z, first.camera_params, first.cam2world,
+                                       first.vertices[:n], math.radians(args.fov_deg),
+                                       raster_cfg=cfg, backend="pallas")[0]
+        k_img = hold()
+        with plain_kernels():
+            p_img = hold()
+        torch.cuda.synchronize()
+        held = psnr(k_img, p_img)
+        print(f"5g(c) first frame on its first {n} points (tile_capacity 2176), kernels vs "
+              f"plain versions of K1, K6 and K3: {held:.2f} dB (limit >= 50 dB)")
+        require(held >= 50.0, f"5g(c) the frame disagrees with its plain version: {held:.2f} dB")
+        xla = SimpleNamespace(**{**vars(args), "backend": "xla"})
+        xf, x_ms, x_host = timed(torch, lambda: gen_videos.frame(dec, frozen, tcfg, zs, 1, xla))
+        require(bool(torch.isfinite(xf.image).all()), "5g(c) --backend xla: bad image")
+        print(f"5g(c) gen_videos frame --backend xla: {x_ms:.3f} ms device, {x_host:.3f} ms host")
+        del dec, frozen, configs, first, xf, k_img, p_img
+        torch.cuda.empty_cache()
+
+        # -- (d) gen_interpolation and gen_videos_proj at full width -----------
+        z0, z1 = (torch.tensor(np.random.RandomState(s).randn(1, 512), dtype=torch.float32,
+                               device=dev) for s in (521, 329))
+        grid, g_ms, g_host = timed(torch, lambda: gen_interpolation.interpolation_grid(
+            gen, z0, z1, [0, 4], neural_rendering_resolution=nrr))
+        require(tuple(grid.shape) == (3, 3 * IMAGE, 3 * IMAGE)
+                and bool(torch.isfinite(grid).all()) and float(grid.std()) > 0,
+                f"5g(d) gen_interpolation grid {tuple(grid.shape)}")
+        print(f"5g(d) gen_interpolation (2 cuts x 3 views, 9 syntheses at 512^2): {g_ms:.3f} "
+              f"ms device, {g_host:.3f} ms host")
+        with torch.no_grad():
+            ws = gen.mapping(z0, torch.zeros((1, 25), device=dev), 0.7)
+        npz = os.path.join(tmp, "projected_w.npz")
+        np.savez(npz, w=ws.cpu().numpy())
+        ck = os.path.join(tmp, "G")
+        checkpoint.save(ck, gen.state_dict(), configs={"G": gen.config})
+        for mode in ("image", "image_depth"):
+            res, p_ms, p_host = timed(torch, lambda: gen_videos_proj.main(
+                ["--latents", npz, "--finetuned", ck, "--w_frames", "2", "--image_mode", mode,
+                 "--outdir", os.path.join(tmp, mode)]))
+            traj = np.load(res["trajectory"])
+            require(len(res["frames"]) == 2 and traj.shape == (2, 16)
+                    and np.isfinite(traj).all(), f"5g(d) gen_videos_proj {mode}")
+            print(f"5g(d) gen_videos_proj --image_mode {mode} (2 frames, --finetuned load "
+                  f"included): {p_ms:.3f} ms device, {p_host:.3f} ms host")
+    del gen
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2943,6 +3175,11 @@ def main(argv=None) -> int:
 
     # -- the decoder-options phase: D-par, D-seq, decode_packed, their steps --
     launches.update(decoder_options_phase(torch, args.seed, template, results))
+
+    # -- the generation phase: the GAN side and the five apps' paths ----------
+    t0 = time.perf_counter()
+    gen_launches = generation_phase(torch, args.seed, card)
+    print(f"5g: {time.perf_counter() - t0:.1f} s host wall; launches {gen_launches}")
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

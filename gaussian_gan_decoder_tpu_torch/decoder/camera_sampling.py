@@ -41,10 +41,12 @@ def _origin_from_hv(h, v, radius):
     return torch.cat([x, y, z], dim=-1)
 
 
-def pose_from_hv(h, v, radius):
-    """Angles (N, 1) -> cam2world (N, 4, 4) looking at the origin."""
+def pose_from_hv(h, v, radius, lookat=None):
+    """Angles (N, 1) -> cam2world (N, 4, 4) looking at lookat ((N, 3) or
+    (3,); the origin when None)."""
     origin = _origin_from_hv(h, v, radius)
-    return create_cam2world_matrix(normalize_vecs(-origin), origin)
+    target = torch.zeros_like(origin) if lookat is None else lookat
+    return create_cam2world_matrix(normalize_vecs(target - origin), origin)
 
 
 def fov_to_intrinsics(fov_degrees, imsize: float = 1.0):

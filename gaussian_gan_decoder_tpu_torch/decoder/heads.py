@@ -67,7 +67,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.pallas_mapping import FoldedMapping, fold_mapping, mapping_forward
+from ..models.pallas_mapping import MAX_BATCH, FoldedMapping, fold_mapping, mapping_forward
 from ..models.triplane import TriPlaneGenerator, TriPlaneGeneratorConfig
 from ..neuralfield.renderer import (PALLAS_BUILDS, build_plane_table, build_slab_volume,
                                    decode_brick_dtype, sample_from_planes, sample_fused_inputs)
@@ -149,22 +149,22 @@ class GaussianDecoderConfig:
     pallas_heads_train: bool = False
     pallas_sampling: object = False   # False, True or "select"
     fused_lerp: str = "dots"          # 'dots' or 'bcast'
+    pallas_mapping: bool = False      # apply's mapping fused (K1)
 
 
 class _NoVJP(torch.autograd.Function):
-    """fn(*inputs[:3]) with no gradient: its backward raises. The trailing
-    inputs (the head parameters) only tie the output into the graph, so
-    that differentiating it reaches the raise rather than a silent zero."""
+    """fn() with no gradient: its backward raises `message`. The parameters
+    only tie the output into the graph, so that differentiating it reaches
+    the raise rather than a silent zero."""
 
     @staticmethod
-    def forward(ctx, fn, fm, cond, init_position, *params):
-        return fn(fm, cond, init_position)
+    def forward(ctx, fn, message, *params):
+        ctx.message = message
+        return fn()
 
     @staticmethod
     def backward(ctx, grad):
-        raise RuntimeError(
-            "decode_from_planes' bf16 pallas_heads route (K6's bf16 form) has no gradient, "
-            "as the JAX kernel has no VJP: train with pallas_heads_train or f32 heads")
+        raise RuntimeError(ctx.message)
 
 
 class InferenceWeights(NamedTuple):
@@ -189,8 +189,10 @@ class GaussianDecoder(nn.Module):
     the tri-grid brick table's build on the inference brick routes and
     fused_lerp ('dots' or 'bcast') K9's lerp, as in JAX (the training
     route's sample is the direct, differentiable gather whatever
-    pallas_sampling says: the JAX Pallas build has no VJP). Every option is
-    read from `config`, so a snapshot records what the decoder runs."""
+    pallas_sampling says: the JAX Pallas build has no VJP). pallas_mapping
+    runs apply's mapping fused (K1), as JAX's option does (its benchmark
+    sets it; no trainer does). Every option is read from `config`, so a
+    snapshot records what the decoder runs."""
 
     def __init__(self, generator: TriPlaneGenerator, gelu: str = "poly6",
                  rng: Optional[torch.Generator] = None, device=None,
@@ -198,7 +200,7 @@ class GaussianDecoder(nn.Module):
                  hidden_dim: int = HIDDEN, use_xyz_embedding: bool = False,
                  heads_bf16: bool = False, pallas_heads: bool = False,
                  pallas_heads_train: bool = False, pallas_sampling=False,
-                 fused_lerp: str = "dots"):
+                 fused_lerp: str = "dots", pallas_mapping: bool = False):
         super().__init__()
         if decoder_type not in CHAINS:
             raise ValueError(f"decoder_type {decoder_type!r}: one of {sorted(CHAINS)}")
@@ -216,7 +218,7 @@ class GaussianDecoder(nn.Module):
             bool(use_xyz_embedding), bool(heads_bf16), bool(pallas_heads),
             bool(pallas_heads_train),
             pallas_sampling if pallas_sampling == "select" else bool(pallas_sampling),
-            fused_lerp)
+            fused_lerp, bool(pallas_mapping))
         self.chain_spec = CHAINS[decoder_type]
         self.parallel = decoder_type == "parallel"
         self.scale_offset = SCALE_OFFSET if decoder_type == "sequential_reversed" else -2.0
@@ -243,12 +245,13 @@ class GaussianDecoder(nn.Module):
                    hidden_dim=config.hidden_dim, use_xyz_embedding=config.use_xyz_embedding,
                    heads_bf16=config.heads_bf16, pallas_heads=config.pallas_heads,
                    pallas_heads_train=config.pallas_heads_train,
-                   pallas_sampling=config.pallas_sampling, fused_lerp=config.fused_lerp)
+                   pallas_sampling=config.pallas_sampling, fused_lerp=config.fused_lerp,
+                   pallas_mapping=config.pallas_mapping)
 
     # the options, read from config (dataclasses.replace it to change a
     # runtime option: heads_bf16, pallas_heads, pallas_heads_train,
-    # fused_sampling, gelu, pallas_sampling, fused_lerp; the rest fix the
-    # heads' shapes)
+    # fused_sampling, gelu, pallas_sampling, fused_lerp, pallas_mapping; the
+    # rest fix the heads' shapes)
     gelu = property(lambda self: self.config.gelu)
     fused_sampling = property(lambda self: self.config.fused_sampling)
     decoder_type = property(lambda self: self.config.decoder_type)
@@ -259,6 +262,7 @@ class GaussianDecoder(nn.Module):
     pallas_heads_train = property(lambda self: self.config.pallas_heads_train)
     pallas_sampling = property(lambda self: self.config.pallas_sampling)
     fused_lerp = property(lambda self: self.config.fused_lerp)
+    pallas_mapping = property(lambda self: self.config.pallas_mapping)
 
     def heads(self) -> Dict[str, DecoderHead]:
         """name -> head, in chain order."""
@@ -357,7 +361,11 @@ class GaussianDecoder(nn.Module):
             # the bf16 chain alone (K6's bf16 form): it has no VJP, as the
             # TPU kernel has none, so a backward through it raises
             params = [p for head in self.heads().values() for p in head.parameters()]
-            packed = _NoVJP.apply(self._decode_bf16, fm, cond, init_position, *params)
+            packed = _NoVJP.apply(
+                lambda: self._decode_bf16(fm, cond, init_position),
+                "decode_from_planes' bf16 pallas_heads route (K6's bf16 form) has no gradient, "
+                "as the JAX kernel has no VJP: train with pallas_heads_train or f32 heads",
+                *params)
         else:
             return self._decode_plain(fm, cond, init_position)
         return {name: packed[:M, c:c + d] for name, (c, d) in self.layout.items()}
@@ -367,8 +375,25 @@ class GaussianDecoder(nn.Module):
         return decode_heads(staging, self._pack(torch.bfloat16))
 
     def apply(self, z, gan_camera_params, init_position, truncation_psi=1.0):
-        planes = self.synthesize_planes_train(z, gan_camera_params, truncation_psi)
-        return self.decode_from_planes(planes, init_position)
+        """synthesis + decode_from_planes. Under pallas_mapping, at batch <=
+        MAX_BATCH and on a mapping K1 takes (lrelu, no last activation,
+        num_ws), the mapping runs fused as in JAX's apply: K1 on weights
+        folded for this call, with no gradient (a backward through it
+        raises, as the JAX kernel has no VJP); else the f32 mapping."""
+        mn = self.G.backbone.mapping
+        if not (self.pallas_mapping and mn.activation == "lrelu" and not mn.last_activation
+                and mn.num_ws is not None and z.shape[0] <= MAX_BATCH):
+            planes = self.synthesize_planes_train(z, gan_camera_params, truncation_psi)
+            return self.decode_from_planes(planes, init_position)
+
+        def fused():
+            with torch.no_grad():
+                return self._fused_ws(fold_mapping(mn), z, gan_camera_params, truncation_psi)
+        ws = _NoVJP.apply(fused, "apply's fused mapping (pallas_mapping, K1) has no gradient, "
+                          "as the JAX kernel has no VJP: train without pallas_mapping",
+                          *mn.parameters())
+        return self.decode_from_planes(self.G.synthesis_planes(ws, noise_mode="const"),
+                                       init_position)
 
     # -- inference ------------------------------------------------------------
 
@@ -396,16 +421,19 @@ class GaussianDecoder(nn.Module):
                           truncation_psi=1.0, stage_timer=None):
         """Fused mapping (K1) on mapping_condition(gan_camera_params) +
         synthesis -> (planes (N, 3, 32*D, H, W) f32, ws)."""
-        g = self.G
-        c = self.mapping_condition(gan_camera_params)
-        ws = mapping_forward(z.float().contiguous(), c.contiguous() if g.c_dim else None,
-                             weights.mapping, truncation_psi)
+        ws = self._fused_ws(weights.mapping, z, gan_camera_params, truncation_psi)
         if stage_timer is not None:
             stage_timer("mapping")
-        planes = g.synthesis_planes(ws, noise_mode="const")
+        planes = self.G.synthesis_planes(ws, noise_mode="const")
         if stage_timer is not None:
             stage_timer("synthesis")
         return planes, ws
+
+    def _fused_ws(self, folded: FoldedMapping, z, gan_camera_params, truncation_psi):
+        """K1 on mapping_condition(gan_camera_params) -> ws (N, num_ws, w_dim)."""
+        c = self.mapping_condition(gan_camera_params)
+        return mapping_forward(z.float().contiguous(), c.contiguous() if self.G.c_dim else None,
+                               folded, truncation_psi)
 
     def _brick_table(self, planes):
         D = self.G.triplane_depth

@@ -11,6 +11,7 @@ carries both generator copies; so does this.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -68,3 +69,52 @@ def render_with_decoder(decoder: GaussianDecoder, z, camera_params, cam2world, v
     out = render_simple(cam, decoded, torch.tensor(bg, dtype=torch.float32, device=dev),
                         raster_cfg, backend=backend)
     return out["render"][:3], decoded
+
+
+def _mapping_plain(z, c, fm, truncation_psi=1.0):
+    """K1's plain version with the wrapper's (B, num_ws, W) output."""
+    from ..models.pallas_mapping import mapping_forward_plain
+    ws = mapping_forward_plain(z, c, fm, truncation_psi)
+    return ws[:, None, :].expand(ws.shape[0], fm.num_ws, ws.shape[1])
+
+
+def _launch_counts():
+    from ..models import pallas_mapping
+    from ..neuralfield import pallas_expand
+    from ..splat import pallas_blend
+    from . import pallas_heads
+    fns = (pallas_mapping.mapping_forward, pallas_heads.decode_heads, pallas_blend.blend_tiles,
+           pallas_expand.brick_table, pallas_expand.brick_table_select)
+    return {f"{fn.__name__}.{a}": v for fn in fns for a, v in vars(fn).items()
+            if a.startswith("launches")}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the block, render_with_decoder runs the plain PyTorch versions
+    of its kernels on any device: K1 (a decoder's pallas_mapping), K6 in
+    both forms and K3, each swapped in where its callers import it by name.
+    On leaving, raises if K1, K6, K3 or K10 launched within the block: it
+    is for holding a frame on the card against its plain version, which a
+    kernel reached through a name not swapped here would make a hold of
+    the kernel against itself."""
+    from ..splat import fast_raster, pallas_blend
+    from . import heads, pallas_heads, pallas_heads_vjp
+    swaps = [(heads, "mapping_forward", _mapping_plain),
+             (heads, "decode_heads", pallas_heads.decode_heads_plain),
+             (pallas_heads_vjp, "decode_heads", pallas_heads.decode_heads_plain),
+             (fast_raster, "blend_tiles", pallas_blend.blend_tiles_plain)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    before = _launch_counts()
+    try:
+        for m, n, plain in swaps:
+            setattr(m, n, plain)
+        yield
+    finally:
+        for m, n, kernel in saved:
+            setattr(m, n, kernel)
+    after = _launch_counts()
+    launched = {k: after[k] - v for k, v in before.items() if after[k] != v}
+    if launched:
+        raise RuntimeError(f"kernels launched within plain_kernels(): {launched}")
+

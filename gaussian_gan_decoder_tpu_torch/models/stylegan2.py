@@ -86,7 +86,9 @@ class MappingNetwork(nn.Module):
         if num_ws is not None and w_avg_beta is not None:
             self.register_buffer("w_avg", torch.zeros(w_dim, device=device))
 
-    def forward(self, z, c, truncation_psi=1.0):
+    def forward(self, z, c, truncation_psi=1.0, truncation_cutoff=None):
+        """-> ws (N, num_ws, w_dim), pulled toward w_avg by truncation_psi;
+        with truncation_cutoff, only ws[:, :truncation_cutoff]."""
         x = normalize_2nd_moment(z.float()) if self.z_dim > 0 else None
         if self.c_dim > 0:
             y = normalize_2nd_moment(self.embed(c.float()))
@@ -96,7 +98,11 @@ class MappingNetwork(nn.Module):
         if self.num_ws is not None:
             x = x[:, None, :].repeat(1, self.num_ws, 1)
         if hasattr(self, "w_avg"):
-            x = self.w_avg + (x - self.w_avg) * truncation_psi
+            if self.num_ws is None or truncation_cutoff is None:
+                x = self.w_avg + (x - self.w_avg) * truncation_psi
+            else:
+                head = self.w_avg + (x[:, :truncation_cutoff] - self.w_avg) * truncation_psi
+                x = torch.cat([head, x[:, truncation_cutoff:]], dim=1)
         return x
 
 

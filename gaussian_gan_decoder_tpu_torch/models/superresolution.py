@@ -65,14 +65,24 @@ class Superresolution(nn.Module):
         return (x if self.returns_features else rgb), raw_alias
 
 
+def _variant(class_name: str):
+    short = class_name.rsplit(".", 1)[-1]
+    if short not in _VARIANTS:
+        raise ValueError(f"unknown superresolution module: {class_name}")
+    return _VARIANTS[short]
+
+
+def sr_input_resolution(class_name: str) -> int:
+    """The input resolution of the SR stack named class_name (the
+    background synthesis' output resolution, models/triplane.py)."""
+    return _variant(class_name)[0]
+
+
 def make_superresolution(class_name: str, channels: int, sr_num_fp16_res: int = 0,
                          sr_antialias: bool = True, generator: Optional[torch.Generator] = None,
                          device=None) -> Superresolution:
     """Build an SR stack from the reference's dotted class name."""
-    short = class_name.rsplit(".", 1)[-1]
-    if short not in _VARIANTS:
-        raise ValueError(f"unknown superresolution module: {class_name}")
-    in_res, b0o, b1o, b0r, b1r, b0up, rfeat = _VARIANTS[short]
+    in_res, b0o, b1o, b0r, b1r, b0up, rfeat = _variant(class_name)
     return Superresolution(channels, in_res, b0o, b1o, b0r, b1r, b0up, sr_antialias,
                            use_fp16=sr_num_fp16_res > 0, returns_features=rfeat,
                            generator=generator, device=device)

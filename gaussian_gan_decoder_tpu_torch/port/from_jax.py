@@ -3,9 +3,9 @@
 The JAX side writes a flat, reference-named dict of numpy arrays
 (gaussian_gan_decoder_tpu.port.torch_export.decoder_state_dict /
 generator_state_from_params), or the same dict as a torch .pt file
-(save_torch_state_dict). The port's modules carry those names, so after
-dropping the generator parts the port never evaluates, a dict loads with
-load_state_dict(strict=True): any other missing or unexpected key raises.
+(save_torch_state_dict). The port's modules carry those names, PanoHead's
+t_mapping and bcg_synthesis included, so a dict loads with
+load_state_dict(strict=True): any missing or unexpected key raises.
 The JAX package's .pt writer stores a 0-d tensor (noise_strength) with
 shape (1,) (np.ascontiguousarray): such an entry takes the module's 0-d
 shape. The VGG16-LPIPS weights load under torchvision's names. This module
@@ -18,13 +18,6 @@ from typing import Mapping, Union
 import numpy as np
 import torch
 
-# generator sub-trees the port never evaluates (the reference's target
-# render forces its background to -1 and does not run t_mapping)
-DROPPED_PREFIXES = (
-    "G.t_mapping.",
-    "G.bcg_synthesis.",
-)
-
 State = Union[str, Mapping[str, np.ndarray]]
 
 
@@ -36,9 +29,9 @@ def _read(state: State) -> Mapping[str, np.ndarray]:
     return state
 
 
-def _tensors(state: Mapping, drop=(), prefix: str = "", module=None):
+def _tensors(state: Mapping, prefix: str = "", module=None):
     out = {k[len(prefix):]: torch.tensor(np.array(v, dtype=np.float32))
-           for k, v in state.items() if k.startswith(prefix) and not k.startswith(drop)}
+           for k, v in state.items() if k.startswith(prefix)}
     if module is not None:
         own = module.state_dict()
         for k, v in out.items():
@@ -51,16 +44,15 @@ def load_decoder_state(decoder: torch.nn.Module, state: State) -> None:
     """Load a reference-named decoder state dict (heads, `G.` + generator;
     a mapping of arrays or the path of a .pt file) into a GaussianDecoder,
     strictly."""
-    decoder.load_state_dict(_tensors(_read(state), DROPPED_PREFIXES, module=decoder),
-                            strict=True)
+    decoder.load_state_dict(_tensors(_read(state), module=decoder), strict=True)
 
 
 def load_generator_state(generator: torch.nn.Module, state: State) -> None:
     """Load a reference-named generator state dict (backbone, decoder,
-    torgb, superresolution, ... as generator_state_from_params writes it)
-    into a TriPlaneGenerator, strictly."""
-    drop = tuple(p.removeprefix("G.") for p in DROPPED_PREFIXES)
-    generator.load_state_dict(_tensors(_read(state), drop, module=generator), strict=True)
+    torgb, superresolution, t_mapping, bcg_synthesis, as
+    generator_state_from_params writes it) into a TriPlaneGenerator,
+    strictly."""
+    generator.load_state_dict(_tensors(_read(state), module=generator), strict=True)
 
 
 def load_vgg16_lpips_state(vgg: torch.nn.Module, state: State) -> None:

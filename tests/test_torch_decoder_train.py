@@ -47,6 +47,7 @@ from gaussian_gan_decoder_tpu_torch.train.distill import (
     DistillConfig, init_train_state, make_loss_fn)
 from test_torch_losses import vgg_state
 from test_torch_train_step import BG, GEN_KW, HEADS, IMG, RK, _cfgs, _draws
+from _gan_parts import with_gan_parts
 from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 
@@ -61,7 +62,7 @@ def _generator_params(jg):
         for layer in ("conv0", "conv1"):
             if layer in blk:
                 blk[layer]["noise_strength"] = jnp.float32(0.1)
-    return gp
+    return with_gan_parts(jg, gp)
 
 
 @pytest.fixture(scope="module")

@@ -51,6 +51,7 @@ from gaussian_gan_decoder_tpu_torch.port import torch_pickle
 from gaussian_gan_decoder_tpu_torch.port.from_jax import load_decoder_state, load_generator_state
 from test_torch_decode_project import _k2_tolerances
 from test_torch_pickle import INIT_ARGS, INIT_KW, _dumps, _generator_flat, _modules
+from _gan_parts import with_gan_parts
 from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 RK = {"triplane_size": 16, "depth_resolution": 4, "depth_resolution_importance": 4}
@@ -64,8 +65,9 @@ def _gen_params(jg, seed):
     with jax.enable_x64(False):
         def init():
             ks = jax.random.split(jax.random.PRNGKey(seed), 3)
-            return {"backbone": jg.backbone.init(ks[0]), "decoder": jg.decoder.init(ks[1]),
-                    "torgb": jg.torgb.init(ks[2])}
+            return with_gan_parts(jg, {"backbone": jg.backbone.init(ks[0]),
+                                       "decoder": jg.decoder.init(ks[1]),
+                                       "torgb": jg.torgb.init(ks[2])})
         return jax.jit(init)()
 
 

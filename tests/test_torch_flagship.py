@@ -32,9 +32,10 @@ from gaussian_gan_decoder_tpu_torch.gaussians.cameras import make_camera
 from gaussian_gan_decoder_tpu_torch.models import pallas_mapping
 from gaussian_gan_decoder_tpu_torch.models.triplane import TriPlaneGenerator
 from gaussian_gan_decoder_tpu_torch.neuralfield import pallas_expand
-from gaussian_gan_decoder_tpu_torch.port.from_jax import DROPPED_PREFIXES, load_decoder_state
+from gaussian_gan_decoder_tpu_torch.port.from_jax import load_decoder_state
 from gaussian_gan_decoder_tpu_torch.splat import pallas_blend
 from gaussian_gan_decoder_tpu_torch.splat.rasterize import RasterizeConfig
+from _gan_parts import with_gan_parts
 from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 GEN_KW = dict(z_dim=32, c_dim=25, w_dim=32, img_resolution=64, channel_base=512,
@@ -52,12 +53,12 @@ def models():
               pallas_mapping=True)
 
     def init():
-        # the generator sub-trees of TriPlaneGenerator.init, less the 128^2
-        # background synthesis (the costliest to trace, and dropped like
-        # decoder / torgb / t_mapping on import)
+        # the generator sub-trees of TriPlaneGenerator.init (the port loads
+        # t_mapping and the background synthesis strictly too)
         ks = jax.random.split(jax.random.PRNGKey(1), 4)
-        gp = {"backbone": jg.backbone.init(ks[0]), "decoder": jg.decoder.init(ks[1]),
-              "torgb": jg.torgb.init(ks[2]), "t_mapping": jg.t_mapping.init(ks[3])}
+        gp = with_gan_parts(jg, {"backbone": jg.backbone.init(ks[0]),
+                                 "decoder": jg.decoder.init(ks[1]),
+                                 "torgb": jg.torgb.init(ks[2])})
         return jd.init(jax.random.PRNGKey(0), generator_params=gp)
 
     params = jax.jit(init)()
@@ -366,7 +367,10 @@ def test_builders_default_to_the_card(builder):
 
 def test_from_jax_is_strict(models, tmp_path):
     _, _, td, sd = models
-    assert any(k.startswith(DROPPED_PREFIXES) for k in sd)
+    assert all(any(k.startswith(p) for k in sd) for p in ("G.t_mapping.", "G.bcg_synthesis."))
+    no_t = {k: v for k, v in sd.items() if not k.startswith("G.t_mapping.")}
+    with pytest.raises(RuntimeError, match="Missing key"):
+        load_decoder_state(td, no_t)
     missing = {k: v for k, v in sd.items() if k != "xyz_decoder.backbone.6.bias"}
     with pytest.raises(RuntimeError, match="Missing key"):
         load_decoder_state(td, missing)

@@ -844,3 +844,63 @@ def test_probe_table_kernel(cuda, brick_dtype, pallas_build):
     assert len(got) == (3 if brick_dtype == torch.int8 else 2)
     assert got[1] == pallas_expand.table_rows_ny(16, vol.element_size())
     assert torch.equal(got[0].view(torch.uint8), ref.view(torch.uint8))
+
+
+def test_gen_videos_frame_kernels_match_plain(cuda, tmp_path):
+    """A gen_videos frame (apps/gen_videos.py, --backend pallas) at the
+    --smoke widths on a decoder snapshot saved and reloaded here (the
+    flagship decoder's bf16 heads with pallas_mapping; the target through
+    K10's int8 probe table): K10, K1, K6's bf16 form and K3 launch once
+    each, and the frame equals, at >= 50 dB (chip_smoke.py's 5g(c) limit),
+    the same frame with the plain versions of K1, K6 and K3 on the same
+    surface points (decoder/snapshot.py::plain_kernels, which raises if a
+    kernel launched within it)."""
+    import math
+
+    from gaussian_gan_decoder_tpu_torch.apps import gen_samples, gen_videos
+    from gaussian_gan_decoder_tpu_torch.decoder.snapshot import (load_decoder, plain_kernels,
+                                                                 render_with_decoder,
+                                                                 save_decoder)
+    from gaussian_gan_decoder_tpu_torch.decoder.surface import sigma_grid_separable
+    from gaussian_gan_decoder_tpu_torch.decoder.target_pipeline import TargetSamplerConfig
+
+    gen = gen_samples.smoke_generator(cuda)
+    with torch.no_grad():
+        z = torch.randn((1, 32), generator=torch.Generator().manual_seed(0)).to(cuda)
+        ws = gen.mapping(z, torch.zeros((1, 25), device=cuda))
+        sig = sigma_grid_separable(gen, gen.synthesis_planes(ws), shape_res=32)
+    tcfg = TargetSamplerConfig(shape_res=32, num_points=20_000, neural_rendering_resolution=32,
+                               mc_level=float(torch.quantile(sig.flatten(), 0.9)),
+                               int8_probe=True, pallas_probe_build=True)
+    dec = GaussianDecoder(gen, gelu="poly", rng=torch.Generator().manual_seed(1), device=cuda,
+                          heads_bf16=True, pallas_heads=True, pallas_mapping=True)
+    snap = str(tmp_path / "snap")
+    save_decoder(snap, dec, gen, target_cfg=tcfg)
+    dec, configs = load_decoder(snap, device=cuda)
+    assert dec.pallas_mapping
+    args = gen_videos.build_argparser().parse_args(
+        ["--checkpoint", snap, "--backend", "pallas", "--image_size", "128"])
+    counters = [(pallas_expand.brick_table, "launches"),
+                (pallas_mapping.mapping_forward, "launches"),
+                (pallas_heads.decode_heads, "launches_bf16"),
+                (pallas_blend.blend_tiles, "launches")]
+    before = [getattr(fn, a) for fn, a in counters]
+    f = gen_videos.frame(dec, configs["frozen_G"], tcfg, gen_videos.seed_latents([0, 1], 32), 1,
+                         args)
+    torch.cuda.synchronize()
+    assert [getattr(fn, a) - b for (fn, a), b in zip(counters, before)] == [1, 1, 1, 1]
+    assert tuple(f.image.shape) == (3, 128, 128) and bool(torch.isfinite(f.image).all())
+    assert float(f.image.std()) > 0
+
+    def render():
+        return render_with_decoder(dec, f.z, f.camera_params, f.cam2world, f.vertices,
+                                   math.radians(args.fov_deg), image_size=128,
+                                   backend="pallas")[0]
+    kernel = render()
+    with plain_kernels():
+        ref = render()
+    torch.cuda.synchronize()
+    mse = float(((kernel - ref) ** 2).mean())
+    print(f"gen_videos smoke frame, kernels vs plain versions: "
+          f"{math.inf if mse == 0 else 10 * math.log10(1 / mse):.2f} dB")
+    assert mse == 0 or 10 * math.log10(1 / mse) >= 50.0, mse

@@ -99,12 +99,11 @@ def _modules(flat, **kw):
 
 def _generator_flat():
     """The generator's reference-named weights as a reference snapshot
-    holds them: the port's state, plus t_mapping (not ported, dropped on
-    load) and a resample filter (config in both packages, dropped)."""
+    holds them: the port's state (t_mapping and bcg_synthesis included),
+    plus a resample filter (config in both packages, dropped)."""
     gen = TriPlaneGenerator(*INIT_ARGS, **INIT_KW, generator=torch.Generator().manual_seed(0))
     rng = np.random.RandomState(1)
     flat = {k: v.clone() for k, v in gen.state_dict().items()}
-    flat["t_mapping.fc0.weight"] = torch.tensor(rng.randn(64, 57).astype(np.float32))
     flat["backbone.synthesis.b8.resample_filter"] = torch.ones(4, 4)
     # non-zero noise strengths, so their bits are checked too
     for k in flat:
@@ -144,12 +143,13 @@ def test_load_generator_pkl_matches_jax(pickles):
     gen, state = torch_pickle.load_generator_pkl(gpath, device="cpu")
     jcfg, jparams = jpickle.load_generator_pkl(gpath)
     ref = generator_state_from_params(jparams)
-    assert set(state) == set(ref) and "t_mapping.fc0.weight" in state
+    assert set(state) == set(ref)
+    assert "t_mapping.fc0.weight" in state and "bcg_synthesis.b4.const" in state
     assert not any(k.endswith("resample_filter") for k in state)
     for k, v in ref.items():
         assert state[k].dtype == np.float32 and np.array_equal(state[k], v), k
     own = gen.state_dict()
-    assert set(own) == {k for k in state if not k.startswith("t_mapping.")}
+    assert set(own) == set(state)
     assert all(torch.equal(own[k], torch.as_tensor(flat[k])) for k in own)
     c = gen.config
     assert (c.z_dim, c.c_dim, c.w_dim, c.img_resolution, c.channel_base, c.channel_max) == (

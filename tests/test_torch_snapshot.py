@@ -11,6 +11,7 @@ through the K6 and K3 plain versions; decoded attributes within 1e-5 of
 each attribute's largest magnitude, image within 1e-4 on 0.999 of the
 pixels and PSNR >= 60 dB (f32 sums in another order)."""
 import copy
+import dataclasses
 import os
 
 import jax
@@ -38,6 +39,7 @@ from gaussian_gan_decoder_tpu_torch.models.triplane import TriPlaneGenerator
 from gaussian_gan_decoder_tpu_torch.port.from_jax import load_decoder_state
 from gaussian_gan_decoder_tpu_torch.train import checkpoint
 from gaussian_gan_decoder_tpu_torch.train.distill import DistillConfig, init_train_state
+from _gan_parts import with_gan_parts
 from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 RK = {"triplane_size": 16, "depth_resolution": 4, "depth_resolution_importance": 4,
@@ -57,8 +59,9 @@ def models():
 
         def init():
             ks = jax.random.split(jax.random.PRNGKey(0), 3)
-            gp = {"backbone": jg.backbone.init(ks[0]), "decoder": jg.decoder.init(ks[1]),
-                  "torgb": jg.torgb.init(ks[2])}
+            gp = with_gan_parts(jg, {"backbone": jg.backbone.init(ks[0]),
+                                     "decoder": jg.decoder.init(ks[1]),
+                                     "torgb": jg.torgb.init(ks[2])})
             return jd.init(jax.random.PRNGKey(1), generator_params=gp)
 
         params = jax.jit(init)()
@@ -206,3 +209,43 @@ def test_snapshot_round_trip_and_render_match_jax(models, tmp_path):
     print(f"render_with_decoder vs JAX: max |d| {d.max():.3e}, PSNR {psnr:.1f} dB")
     assert img.shape == (3, IMG, IMG) and jimg.std() > 0.01
     assert (d <= 1e-4).mean() >= 0.999 and psnr >= 60.0
+
+
+def test_decoder_pallas_mapping_matches_jax(models, tmp_path):
+    """The decoder's pallas_mapping option: apply maps through the fused
+    mapping (bf16 weights; the JAX package's mapping_forward_pallas in
+    interpret mode, the port's K1 wrapper, whose plain version runs here),
+    as JAX's apply does. Every decoded attribute within 1e-4 of its largest
+    magnitude; the route is the fused one (the f32 mapping's attributes
+    differ), the option survives a snapshot, and a backward through it
+    raises, as the JAX kernel has no VJP."""
+    jd, params, dec = models
+    jdm = dataclasses.replace(jd, pallas_mapping=True)
+    decm = copy.deepcopy(dec)
+    decm.config = dataclasses.replace(dec.config, pallas_mapping=True)
+    rng = np.random.RandomState(10)
+    z = rng.randn(1, 32).astype(np.float32)
+    pos = ((rng.rand(400, 3) - 0.5) * 0.4).astype(np.float32)
+    cp = np.asarray(jcam_params()[0], np.float32)
+    with jax.enable_x64(False):
+        ref = jax.jit(lambda p, z, c, x: jdm.apply(p, z, c, x, truncation_psi=0.7))(
+            params, jnp.asarray(z), jnp.asarray(cp), jnp.asarray(pos))
+        ref = {k: np.asarray(v) for k, v in ref.items()}
+    args = (torch.tensor(z), torch.tensor(cp), torch.tensor(pos))
+    with torch.no_grad():
+        got = decm.apply(*args, truncation_psi=0.7)
+        f32 = dec.apply(*args, truncation_psi=0.7)
+    assert list(got) == list(ref)
+    for k, want in ref.items():
+        err = np.abs(got[k].numpy() - want).max() / np.abs(want).max()
+        print(f"pallas_mapping apply {k}: {err:.3e} of its max")
+        assert got[k].shape == want.shape and err <= 1e-4, (k, err)
+    assert any(not torch.equal(got[k], f32[k]) for k in got)
+
+    save_decoder(str(tmp_path / "snap"), decm)
+    loaded, _ = load_decoder(str(tmp_path / "snap"), device="cpu")
+    assert loaded.config == decm.config and loaded.pallas_mapping
+    out = decm.apply(*args, truncation_psi=0.7)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        sum(v.sum() for v in out.values()).backward()
+

@@ -31,6 +31,7 @@ from gaussian_gan_decoder_tpu_torch.models.triplane import TriPlaneGenerator
 from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import RenderDraws
 from gaussian_gan_decoder_tpu_torch.ops import resize_bilinear
 from gaussian_gan_decoder_tpu_torch.port.from_jax import load_generator_state
+from _gan_parts import with_gan_parts
 from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 SR = "training.superresolution.SuperresolutionHybrid2X"
@@ -64,7 +65,7 @@ def gens():
              "superresolution": jg.superresolution.init(ks[2]), "torgb": jg.torgb.init(ks[3])}
         # non-zero density bias: a surface at LEVEL inside the sampling cube
         p["decoder"]["fc1"]["bias"] = p["decoder"]["fc1"]["bias"].at[0].set(0.3)
-        return p
+        return with_gan_parts(jg, p)
 
     params = jax.jit(init)()
     tg = TriPlaneGenerator(rendering_kwargs=RK, **GEN_KW)

@@ -58,6 +58,7 @@ from gaussian_gan_decoder_tpu_torch.train.distill import (
     DistillConfig, init_train_state, make_loss_fn, make_train_step)
 
 from test_torch_losses import vgg_state
+from _gan_parts import with_gan_parts
 from _torch_threads import torch_threads  # noqa: F401  (autouse)
 
 RK = {"triplane_size": 16, "depth_resolution": 4, "depth_resolution_importance": 4,
@@ -98,6 +99,7 @@ def setup():
                 for layer in ("conv0", "conv1"):
                     if layer in blk:
                         blk[layer]["noise_strength"] = jnp.float32(0.1)
+            gp = with_gan_parts(jg, gp)
             return gp, jd.init(jax.random.PRNGKey(1), generator_params=gp)
 
         gparams, params = jax.jit(init)()
