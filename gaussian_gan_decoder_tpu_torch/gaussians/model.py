@@ -1,6 +1,7 @@
-"""Explicit 3DGS scene — port of the part of gaussians/model.py the decoder
-path needs: inverse_sigmoid, GaussianScene and gaussian_scene_from_decoded.
-The classic 3DGS model (densify, optimizer surgery) is ROADMAP queue A6.
+"""Explicit 3DGS scene — port of gaussians/model.py: inverse_sigmoid,
+GaussianScene, gaussian_scene_from_decoded, create_from_points and
+build_covariance. Adaptive density control at fixed capacity is
+gaussians/densify.py.
 
 Raw storage conventions (the reference GaussianModel's): xyz (N, 3),
 features_dc (N, 1, 3), features_rest (N, K-1, 3), scaling (N, 3) log-scale,
@@ -9,9 +10,12 @@ exp / normalise / sigmoid.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
+
+from ..ops.knn import mean_sq_dist_to_knn
+from .sh import rgb_to_sh
 
 
 def inverse_sigmoid(x):
@@ -72,3 +76,34 @@ def gaussian_scene_from_decoded(decoded: Dict[str, torch.Tensor],
         scaling=decoded["scale"], rotation=decoded["rotation"], opacity=decoded["opacity"],
         valid=torch.ones((n,), dtype=torch.bool, device=xyz.device),
         max_sh_degree=sh_degree, active_sh_degree=0)
+
+
+def create_from_points(points: torch.Tensor, colors: Optional[torch.Tensor] = None,
+                       sh_degree: int = 0, opacity_init: float = 0.1) -> GaussianScene:
+    """Point-cloud initialisation (ref create_from_pcd, gaussian_model.py:
+    130-152): log-scale from the mean 3-NN squared distance, identity
+    rotations, inverse-sigmoid(opacity_init) opacity."""
+    n, dev, dt = points.shape[0], points.device, points.dtype
+    k = (sh_degree + 1) ** 2
+    if colors is None:
+        colors = torch.full((n, 3), 0.5, dtype=dt, device=dev)
+    fused_color = rgb_to_sh(torch.clamp(colors, 0, 1))
+    dist2 = torch.clamp(mean_sq_dist_to_knn(points, k=3), min=1e-7)
+    rots = torch.zeros((n, 4), dtype=dt, device=dev)
+    rots[:, 0] = 1.0
+    return GaussianScene(
+        xyz=points, features_dc=fused_color[:, None, :],
+        features_rest=torch.zeros((n, k - 1, 3), dtype=dt, device=dev),
+        scaling=torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3), rotation=rots,
+        opacity=inverse_sigmoid(torch.full((n, 1), opacity_init, dtype=dt, device=dev)),
+        valid=torch.ones((n,), dtype=torch.bool, device=dev),
+        max_sh_degree=sh_degree, active_sh_degree=0)
+
+
+def build_covariance(scene: GaussianScene, scaling_modifier: float = 1.0) -> torch.Tensor:
+    """Upper-triangle (N, 6) covariance (ref get_covariance, :28-33, 126)."""
+    from ..splat.projection import build_cov3d
+
+    cov = build_cov3d(scene.get_scaling, scene.rotation, scaling_modifier)
+    return torch.stack([cov[:, 0, 0], cov[:, 0, 1], cov[:, 0, 2],
+                        cov[:, 1, 1], cov[:, 1, 2], cov[:, 2, 2]], dim=1)

@@ -308,7 +308,7 @@ def rasterize_fast(cam: Camera, means3d: torch.Tensor, scales: torch.Tensor,
         cam, means3d[:, 0], means3d[:, 1], means3d[:, 2],
         tuple(rotations[:, k] for k in range(4)),
         tuple(scales[:, k] for k in range(3)))
-    colors = sh_to_color(0, shs.transpose(1, 2))
+    colors = sh_to_color(0, shs.transpose(1, 2), means3d, cam.camera_center)
     # each tile's pairs past tile_capacity are never blended: dropping them
     # here bounds the payload and K4's entries by the budget
     tile_starts, pair, tile = bin_indices(ch["px"], ch["py"], ch["radius_f"], ch["depth"],

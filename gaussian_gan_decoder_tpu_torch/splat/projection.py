@@ -1,5 +1,6 @@
 """3DGS EWA projection on channel vectors — port of
-splat/projection.py::project_channels.
+splat/projection.py (build_rotation, build_cov3d, project_channels,
+project_gaussians).
 
 Plain PyTorch; the slab decode kernel (csrc/slab_decode.cu) inlines the same
 math per point. Everything is elementwise over (N,) vectors:
@@ -15,6 +16,27 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..gaussians.cameras import Camera
+
+
+def build_rotation(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (w, x, y, z), normalised here -> rotation matrix (..., 3, 3)
+    (ref general_utils.py:78-98)."""
+    q = q / (torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True)) + 1e-12)
+    r, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    R = torch.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - r * z), 2 * (x * z + r * y),
+        2 * (x * y + r * z), 1 - 2 * (x * x + z * z), 2 * (y * z - r * x),
+        2 * (x * z - r * y), 2 * (y * z + r * x), 1 - 2 * (x * x + y * y),
+    ], dim=-1)
+    return R.reshape(q.shape[:-1] + (3, 3))
+
+
+def build_cov3d(scales: torch.Tensor, rotations: torch.Tensor,
+                scale_modifier: float = 1.0) -> torch.Tensor:
+    """(N, 3) activated scales and (N, 4) quaternions -> (N, 3, 3)
+    covariance R S S^T R^T (ref gaussian_model.py:28-33)."""
+    RS = build_rotation(rotations) * (scales * scale_modifier)[..., None, :]
+    return RS @ RS.transpose(-1, -2)
 
 
 def project_channels(cam: Camera, mx, my, mz, q, s, scale_modifier: float = 1.0,

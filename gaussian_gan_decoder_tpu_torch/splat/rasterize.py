@@ -151,8 +151,8 @@ def rasterize(cam, means3d: torch.Tensor, scales: torch.Tensor, rotations: torch
     backend) -> {render (3, H, W), alpha (1, H, W), radii (N,) int32,
     visibility_filter (N,), n_dropped (pairs past max_pairs, an int),
     n_pairs (pairs blended: within max_pairs and each tile's first
-    tile_capacity)}. shs (N, K_sh, 3) at sh_degree 0 when colors_precomp
-    is not given; means2d_offset (N, 2) is added to the pixel means (its
+    tile_capacity)}. shs (N, K_sh, 3) at sh_degree 0..3 when colors_precomp
+    is not given, viewed along means3d - cam.camera_center; means2d_offset (N, 2) is added to the pixel means (its
     gradient is the screen-space mean gradient)."""
     N = means3d.shape[0]
     H, W = cam.image_height, cam.image_width
@@ -168,8 +168,8 @@ def rasterize(cam, means3d: torch.Tensor, scales: torch.Tensor, rotations: torch
         bg = torch.zeros(3, device=dev)
     proj = project_gaussians(cam, means3d, scales, rotations, scale_modifier, cov3d_precomp)
     pix_xy = proj.pix_xy if means2d_offset is None else proj.pix_xy + means2d_offset
-    colors = (sh_to_color(sh_degree, shs.transpose(1, 2)) if colors_precomp is None
-              else colors_precomp)
+    colors = (sh_to_color(sh_degree, shs.transpose(1, 2), means3d, cam.camera_center)
+              if colors_precomp is None else colors_precomp)
 
     # -- the global depth sort (invisible Gaussians last) --------------------
     inf = torch.full_like(proj.depth, float("inf"))
@@ -184,8 +184,10 @@ def rasterize(cam, means3d: torch.Tensor, scales: torch.Tensor, rotations: torch
     offsets = torch.cumsum(counts, 0) - counts
     total = int(counts.sum())
     n_kept = min(total, config.max_pairs)
-    pair_g = torch.repeat_interleave(torch.arange(N, device=dev), counts,
-                                     output_size=total)[:n_kept]
+    # each Gaussian's count cut to what is left of the budget at its offset:
+    # the first n_kept pairs of the full expansion, and no more, are built
+    kept = torch.clamp(torch.minimum(counts, config.max_pairs - offsets), min=0)
+    pair_g = torch.repeat_interleave(torch.arange(N, device=dev), kept, output_size=n_kept)
     local = torch.arange(n_kept, device=dev) - offsets[pair_g]
     rw_g = torch.clamp(rw[pair_g], min=1).long()
     tile_id = (y0[pair_g] + local // rw_g) * grid_x + x0[pair_g] + local % rw_g

@@ -904,3 +904,50 @@ def test_gen_videos_frame_kernels_match_plain(cuda, tmp_path):
     print(f"gen_videos smoke frame, kernels vs plain versions: "
           f"{math.inf if mse == 0 else 10 * math.log10(1 / mse):.2f} dB")
     assert mse == 0 or 10 * math.log10(1 / mse) >= 50.0, mse
+
+
+def test_gs3d_step_card_vs_cpu(cuda):
+    """One classic 3DGS train step (train/gaussian_splatting.py: rasterize at
+    SH degree 3 with the screen-space offset, L1 + SSIM, Adam) on the card
+    against the same step on the CPU, from the same scene at capacity 512
+    (300 points), 64^2: the loss within 1e-4 relative, Adam's first moments
+    (0.1 x the gradient) within 1e-4 of each tensor's largest and the
+    screen-gradient sums within 1e-4 of their largest (the same f32 sums in
+    another order). The path is plain PyTorch, as JAX's is XLA: no kernel
+    launches."""
+    from gaussian_gan_decoder_tpu_torch.splat.rasterize import RasterizeConfig
+    from gaussian_gan_decoder_tpu_torch.train import gaussian_splatting as gs
+
+    def counts():
+        mods = (pallas_mapping, pallas_heads, pallas_expand, pallas_blend)
+        return {(m.__name__, n, k): v for m in mods for n, f in vars(m).items()
+                if callable(f) for k, v in getattr(f, "__dict__", {}).items()
+                if k.startswith("launches")}
+
+    rng = np.random.RandomState(0)
+    pts = ((rng.rand(300, 3) - 0.5) * 0.6).astype(np.float32)
+    cols = rng.rand(300, 3).astype(np.float32)
+    gt = rng.rand(3, 64, 64).astype(np.float32)
+    rest = (rng.randn(512, 15, 3) * 0.1).astype(np.float32)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, :3] = np.diag([-1.0, 1.0, -1.0])
+    c2w[2, 3] = 2.7
+    cfg = gs.GSOptimizationConfig(capacity=512, sh_degree=3)
+    out = []
+    before = counts()
+    for dev in (torch.device("cpu"), cuda):
+        state = gs.init_gs_state(pts, cols, cfg, 1.0, device=dev)
+        with torch.no_grad():
+            state.scene.features_rest.copy_(torch.tensor(rest))
+        step = gs.make_train_step(cfg, RasterizeConfig(), 64, 1.0)
+        state, m = step(state, make_camera(64, 0.5, c2w, device=dev),
+                        torch.tensor(gt, device=dev), torch.zeros(3, device=dev), sh_degree=3)
+        out.append((float(m["loss"]), state.grad_accum.cpu(),
+                    [state.optimizer.state[getattr(state.scene, k)]["exp_avg"].cpu()
+                     for k in gs.PARAMS]))
+    assert counts() == before
+    (lc, gc, mc), (lg, gg, mg) = out
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    assert float((gg - gc).abs().max()) <= 1e-4 * float(gc.abs().max()) and gc.max() > 0
+    for name, a, b in zip(gs.PARAMS, mg, mc):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
