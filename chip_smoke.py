@@ -147,6 +147,18 @@ Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
      --iterations 3; the card against the CPU at GS_SMALL on the same
      draws (losses within GS_LOSS_RTOL, the last render at >=
      GS_RENDER_PSNR); no kernel launch counter may move in the phase;
+  5i. the 3D-GAN training phase (gan_phase): apps/train_gan.py's
+     full-width PanoHead config (z/w 512, 512^2, mask_dual D with the
+     segmentation branch, bf16 blocks at the top 4 resolutions, nrr 64,
+     batch 4, --aug fixed --ada_p 0.2) on seeded random weights and a
+     synthetic zip of 16 images and segmentations: 5 steps (G
+     regularisation on steps 0 and 4, R1 on step 0), each step's G and D
+     halves by CUDA events, host wall, losses (finite; R1 > 0 on step 0),
+     peak memory, one profiled step's busy share; EG3D (dual D) for 2
+     steps; train_gan --smoke on the card (snapshot, fakes) and a --resume
+     of its snapshot restoring the train state bit for bit; the smoke
+     step's losses and gradients on the card against the CPU (GAN_LOSS_RTOL,
+     GAN_GRAD_TOL); no kernel launch counter may move in the phase;
   6. prints the per-frame and per-step times, stage splits, each kernel's
      time beside its plain version's and its bound, peak device memory,
      then a JSON line of per-kernel results, the card's name and power
@@ -196,6 +208,10 @@ GS_CAPACITY, GS_POINTS, GS_VIEWS, GS_STEPS = 2 ** 20, 100_000, 8, 3
 GS_SMALL = dict(capacity=2 ** 14, size=128, points=2_000)
 GS_LOSS_RTOL = 1e-3    # card vs CPU losses, relative
 GS_RENDER_PSNR = 35.0  # card vs CPU final render, dB over [0, 1]
+# the 3D-GAN training phase (5i): train_gan's full-width config, cut in steps
+GAN_STEPS, GAN_EG3D_STEPS, GAN_IMAGES, GAN_BATCH, GAN_ADA_P = 5, 2, 16, 4, 0.2
+GAN_LOSS_RTOL = 1e-4   # card vs CPU smoke losses and metrics, relative
+GAN_GRAD_TOL = 1e-2    # card vs CPU smoke gradients, of each tensor's CPU max |g|
 
 # the card's published peaks (H100 SXM data sheet, dense), for the bounds.
 # "tf32x3" is f32 accuracy on the tensor cores: each f32 product as three
@@ -443,11 +459,13 @@ def blend_v3_counter(pallas_blend):
     return FormCount(pallas_blend.blend_tiles, "launches_packed_v3")
 
 
-def hold_decode(torch, rows_k, rows_p, real, cw, cam, label, rows_limit=1e-2):
+def hold_decode(torch, rows_k, rows_p, real, cw, cam, label, rows_limit=1e-2,
+                conic_b_limit=2e-2):
     """Hold a decode kernel's rows (K2, K8, K9) against a reference's on the
     real columns; pad columns must not be visible. rows_limit: the rows'
-    worst row-relative gap (hold_chain_gap sets it from the staging's own
-    sound references). -> max |d| of the rows compared."""
+    worst row-relative gap, conic_b_limit conic_b's (hold_chain_gap sets
+    both, hold_cross_route the first, from the staging's own sound
+    references). -> max |d| of the rows compared."""
     from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads
     pr = pallas_heads.PROJ_ROWS
     require(bool(torch.isfinite(rows_k).all()), f"{label}: non-finite rows")
@@ -479,10 +497,12 @@ def hold_decode(torch, rows_k, rows_p, real, cw, cam, label, rows_limit=1e-2):
     # conic_b = -cov_b / det is the near-cancelling off-diagonal of nearly
     # isotropic Gaussians: the chain rows' gap (bf16 flips from the f32
     # summation order, up to 1e-2 of their scale) reads larger at its
-    # smaller scale. Its limit is twice the chain rows'; a sign error
-    # reads 2, a dropped term ~1. The projection witness holds the
-    # kernel's own conic math to f32 rounding.
-    require(own_b <= 2e-2, f"{label}: conic_b disagrees: {own_b:.3e} of its row max")
+    # smaller scale. Its limit is twice the chain rows' (or derived from
+    # its own sound references); a sign error reads 2, a dropped term ~1.
+    # The projection witness holds the kernel's own conic math to f32
+    # rounding.
+    require(own_b <= conic_b_limit, f"{label}: conic_b disagrees: {own_b:.3e} of its row "
+            f"max (limit {conic_b_limit:.3e})")
     require(proj_worst <= 1e-3, f"{label}: screen rows are not the projection of its "
             f"head rows: {dp.tolist()}")
     require(float(rad_d.max()) <= 1.0 and float((rad_d == 0).float().mean()) >= 0.999,
@@ -551,6 +571,7 @@ def chain_rows(torch, staging, cw, cam, acc, hidden_bits=7):
 
 
 CHAIN_TAIL = 1e-3   # a chain hold's tail: points beyond this share of a row's scale
+CHAIN_GAPS = []     # each chain_gap_limits call's readings, for scripts/decode_hold_spread.py
 
 
 def chain_gap_limits(torch, label, floor, reading, kernel, control):
@@ -573,6 +594,9 @@ def chain_gap_limits(torch, label, floor, reading, kernel, control):
           f"{int((floor > CHAIN_TAIL).sum())} points above {CHAIN_TAIL:g}; limits: worst "
           f"{limit:.3e}, tail {tail} points; kernel worst {k_worst:.3e}, tail {k_tail}; "
           f"6-bit control worst {c_worst:.3e}, tail {c_tail}")
+    CHAIN_GAPS.append(dict(label=label, floor=float(floor.max()), limit=limit, tail_limit=tail,
+                           kernel=k_worst, kernel_tail=k_tail, control=c_worst,
+                           control_tail=c_tail))
     require(c_worst > limit or c_tail > tail,
             f"{label}: the 6-bit control passes the limits: they cannot see a bit's loss")
     require(k_tail <= tail, f"{label}: {k_tail} points beyond {CHAIN_TAIL:g} of a row's scale "
@@ -594,7 +618,9 @@ def hold_chain_gap(torch, rows_k, rows_p, staging, real, cw, cam, label):
     1.43e-2 on EG3D's; scripts/dots_gap.py). staging: the plain version's
     (bf16 values). The limits (chain_gap_limits) come from the plain
     version's gap to chain_rows with f64 sums on it; hold_decode holds the
-    worst row at that limit. -> hold_decode's max |d|."""
+    worst row at that limit, and conic_b at twice the plain version's
+    conic_b gap to the same reference (at least 2e-2). -> hold_decode's
+    max |d|."""
     from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads as ph
     cols = _gap_cols(ph)
     st = staging.float()
@@ -608,8 +634,15 @@ def hold_chain_gap(torch, rows_k, rows_p, staging, real, cw, cam, label):
         torch, label, gaps(rows_p, ref),
         lambda r: (float(gaps(r, rows_p).max()), int((gaps(r, ref) > CHAIN_TAIL).sum())),
         rows_k, ctl)
+    # conic_b's limit from the same references: twice the plain version's
+    # conic_b gap to the f64-sum chain, at least the fixed 2e-2 it had
+    floor_b = float(point_gaps(torch, rows_p, ref, real, [ph.PROJ_ROWS["conic_b"]]).max())
+    b_limit = max(2e-2, 2.0 * floor_b)
+    CHAIN_GAPS[-1]["conic_b_limit"] = b_limit
+    print(f"{label}: conic_b, plain vs the f64-sum chain {floor_b:.3e}; limit {b_limit:.3e}")
     del ref, ctl
-    return hold_decode(torch, rows_k, rows_p, real, cw, cam, label, rows_limit=limit)
+    return hold_decode(torch, rows_k, rows_p, real, cw, cam, label, rows_limit=limit,
+                       conic_b_limit=b_limit)
 
 
 def hold_heads_gap(torch, o_k, o_p, staging, cw, M, label):
@@ -648,6 +681,17 @@ def slab_staging(torch, cw, vol, scales, ctx):
         st[:, 0:ph.C] = ph._round_to(fm, ph.chain_dtype(cw))
         out.append(st)
     return torch.cat(out, dim=0)
+
+
+def fused_staging(torch, cw, aux, rows_in, wts, scale_rows, lerp="bcast"):
+    """decode_project_fused_plain's staging: aux with the plain fused
+    features rounded to the chain's dtype -> (Mpad, 128) f32 of those
+    values."""
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads as ph
+    st = aux.float()
+    st[:, 0:ph.C] = ph._round_to(ph.fused_features_plain(rows_in, wts, scale_rows, lerp),
+                                 ph.chain_dtype(cw))
+    return st
 
 
 def hold_cross_route(torch, dec, weights, planes, rows_slab, ctx, pos, cam, label):
@@ -1478,7 +1522,9 @@ def brick_phase(torch, dec, weights, planes, rows_slab, ctx, template, cam, cp, 
         rows_k = ph.decode_project(cw, staging, cam, M)
         rows_p = ph.decode_project_plain(cw, staging, cam, M)
         torch.cuda.synchronize()
-        err = hold_decode(torch, rows_k, rows_p, real, cw, cam, f"K8 brick decode (Mpad {Mpad})")
+        # the plain version's staging is the kernel's input itself
+        err = hold_chain_gap(torch, rows_k, rows_p, staging, real, cw, cam,
+                             f"K8 brick decode (Mpad {Mpad})")
         ms, plain_ms = paired_ms(torch, lambda: ph.decode_project(cw, staging, cam, M),
                                  lambda: ph.decode_project_plain(cw, staging, cam, M), 3)
         print(f"K8 brick decode: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
@@ -1496,7 +1542,9 @@ def brick_phase(torch, dec, weights, planes, rows_slab, ctx, template, cam, cp, 
         f_k = ph.decode_project_fused(cw, aux, rows_in, wts, scale_rows, cam, M)
         f_p = ph.decode_project_fused_plain(cw, aux, rows_in, wts, scale_rows, cam, M)
         torch.cuda.synchronize()
-        err = hold_decode(torch, f_k, f_p, real, cw, cam, "K9 fused decode")
+        st = fused_staging(torch, cw, aux, rows_in, wts, scale_rows)
+        err = hold_chain_gap(torch, f_k, f_p, st, real, cw, cam, "K9 fused decode")
+        del st
         ms, plain_ms = paired_ms(
             torch, lambda: ph.decode_project_fused(cw, aux, rows_in, wts, scale_rows, cam, M),
             lambda: ph.decode_project_fused_plain(cw, aux, rows_in, wts, scale_rows, cam, M),
@@ -1654,8 +1702,9 @@ def eg3d_phase(torch, seed, results):
         rows_p = ph.decode_project_slab_plain(cw, vol, scales, ctx, cam)
         torch.cuda.synchronize()
         v = ctx.valid > 0
-        err = hold_decode(torch, rows_k, rows_p, v, cw, cam,
-                          f"K2 bilinear slab decode (vol {tuple(vol.shape)})")
+        st = slab_staging(torch, cw, vol, scales, ctx)
+        err = hold_chain_gap(torch, rows_k, rows_p, st, v, cw, cam,
+                             f"K2 bilinear slab decode (vol {tuple(vol.shape)})")
         require(bool((rows_k[16:28, ~v][[5, 10, 11]] == 0).all()),
                 "K2 bilinear: pad slots not culled")
         ms, plain_ms = paired_ms(torch, lambda: ph.decode_project_slab(cw, vol, scales, ctx, cam),
@@ -1677,10 +1726,6 @@ def eg3d_phase(torch, seed, results):
         # version's features gives K2's rows bit for bit on the real slots,
         # so K2's features are the plain version's and the gap above is the
         # chain's summation order
-        st = ctx.aux.float()
-        st[:, :ph.C] = ph._bf16r(ph.slab_features_plain(
-            vol, scales, ctx.positions, ctx.idx16, st[:, ph.VALID_COL].clone(), ctx.inv_axes,
-            ctx.box_warp, ctx.sizes))
         rows_w = ph.decode_project(cw, st.to(torch.bfloat16).contiguous(), cam, ctx.m_padded)
         same = torch.equal(rows_k[:, v], rows_w[:, v])
         print(f"K2 bilinear: rows bit-identical to K8's on the plain features: {same}")
@@ -1697,7 +1742,9 @@ def eg3d_phase(torch, seed, results):
         f_k = ph.decode_project_fused(cw, aux, rows_in, wts, scale_rows, cam, M)
         f_p = ph.decode_project_fused_plain(cw, aux, rows_in, wts, scale_rows, cam, M)
         torch.cuda.synchronize()
-        err = hold_decode(torch, f_k, f_p, real, cw, cam, "K9 tri-plane fused decode")
+        st = fused_staging(torch, cw, aux, rows_in, wts, scale_rows)
+        err = hold_chain_gap(torch, f_k, f_p, st, real, cw, cam, "K9 tri-plane fused decode")
+        del st
         ms, plain_ms = paired_ms(
             torch, lambda: ph.decode_project_fused(cw, aux, rows_in, wts, scale_rows, cam, M),
             lambda: ph.decode_project_fused_plain(cw, aux, rows_in, wts, scale_rows, cam, M), 3)
@@ -3073,6 +3120,302 @@ def gs3d_phase(torch, seed):
     require(not moved, f"5h: a kernel launched on the 3DGS path: {moved}")
 
 
+def gan_label(yaw, pitch=0.0, radius=2.7):
+    """A 25-value camera label: a cam2world looking at the origin from
+    (yaw, pitch) at radius, and EG3D's normalised intrinsics."""
+    import math
+    eye = radius * np.array([math.sin(yaw) * math.cos(pitch), math.sin(pitch),
+                             math.cos(yaw) * math.cos(pitch)])
+    fwd = -eye / np.linalg.norm(eye)
+    right = np.cross(np.array([0.0, 1.0, 0.0]), fwd)
+    right /= np.linalg.norm(right)
+    up = np.cross(fwd, right)
+    pose = np.eye(4)
+    pose[:3, 0], pose[:3, 1], pose[:3, 2], pose[:3, 3] = right, -up, fwd, eye
+    return pose.reshape(-1).tolist() + [4.2647, 0, 0.5, 0, 4.2647, 0.5, 0, 0, 1]
+
+
+def gan_dataset(root, n, size, seed):
+    """A synthetic GAN dataset in root: imgs.zip (n RGB PNGs, seeded noise
+    blurred into blobs, with dataset.json camera labels on a yaw arc from
+    -150 to 150 degrees) and segs.zip (n grey PNGs, a disc) -> the two
+    paths."""
+    import io
+    import json as js
+    import zipfile
+    from PIL import Image
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size - 0.5
+    names = [f"img{i:05d}.png" for i in range(n)]
+    yaws = np.linspace(-2.6, 2.6, n)
+    labels = {"labels": [[nm, gan_label(y, 0.1 * rng.randn())] for nm, y in zip(names, yaws)]}
+
+    def png(arr, mode):
+        buf = io.BytesIO()
+        Image.fromarray(arr, mode).save(buf, format="PNG")
+        return buf.getvalue()
+
+    imgs, segs = os.path.join(root, "imgs.zip"), os.path.join(root, "segs.zip")
+    with zipfile.ZipFile(imgs, "w") as zi, zipfile.ZipFile(segs, "w") as zs:
+        for nm in names:
+            c = rng.rand(3)
+            r2 = (xx - 0.2 * rng.randn()) ** 2 + (yy - 0.2 * rng.randn()) ** 2
+            img = np.clip(c[None, None] * np.exp(-r2 / 0.05)[..., None] * 255
+                          + rng.rand(size, size, 3) * 20, 0, 255).astype(np.uint8)
+            zi.writestr(nm, png(img, "RGB"))
+            zs.writestr(nm, png(((r2 < 0.1) * 255).astype(np.uint8), "L"))
+        zi.writestr("dataset.json", js.dumps(labels))
+    return imgs, segs
+
+
+def gan_steps(torch, argv, steps, label):
+    """train_gan's networks, config, augment and dataset for argv, at full
+    width on the card; `steps` steps (the first warms up nothing: its time
+    is printed apart), one warm step with both regularisations, then one
+    more under torch.profiler. Each step's G and D halves by CUDA events at
+    the step's stage marks, its host wall, its losses; peak memory; the
+    profiled step's device time. -> dict."""
+    from gaussian_gan_decoder_tpu_torch.apps import train_gan
+    from gaussian_gan_decoder_tpu_torch.train.gan import init_gan_state, make_gan_train_step
+    from gaussian_gan_decoder_tpu_torch.utils.draws import TorchDraws
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda:0")
+    args = train_gan.build_argparser().parse_args(argv)
+    G, D, G_ema, nrr = train_gan.build_networks(args, dev)
+    cfg = train_gan.loss_config(args, nrr)
+    state = init_gan_state(G, D, G_ema, cfg)
+    step = make_gan_train_step(G, D, cfg, augment_fn=train_gan.augment_for(args))
+    batches = train_gan.real_batches(args, D.img_resolution, args.batch)
+    rng = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    draws = TorchDraws(rng, dev)
+    n_g = sum(t.numel() for t in G.parameters())
+    n_d = sum(t.numel() for t in D.parameters())
+    print(f"5i {label}: G {n_g / 1e6:.2f} M parameters (img {G.img_resolution}^2, w {G.w_dim}, "
+          f"nrr {nrr}, bf16 blocks {G.config.num_fp16_res}), D {n_d / 1e6:.2f} M ({D.mode}, "
+          f"{D.img_resolution}^2), batch {args.batch}, aug {args.aug} p {args.ada_p}")
+
+    def one(i, prof=False):
+        img, seg, lab = next(batches)
+        real = train_gan.real_images(img, seg, nrr, dev)
+        z = torch.randn((img.shape[0], G.z_dim), generator=rng, device=dev)
+        c = torch.from_numpy(lab).to(dev)
+        ev = {}
+
+        def mark(name):
+            ev[name] = torch.cuda.Event(enable_timing=True)
+            ev[name].record()
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        _, metrics = step(state, draws, z, c, real, c, stage_timer=mark)
+        mark("end")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        m = {k: float(v) for k, v in metrics.items()}
+        return dict(step=i, wall=wall, g=ev["G"].elapsed_time(ev["D"]),
+                    d=ev["D"].elapsed_time(ev["ema"]), ema=ev["ema"].elapsed_time(ev["end"]),
+                    total=ev["start"].elapsed_time(ev["end"]), metrics=m,
+                    g_reg=i % cfg.g_reg_interval == 0, d_reg=i % cfg.d_reg_interval == 0)
+
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i in range(steps):
+        r = one(i)
+        rows.append(r)
+        print(f"5i {label} step {i} (G reg {r['g_reg']}, R1 {r['d_reg']}): G half "
+              f"{r['g']:.3f} ms, D half {r['d']:.3f} ms, EMA {r['ema']:.3f} ms device (events); "
+              f"{r['total']:.3f} ms device, {r['wall']:.3f} ms host wall; "
+              + ", ".join(f"{k} {v:.5g}" for k, v in r["metrics"].items()))
+        require(all(np.isfinite(v) for v in r["metrics"].values()),
+                f"5i {label}: step {i} has a non-finite loss: {r['metrics']}")
+        if r["d_reg"]:
+            require(r["metrics"]["Loss/r1_penalty"] > 0, f"5i {label}: R1 is 0 on step {i}")
+        if r["g_reg"] and cfg.density_reg > 0:
+            require(r["metrics"]["Loss/G/reg"] > 0, f"5i {label}: G reg is 0 on step {i}")
+    # the first step pays the first calls' costs (the R1 double backward's
+    # above all): a lazy step with R1 once more, warm (the step counter at
+    # d_reg_interval, where both regularisations run)
+    at, state.step = state.step, cfg.d_reg_interval
+    r = one(cfg.d_reg_interval)
+    state.step = at + 1
+    print(f"5i {label} warm step with G reg and R1: G half {r['g']:.3f} ms, D half "
+          f"{r['d']:.3f} ms device (events), {r['wall']:.3f} ms host wall; R1 "
+          f"{r['metrics']['Loss/r1_penalty']:.5g}")
+    require(all(np.isfinite(v) for v in r["metrics"].values()),
+            f"5i {label}: the warm R1 step has a non-finite loss: {r['metrics']}")
+    warm_reg = r
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one(state.step)
+        torch.cuda.synchronize()
+    on_card = sorted(((e.self_device_time_total / 1e3, e.key) for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_ms = sum(t for t, _ in on_card)
+    return dict(rows=rows, warm_reg=warm_reg, peak=peak, busy_ms=busy_ms, on_card=on_card,
+                state=state)
+
+
+def gan_report(rows, busy_ms, peak, label):
+    """Median G / D halves and host wall of the steps with and without
+    lazy regularisation (the first step apart), the busy share."""
+    def med(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2] if xs else float("nan")
+
+    later = rows[1:]
+    reg = [r for r in later if r["g_reg"] or r["d_reg"]]
+    plain = [r for r in later if not (r["g_reg"] or r["d_reg"])]
+    for name, rs in (("with regularisation", reg), ("without", plain)):
+        if rs:
+            print(f"5i {label} {name} ({len(rs)} steps): G half {med([r['g'] for r in rs]):.3f} "
+                  f"ms, D half {med([r['d'] for r in rs]):.3f} ms device (events), host wall "
+                  f"{med([r['wall'] for r in rs]):.3f} ms a step")
+    host = med([r["wall"] for r in plain or later])
+    print(f"5i {label}: first step {rows[0]['wall']:.1f} ms host wall (G reg and R1); peak "
+          f"{peak:.3f} GiB; profiled step {busy_ms:.3f} ms of device time, busy "
+          f"{busy_ms / host:.3f} of the median host-wall step ({host:.3f} ms)")
+    return host
+
+
+def gan_card_vs_cpu(torch, seed):
+    """The --smoke G and D, with the same weights and draws on the CPU and
+    on the card: the G loss and the D loss at step 0 (the density term,
+    the camera-translation term and R1 on), their metrics and every
+    gradient. -> the worst relative loss gap and the worst gradient gap
+    (each tensor's max |d| over its CPU max |g|)."""
+    from gaussian_gan_decoder_tpu_torch.apps import train_gan
+    from gaussian_gan_decoder_tpu_torch.train import gan
+    from gaussian_gan_decoder_tpu_torch.utils.draws import TorchDraws
+    args = train_gan.build_argparser().parse_args(["--smoke", "--batch", "2", "--seed",
+                                                   str(seed)])
+    rng = np.random.RandomState(seed)
+    data = dict(z=rng.randn(2, 32), c=rng.randn(2, 25) * 0.1,
+                image=rng.rand(2, 3, 16, 16) * 2 - 1, image_raw=rng.rand(2, 3, 16, 16) * 2 - 1,
+                image_mask=rng.rand(2, 1, 16, 16))
+    data = {k: torch.tensor(v.astype(np.float32)) for k, v in data.items()}
+    out = {}
+    for name in ("cpu", "cuda:0"):
+        dev = torch.device(name)
+        G, D, _, nrr = train_gan.build_networks(args, dev)
+        cfg = train_gan.loss_config(args, nrr)
+        step = gan.make_gan_train_step(G, D, cfg)
+        d = {k: v.to(dev) for k, v in data.items()}
+        real = {k: d[k] for k in ("image", "image_raw", "image_mask")}
+        res = {}
+        for phase, net in (("G", G), ("D", D)):
+            tensors = gan.trained_tensors(net)
+            for t in tensors:
+                t.requires_grad_(True)
+            draws = TorchDraws(torch.Generator().manual_seed(seed + 5), dev)
+            if phase == "G":
+                loss, m = step.g_loss(draws, d["z"], d["c"], 0.0, True)
+            else:
+                loss, m = step.d_loss(draws, d["z"], d["c"], real, d["c"], 0.0, True)
+            grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+            res[phase] = (float(loss.detach()), {k: float(v) for k, v in m.items()},
+                          [None if g is None else g.detach().cpu() for g in grads])
+        out[name] = res
+    loss_gap, grad_gap = 0.0, 0.0
+    for phase in ("G", "D"):
+        (lc, mc, gc), (lg, mg, gg) = out["cpu"][phase], out["cuda:0"][phase]
+        loss_gap = max([loss_gap, abs(lg - lc) / abs(lc)]
+                       + [abs(mg[k] - v) / max(abs(v), 1e-3) for k, v in mc.items()])
+        for a, b in zip(gg, gc):
+            if a is not None and b is not None and float(b.abs().max()) > 0:
+                grad_gap = max(grad_gap, float((a - b).abs().max() / b.abs().max()))
+            else:
+                require((a is None) == (b is None), "5i card vs CPU: a gradient is missing")
+        print(f"5i card vs CPU, smoke {phase} loss at step 0: card {lg:.7f}, CPU {lc:.7f}; "
+              + ", ".join(f"{k} {mg[k]:.6g}/{v:.6g}" for k, v in mc.items()))
+    return loss_gap, grad_gap
+
+
+def gan_phase(torch, seed):
+    """5i: 3D-GAN training (apps/train_gan.py) at full width on the card:
+    the PanoHead config (z/w 512, 512^2 images, mask_dual D with its
+    segmentation branch, bf16 blocks at the top 4 resolutions, neural
+    rendering 64, batch 4, --aug fixed --ada_p 0.2) on seeded random
+    weights and a synthetic zip of GAN_IMAGES 512^2 images and
+    segmentations, GAN_STEPS steps (steps 0 and 4 run the G
+    regularisation, step 0 R1) and one profiled step; EG3D (dual D, no
+    segmentation) for GAN_EG3D_STEPS steps; the app (--smoke) writing its
+    snapshot and fakes, and a --resume of the snapshot restoring the whole
+    train state; the --smoke step's losses and gradients on the card
+    against the CPU. No kernel launches: the JAX package runs no Pallas
+    kernel on this path either."""
+    import tempfile
+    from gaussian_gan_decoder_tpu_torch.apps import train_gan
+    from gaussian_gan_decoder_tpu_torch.train.gan import init_gan_state
+    before = launch_counts()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        imgs, segs = gan_dataset(os.path.join(work, "data"), GAN_IMAGES, IMAGE, seed + 41)
+        print(f"5i dataset: {GAN_IMAGES} {IMAGE}^2 images and segmentations written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        common = ["--batch", str(GAN_BATCH), "--aug", "fixed", "--ada_p", str(GAN_ADA_P),
+                  "--seed", str(seed + 41), "--data", imgs]
+        pano = gan_steps(torch, common + ["--seg_data", segs], GAN_STEPS, "PanoHead")
+        gan_report(pano["rows"], pano["busy_ms"], pano["peak"], "PanoHead")
+        print("5i PanoHead profiled step, largest: "
+              + "; ".join(f"{k[:48]} {t:.3f} ms" for t, k in pano["on_card"][:5]))
+        del pano
+        torch.cuda.empty_cache()
+        eg3d = gan_steps(torch, common + ["--variant", "eg3d"], GAN_EG3D_STEPS, "EG3D")
+        gan_report(eg3d["rows"], eg3d["busy_ms"], eg3d["peak"], "EG3D")
+        del eg3d
+        torch.cuda.empty_cache()
+
+        # -- the app on the card: snapshot, fakes, resume ----------------------
+        t0 = time.perf_counter()
+        out = train_gan.main(["--smoke", "--kimg", "0.004", "--batch", "2",
+                              "--outdir", os.path.join(work, "app")])
+        app_s = time.perf_counter() - t0
+        snap = os.path.join(work, "app", "snapshot_final")
+        require(out["state"].step == 2 and os.path.isfile(snap) and len(out["fakes"]) == 2
+                and all(os.path.isfile(p) for p in out["fakes"]),
+                f"5i: train_gan wrote {os.listdir(os.path.join(work, 'app'))}")
+        args = train_gan.build_argparser().parse_args(["--smoke"])
+        G, D, G_ema, nrr = train_gan.build_networks(args, torch.device("cuda:0"))
+        fresh = train_gan.resume(snap, init_gan_state(G, D, G_ema,
+                                                      train_gan.loss_config(args, nrr)))
+        same = all(torch.equal(getattr(fresh, n).state_dict()[k],
+                               getattr(out["state"], n).state_dict()[k])
+                   for n in ("G", "D", "G_ema") for k in getattr(fresh, n).state_dict())
+        same_opt = all(torch.equal(getattr(fresh, o).state_dict()["state"][i][m],
+                                   getattr(out["state"], o).state_dict()["state"][i][m])
+                       for o in ("g_opt", "d_opt")
+                       for i in getattr(fresh, o).state_dict()["state"]
+                       for m in getattr(fresh, o).state_dict()["state"][i])
+        print(f"5i train_gan --smoke --kimg 0.004 on the card: {app_s:.2f} s host wall, "
+              f"snapshot {os.path.getsize(snap)} bytes, fakes "
+              f"{[os.path.basename(p) for p in out['fakes']]}; --resume restores G, D, G_ema "
+              f"bit for bit: {same}, both Adams: {same_opt}, step {fresh.step}, cur_nimg "
+              f"{fresh.cur_nimg}")
+        require(same and same_opt and fresh.step == 2 and fresh.cur_nimg == 4.0,
+                "5i: the resumed train state differs from the saved one")
+        out2 = train_gan.main(["--smoke", "--kimg", "0.002", "--batch", "2", "--resume", snap,
+                               "--outdir", os.path.join(work, "app2")])
+        require(out2["state"].step == 3, "5i: the resumed run did not go on from step 2")
+        del out, out2, fresh
+
+    # -- the smoke step on the card against the CPU ------------------------------
+    loss_gap, grad_gap = gan_card_vs_cpu(torch, seed)
+    print(f"5i card vs CPU: losses and metrics worst relative {loss_gap:.3e} (limit "
+          f"{GAN_LOSS_RTOL:g}); gradients worst {grad_gap:.3e} of each tensor's CPU max "
+          f"(limit {GAN_GRAD_TOL:g})")
+    require(loss_gap <= GAN_LOSS_RTOL, f"5i: card and CPU losses differ by {loss_gap:.3e}")
+    require(grad_gap <= GAN_GRAD_TOL, f"5i: card and CPU gradients differ by {grad_gap:.3e}")
+    after = launch_counts()
+    moved = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+    print(f"5i: {time.perf_counter() - t_phase:.1f} s host wall; kernel launches in the phase: "
+          f"{moved or 'none'}")
+    require(not moved, f"5i: a kernel launched on the GAN path: {moved}")
+
+
 def generation_phase(torch, seed, card):
     """5g: the GAN side and the generation apps on the PanoHead flagship
     generator at full width (z/w 512, 256^2 tri-grid of depth 3, neural
@@ -3412,7 +3755,10 @@ def main(argv=None) -> int:
         rows_p = pallas_heads.decode_project_slab_plain(weights.chain, vol, scales, ctx, cam)
         torch.cuda.synchronize()
         v = ctx.valid > 0
-        k2_err = hold_decode(torch, rows_k, rows_p, v, weights.chain, cam, "K2 slab decode")
+        st = slab_staging(torch, weights.chain, vol, scales, ctx)
+        k2_err = hold_chain_gap(torch, rows_k, rows_p, st, v, weights.chain, cam,
+                                "K2 slab decode")
+        del st
         ms, plain_ms = paired_ms(
             torch, lambda: pallas_heads.decode_project_slab(weights.chain, vol, scales, ctx, cam),
             lambda: pallas_heads.decode_project_slab_plain(weights.chain, vol, scales, ctx, cam),
@@ -3586,6 +3932,9 @@ def main(argv=None) -> int:
 
     # -- the classic 3DGS phase: train_3dgs / render_3dgs / full_eval_3dgs ---
     gs3d_phase(torch, args.seed)
+
+    # -- the 3D-GAN training phase: train_gan at full width, the app, card vs CPU
+    gan_phase(torch, args.seed)
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

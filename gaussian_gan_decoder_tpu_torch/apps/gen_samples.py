@@ -13,9 +13,9 @@ written as seedNNNN_<view>.png (PIL) or .png.npy (without PIL); --shapes
 adds the density grid as seedNNNN.mrc. --smoke takes the JAX app's tiny
 random generator instead of a pickle.
 
-z is drawn by torch.Generator().manual_seed(seed): JAX's threefry stream
-cannot be reproduced without jax, so a seed gives another head than the
-JAX app's. The view draws (numpy RandomState(seed)) are the JAX app's.
+z is the JAX app's jax.random.normal(PRNGKey(seed), (1, z_dim)), drawn by
+the port's numpy threefry (utils/jax_random.py), so a seed gives the JAX
+app's head. The view draws (numpy RandomState(seed)) are the JAX app's.
 """
 from __future__ import annotations
 
@@ -76,6 +76,7 @@ def main(argv=None):
     import torch
 
     from ..flagship import resolve_device
+    from ..utils.jax_random import seed_normal
     from ..utils.loggers import write_image
 
     dev = resolve_device("cpu" if args.force_cpu else "cuda")
@@ -89,7 +90,7 @@ def main(argv=None):
     out = {"images": [], "shapes": []}
     with torch.no_grad():
         for seed in [int(s) for s in args.seeds.split(",")]:
-            z = torch.randn((1, gen.z_dim), generator=torch.Generator().manual_seed(seed)).to(dev)
+            z = torch.from_numpy(seed_normal(seed, (1, gen.z_dim))).to(dev)
             rnd = np.random.RandomState(seed)
             if args.random_views > 0:
                 views = [((-45 + 90 * rnd.random_sample()) / 180 * math.pi,

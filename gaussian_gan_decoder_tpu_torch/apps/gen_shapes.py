@@ -11,9 +11,9 @@ single-stage marching tetrahedra at --level, welded into <out>.ply.
 --checkpoint takes a decoder snapshot's frozen generator (its fine-tuned
 copy when the snapshot holds none).
 
-z is drawn by torch.Generator().manual_seed(seed): JAX's threefry stream
-cannot be reproduced without jax, so a seed gives another head than the
-JAX app's.
+z is the JAX app's jax.random.normal(PRNGKey(seed), (1, z_dim)), drawn by
+the port's numpy threefry (utils/jax_random.py), so a seed gives the JAX
+app's head.
 """
 from __future__ import annotations
 
@@ -70,6 +70,7 @@ def main(argv=None):
     import torch
 
     from ..flagship import resolve_device
+    from ..utils.jax_random import seed_normal
 
     dev = resolve_device("cpu" if args.force_cpu else "cuda")
     if args.network_pkl:
@@ -82,7 +83,7 @@ def main(argv=None):
         decoder, configs = load_decoder(args.checkpoint, device=dev)
         gen = configs.get("frozen_G", decoder.G)
     gen.eval()
-    z = torch.randn((1, gen.z_dim), generator=torch.Generator().manual_seed(args.seed)).to(dev)
+    z = torch.from_numpy(seed_normal(args.seed, (1, gen.z_dim))).to(dev)
     return export_shape(gen, z, args.out, args.shape_res, args.level, args.truncation_psi)
 
 

@@ -16,9 +16,11 @@ decodes and renders them (decoder/snapshot.py render_with_decoder):
 tile rasterizer in plain PyTorch. Frames are frame_NNNNN.png (PIL) or
 .png.npy, and video.mp4 when imageio and ffmpeg are there.
 
-z is drawn by torch.Generator().manual_seed(seed), and each frame's target
-draws by torch.Generator().manual_seed(frame): JAX's threefry stream cannot
-be reproduced without jax, so a seed gives another head than the JAX app's.
+z is the JAX app's jax.random.normal(PRNGKey(seed), (z_dim,)), drawn by the
+port's numpy threefry (utils/jax_random.py), so a seed gives the JAX app's
+head. Each frame's target draws come from torch.Generator().manual_seed(frame),
+where the JAX app's sample_target takes PRNGKey(frame) (the tests inject
+JAX's draws there).
 """
 from __future__ import annotations
 
@@ -53,9 +55,11 @@ def build_argparser():
 
 
 def seed_latents(seeds, z_dim: int):
-    """(K, z_dim) CPU latents, one torch.Generator().manual_seed(s) each."""
+    """(K, z_dim) CPU latents, jax.random.normal(PRNGKey(s), (z_dim,)) each."""
     import torch
-    return torch.stack([torch.randn((z_dim,), generator=torch.Generator().manual_seed(s))
+
+    from ..utils.jax_random import seed_normal
+    return torch.stack([torch.from_numpy(seed_normal(s, (z_dim,)))
                         for s in seeds])
 
 

@@ -20,7 +20,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops import activation_funcs, bias_act, modulated_conv2d, setup_filter, upsample2d
+from ..ops import (activation_funcs, bias_act, conv2d_resample, modulated_conv2d, setup_filter,
+                   upsample2d)
 
 
 def normalize_2nd_moment(x, dim=-1, eps=1e-8):
@@ -56,6 +57,38 @@ class FullyConnectedLayer(nn.Module):
             b = b * self.lr_multiplier
         x = x @ w.t()
         return bias_act(x, b, dim=x.ndim - 1, act=self.activation)
+
+
+class Conv2dLayer(nn.Module):
+    """Plain (unmodulated) conv with optional FIR up/downsampling, the
+    discriminator's layer (ref networks_stylegan2.py Conv2dLayer): weight
+    gain 1/sqrt(fan_in), the weight cast to x's dtype (bf16 blocks), bias,
+    activation, and a clamp scaled by the gain."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, bias=True, activation="linear",
+                 up=1, down=1, resample_filter=(1, 3, 3, 1), conv_clamp=None, generator=None,
+                 device=None):
+        super().__init__()
+        self.activation = activation
+        self.up, self.down = up, down
+        self.conv_clamp = conv_clamp
+        self.padding = kernel_size // 2
+        self.weight_gain = 1.0 / math.sqrt(in_channels * kernel_size ** 2)
+        self.register_buffer("resample_filter",
+                             setup_filter(list(resample_filter), device=device),
+                             persistent=False)
+        self.weight = nn.Parameter(_randn(
+            (out_channels, in_channels, kernel_size, kernel_size), generator, device))
+        self.bias = nn.Parameter(torch.zeros(out_channels, device=device)) if bias else None
+
+    def forward(self, x, gain=1.0):
+        w = self.weight * self.weight_gain
+        x = conv2d_resample(x, w.to(x.dtype), f=self.resample_filter, up=self.up,
+                            down=self.down, padding=self.padding,
+                            flip_weight=(self.up == 1))
+        act_gain = None if gain == 1.0 else activation_funcs[self.activation][2] * gain
+        act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
+        return bias_act(x, self.bias, act=self.activation, gain=act_gain, clamp=act_clamp)
 
 
 class MappingNetwork(nn.Module):

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from .upfirdn2d import _get_filter_size, _parse_padding, upfirdn2d
 
 
-def _conv2d(x, w, padding=(0, 0, 0, 0), flip_weight=True):
+def _conv2d(x, w, padding=(0, 0, 0, 0), flip_weight=True, stride=1):
     """NCHW conv; padding (py0, py1, px0, px1). flip_weight=True is a plain
     correlation (torch conv2d)."""
     if not flip_weight and (w.shape[2] > 1 or w.shape[3] > 1):
@@ -25,7 +25,7 @@ def _conv2d(x, w, padding=(0, 0, 0, 0), flip_weight=True):
     if py0 != py1 or px0 != px1:
         x = F.pad(x, [px0, px1, py0, py1])
         py0 = px0 = 0
-    return F.conv2d(x, w.to(x.dtype), padding=(py0, px0))
+    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=(py0, px0))
 
 
 def conv2d_resample(
@@ -35,11 +35,21 @@ def conv2d_resample(
     up: int = 1,
     padding=0,
     flip_weight: bool = True,
+    down: int = 1,
 ) -> torch.Tensor:
-    """2D conv with optional FIR upsampling; padding is w.r.t. the upsampled
-    image and applied once up front (the synthesis never downsamples)."""
+    """2D conv with optional FIR upsampling or downsampling; padding is
+    w.r.t. the upsampled image and applied once up front. down > 1 (the
+    discriminator's) filters and pads, then runs a strided weight conv."""
     fw, fh = _get_filter_size(f)
     px0, px1, py0, py1 = _parse_padding(padding)
+    if down > 1:
+        assert up == 1, "the port resamples one way a conv"
+        px0 += (fw - down + 1) // 2
+        px1 += (fw - down) // 2
+        py0 += (fh - down + 1) // 2
+        py1 += (fh - down) // 2
+        x = upfirdn2d(x, f, padding=[px0, px1, py0, py1])
+        return _conv2d(x, w, flip_weight=flip_weight, stride=down)
     if up > 1:
         px0 += (fw + up - 1) // 2
         px1 += (fw - up) // 2

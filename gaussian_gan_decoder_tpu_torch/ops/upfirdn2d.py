@@ -100,13 +100,18 @@ def upfirdn2d(
     f = f.to(x.dtype)
     if not flip_filter:
         f = f.flip(list(range(f.ndim)))
+    # one filter for every channel: the channels go into the batch and the
+    # conv has one input channel. This is the depthwise conv's result bit
+    # for bit, and its double backward (R1 through the discriminator) stays
+    # one conv, where a grouped conv's runs one conv a group.
+    Hp, Wp = x.shape[2], x.shape[3]
+    x = x.reshape(B * C, 1, Hp, Wp)
     if f.ndim == 2:
-        w = f[None, None].repeat(C, 1, 1, 1)
-        x = F.conv2d(x, w, groups=C)
+        x = F.conv2d(x, f[None, None])
     else:
-        w = f[None, None].repeat(C, 1, 1)
-        x = F.conv2d(x, w.unsqueeze(3), groups=C)   # vertical taps
-        x = F.conv2d(x, w.unsqueeze(2), groups=C)   # horizontal taps
+        x = F.conv2d(x, f[None, None, :, None])   # vertical taps
+        x = F.conv2d(x, f[None, None, None, :])   # horizontal taps
+    x = x.reshape(B, C, x.shape[2], x.shape[3])
     return x[:, :, ::downy, ::downx]
 
 
@@ -123,3 +128,30 @@ def upsample2d(x, f, up=2, padding=0, flip_filter=False, gain=1.0):
     ]
     return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
                      gain=gain * upx * upy)
+
+
+def filter2d(x, f, padding=0, flip_filter=False, gain=1.0):
+    """Shape-preserving FIR filter (reference filter2d padding rule)."""
+    padx0, padx1, pady0, pady1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = [
+        padx0 + fw // 2,
+        padx1 + (fw - 1) // 2,
+        pady0 + fh // 2,
+        pady1 + (fh - 1) // 2,
+    ]
+    return upfirdn2d(x, f, padding=p, flip_filter=flip_filter, gain=gain)
+
+
+def downsample2d(x, f, down=2, padding=0, flip_filter=False, gain=1.0):
+    """FIR downsample by `down` (reference downsample2d padding rule)."""
+    downx, downy = _parse_scaling(down)
+    padx0, padx1, pady0, pady1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = [
+        padx0 + (fw - downx + 1) // 2,
+        padx1 + (fw - downx) // 2,
+        pady0 + (fh - downy + 1) // 2,
+        pady1 + (fh - downy) // 2,
+    ]
+    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter, gain=gain)

@@ -55,6 +55,13 @@ def load_generator_state(generator: torch.nn.Module, state: State) -> None:
     generator.load_state_dict(_tensors(_read(state), module=generator), strict=True)
 
 
+def load_discriminator_state(discriminator: torch.nn.Module, state: State) -> None:
+    """Load a reference-named discriminator state dict (b{res}, sb{res},
+    mapping, b4: the JAX package's D param tree flattened with dots, or a
+    GAN pickle's D) into a Discriminator, strictly."""
+    discriminator.load_state_dict(_tensors(_read(state), module=discriminator), strict=True)
+
+
 def load_vgg16_lpips_state(vgg: torch.nn.Module, state: State) -> None:
     """Load torchvision-named VGG16 weights (`features.{idx}.weight/bias`,
     the names VGG16LPIPS.load_torch_state_dict reads on the JAX side; an

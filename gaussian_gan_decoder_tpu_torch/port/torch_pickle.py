@@ -13,10 +13,11 @@ torch.
 
 From the stubs come reference-named flat state dicts (extract_state, the
 static FIR filters dropped: the port's modules derive them from their
-geometry) and the port's configs (generator_config_from_pickle); the state
-dicts load strictly through port/from_jax's loaders. The discriminator and
-full-GAN-snapshot loaders, and the TensorFlow pickles of
-port/tf_legacy.py, are ROADMAP queue A item A8.
+geometry) and the port's configs (generator_config_from_pickle,
+discriminator_config_from_pickle); the state dicts load strictly through
+port/from_jax's loaders. A full GAN training snapshot ({G, D, G_ema,
+augment_pipe}) loads through load_gan_snapshot_pkl. The TensorFlow
+pickles of port/tf_legacy.py are ROADMAP queue A item A8.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from ..decoder.heads import CHAIN, HIDDEN, GaussianDecoder, GaussianDecoderConfig
+from ..models.discriminator import DiscriminatorConfig
 from ..models.triplane import TriPlaneGenerator, TriPlaneGeneratorConfig, _frozen_items
 from .from_jax import load_decoder_state, load_generator_state
 
@@ -207,3 +209,74 @@ def load_decoder_pkl(path_or_file, key: str = "decoder", device="cuda"
     state = {k: v for k, v in extract_state(d).items() if k.startswith("G.") or _is_head(k)}
     load_decoder_state(decoder, state)
     return decoder, state
+
+
+# -- discriminators and full GAN snapshots (ref training_loop.py:430-444
+# pickles {'G', 'D', 'G_ema', 'augment_pipe'}; :160-166 resumes from one)
+
+_DISC_MODES = {"SingleDiscriminator": "single", "DualDiscriminator": "dual",
+               "MaskDualDiscriminator": "mask_dual"}
+
+
+def discriminator_config_from_pickle(d_stub: PersistentStub) -> DiscriminatorConfig:
+    """The port's discriminator config from the pickled constructor
+    arguments (ref dual_discriminator.py; positional c_dim, img_resolution,
+    img_channels[, seg_resolution, seg_channels])."""
+    cls = d_stub.class_name.rsplit(".", 1)[-1]
+    mode = _DISC_MODES.get(cls)
+    if mode is None:
+        raise ValueError(f"unsupported discriminator class {cls}")
+    kw = dict(d_stub.init_kwargs)
+    names = ["c_dim", "img_resolution", "img_channels"]
+    if mode == "mask_dual":
+        names += ["seg_resolution", "seg_channels"]
+    pos = dict(zip(names, d_stub.init_args))
+
+    def get(k, default):
+        return pos.get(k, kw.get(k, default))
+
+    ep = dict(kw.get("epilogue_kwargs", {}))
+    return DiscriminatorConfig(
+        c_dim=get("c_dim", 25), img_resolution=get("img_resolution", 512),
+        img_channels=get("img_channels", 3), mode=mode,
+        architecture=kw.get("architecture", "resnet"),
+        channel_base=kw.get("channel_base", 32768), channel_max=kw.get("channel_max", 512),
+        num_fp16_res=kw.get("num_fp16_res", 4), conv_clamp=kw.get("conv_clamp", 256),
+        cmap_dim=kw.get("cmap_dim"), disc_c_noise=float(kw.get("disc_c_noise", 0.0)),
+        seg_resolution=get("seg_resolution", 64), seg_channels=get("seg_channels", 1),
+        mbstd_group_size=ep.get("mbstd_group_size", 4))
+
+
+def discriminator_params_from_state(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A pickled discriminator's flat state (extract_state) -> the state
+    dict the port's Discriminator loads: its names (b{res}, sb{res},
+    mapping, b4) are the reference module tree's, so this is the same dict
+    with the static filters left out."""
+    return {k: v for k, v in flat.items() if not k.endswith(_FILTER_SUFFIXES)}
+
+
+def load_gan_snapshot_pkl(path_or_file) -> Dict[str, Any]:
+    """A reference GAN training snapshot -> {'G': TriPlaneGeneratorConfig,
+    'g_params', 'g_ema': reference-named state dicts, 'D':
+    DiscriminatorConfig or None, 'd_params': state dict or None}, as the
+    JAX loader returns them (G_ema's weights stand for G's when the
+    snapshot has no G, and G's for G_ema's). Accepts a path, a file or an
+    already-unpickled snapshot dict."""
+    data = (path_or_file if isinstance(path_or_file, dict)
+            else load_reference_pickle(path_or_file))
+    if not isinstance(data, dict):
+        raise ValueError(f"a GAN snapshot is a dict, not a {type(data).__name__}")
+    g = data.get("G") or data.get("G_ema")
+    if not isinstance(g, PersistentStub):
+        raise ValueError("the snapshot has no generator")
+    out: Dict[str, Any] = {"G": generator_config_from_pickle(g),
+                           "g_params": extract_state(g)}
+    ema = data.get("G_ema")
+    out["g_ema"] = extract_state(ema) if isinstance(ema, PersistentStub) else out["g_params"]
+    d = data.get("D")
+    if isinstance(d, PersistentStub):
+        out["D"] = discriminator_config_from_pickle(d)
+        out["d_params"] = discriminator_params_from_state(extract_state(d))
+    else:
+        out["D"], out["d_params"] = None, None
+    return out

@@ -2,7 +2,8 @@
 
 Three formats, as in the JAX package:
   1. a train state (`save` / `restore`): the decoder's parameters and
-     buffers, the Adam moments and `step`, in one torch.save file, plus a
+     buffers, the Adam moments and `step` (or a GAN train state's G, D,
+     G_ema, both Adams, `step` and `cur_nimg`), in one torch.save file, plus a
      JSON snapshot of the dataclass configs beside it (<path>.config.json)
      that rebuilds every config (`load_configs`);
   2. a flat .npz of the decoder's parameters (`save_npz` / `load_npz`),
@@ -81,11 +82,17 @@ def _write(path: str, payload) -> None:
 
 def save(path: str, state, configs: Optional[Dict[str, Any]] = None) -> None:
     """Write a train state (train/distill.py TrainState: decoder weights,
-    optimizer state, step) or a mapping of state dicts to `path`
+    optimizer state, step; train/gan.py GANTrainState) or a mapping of
+    state dicts to `path`
     (torch.save, CPU tensors), and the configs as JSON to
     <path>.config.json."""
     path = os.path.abspath(path)
-    if hasattr(state, "optimizer"):
+    if hasattr(state, "g_opt"):
+        payload = {"G": state.G.state_dict(), "D": state.D.state_dict(),
+                   "G_ema": state.G_ema.state_dict(), "g_opt": state.g_opt.state_dict(),
+                   "d_opt": state.d_opt.state_dict(), "step": int(state.step),
+                   "cur_nimg": float(state.cur_nimg)}
+    elif hasattr(state, "optimizer"):
         payload = {"decoder": state.decoder.state_dict(),
                    "optimizer": state.optimizer.state_dict(), "step": int(state.step)}
     else:
@@ -97,12 +104,19 @@ def save(path: str, state, configs: Optional[Dict[str, Any]] = None) -> None:
 
 
 def restore(path: str, state=None):
-    """Read what `save` wrote. Given a train state, load the decoder weights
-    (strictly) and the optimizer state into it in place, set its step and
+    """Read what `save` wrote. Given a train state, load the weights
+    (strictly) and the optimizer states into it in place, set its step and
     return it; otherwise return the stored mapping (CPU tensors)."""
     payload = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
     if state is None:
         return payload
+    if hasattr(state, "g_opt"):
+        for name in ("G", "D", "G_ema"):
+            getattr(state, name).load_state_dict(payload[name], strict=True)
+        state.g_opt.load_state_dict(payload["g_opt"])
+        state.d_opt.load_state_dict(payload["d_opt"])
+        state.step, state.cur_nimg = int(payload["step"]), float(payload["cur_nimg"])
+        return state
     state.decoder.load_state_dict(payload["decoder"], strict=True)
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])

@@ -951,3 +951,60 @@ def test_gs3d_step_card_vs_cpu(cuda):
     assert float((gg - gc).abs().max()) <= 1e-4 * float(gc.abs().max()) and gc.max() > 0
     for name, a, b in zip(gs.PARAMS, mg, mc):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
+
+
+def test_gan_step_card_vs_cpu(cuda):
+    """train_gan's --smoke G and D (PanoHead, mask_dual D) with the same
+    weights and draws on the card and on the CPU: the G loss and the D loss
+    at step 0 (density TV, camera translation and R1 on) within 1e-4
+    relative, every gradient within 1e-2 of that tensor's largest CPU
+    gradient (f32 sums in another order, through the renderer and R1's
+    double backward); then one whole step on the card, its losses finite.
+    The path is plain PyTorch, as JAX's is XLA: no kernel launches."""
+    from gaussian_gan_decoder_tpu_torch.apps import train_gan
+    from gaussian_gan_decoder_tpu_torch.train import gan
+    from gaussian_gan_decoder_tpu_torch.utils.draws import TorchDraws
+
+    def counts():
+        mods = (pallas_mapping, pallas_heads, pallas_expand, pallas_blend)
+        return {(m.__name__, n, k): v for m in mods for n, f in vars(m).items()
+                if callable(f) for k, v in getattr(f, "__dict__", {}).items()
+                if k.startswith("launches")}
+
+    args = train_gan.build_argparser().parse_args(["--smoke", "--batch", "2"])
+    rng = np.random.RandomState(0)
+    data = {k: torch.tensor(v.astype(np.float32)) for k, v in dict(
+        z=rng.randn(2, 32), c=rng.randn(2, 25) * 0.1, image=rng.rand(2, 3, 16, 16) * 2 - 1,
+        image_raw=rng.rand(2, 3, 16, 16) * 2 - 1, image_mask=rng.rand(2, 1, 16, 16)).items()}
+    before, out = counts(), []
+    for dev in (torch.device("cpu"), cuda):
+        G, D, G_ema, nrr = train_gan.build_networks(args, dev)
+        cfg = train_gan.loss_config(args, nrr)
+        step = gan.make_gan_train_step(G, D, cfg)
+        d = {k: v.to(dev) for k, v in data.items()}
+        real = {k: d[k] for k in ("image", "image_raw", "image_mask")}
+        res = []
+        for phase, net in (("G", G), ("D", D)):
+            tensors = gan.trained_tensors(net)
+            for t in tensors:
+                t.requires_grad_(True)
+            draws = TorchDraws(torch.Generator().manual_seed(5), dev)
+            if phase == "G":
+                loss, _ = step.g_loss(draws, d["z"], d["c"], 0.0, True)
+            else:
+                loss, _ = step.d_loss(draws, d["z"], d["c"], real, d["c"], 0.0, True)
+            grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+            res.append((float(loss.detach()), [None if g is None else g.cpu() for g in grads]))
+        out.append(res)
+        if dev.type == "cuda":
+            state = gan.init_gan_state(G, D, G_ema, cfg)
+            _, metrics = step(state, TorchDraws(torch.Generator().manual_seed(6), dev), d["z"],
+                              d["c"], real, d["c"])
+            assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert counts() == before
+    for (lc, gc), (lg, gg) in zip(*out):
+        assert abs(lg - lc) <= 1e-4 * abs(lc)
+        for a, b in zip(gg, gc):
+            assert (a is None) == (b is None)
+            if b is not None and float(b.abs().max()) > 0:
+                assert float((a - b).abs().max()) <= 1e-2 * float(b.abs().max())
