@@ -88,9 +88,11 @@ Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
      GELU) and D-seq (sequential heads: the real camera at the mapping;
      bf16, "poly"): each route's decode kernel against its plain version
      (the f32 forms of K2, K8, K9 for D-par; the bf16 forms on the
-     sequential chain for D-seq), 1 + OPT_FRAMES frames on the slab, table
-     and fused routes with each form's own launch counter, each first frame
-     against the route's all-plain frame, FRAMES profiled frames; D-seq's K1
+     sequential chain for D-seq, each at the limits hold_chain_gap derives
+     from the route's own plain staging), 1 + OPT_FRAMES frames on the
+     slab, table and fused routes with each form's own launch counter, each
+     first frame against the route's all-plain frame, FRAMES profiled
+     frames; D-seq's K1
      on the real camera bit for bit; apply_packed with K6's bf16 form (the
      flagship decoder, its heads seeded, held at limits derived from the
      staging's sound references with a 6-bit control: hold_heads_gap) and
@@ -159,6 +161,18 @@ Builds the port's CUDA kernels from gaussian_gan_decoder_tpu_torch/csrc/
      of its snapshot restoring the train state bit for bit; the smoke
      step's losses and gradients on the card against the CPU (GAN_LOSS_RTOL,
      GAN_GRAD_TOL); no kernel launch counter may move in the phase;
+  5j. random noise, PTI inversion and the metrics (gen_metrics_phase):
+     5g's generator with noise_mode 'random' and the SR stack's random
+     noise, the card against the CPU on the same draws; apps/invert at full
+     width on a copy of it (20 + 10 steps: ms a step, busy share, peak memory; the smoke
+     size card against CPU); decoder-FID (metrics/metric_main.
+     decoder_image_batches, the 'xla' rasterizer) on 5g's flagship
+     snapshot, 1 + 3 frames with the counters at 0 first, K1, K6's bf16
+     form and K10's probe table in every frame, the first frame against
+     its plain-kernel frame on 200k points at >= 50 dB, then
+     apps/calc_metrics --checkpoint FID and KID over 16 items; InceptionV3
+     at 299^2; FID, KID and PR card against CPU; calc_mbs; the
+     equivariance metrics of a StyleGAN3 generator at 256^2;
   6. prints the per-frame and per-step times, stage splits, each kernel's
      time beside its plain version's and its bound, peak device memory,
      then a JSON line of per-kernel results, the card's name and power
@@ -177,6 +191,7 @@ which times K3-K5 of this or another checkout on them.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import os
@@ -459,12 +474,11 @@ def blend_v3_counter(pallas_blend):
     return FormCount(pallas_blend.blend_tiles, "launches_packed_v3")
 
 
-def hold_decode(torch, rows_k, rows_p, real, cw, cam, label, rows_limit=1e-2,
-                conic_b_limit=2e-2):
+def hold_decode(torch, rows_k, rows_p, real, cw, cam, label, rows_limit, conic_b_limit):
     """Hold a decode kernel's rows (K2, K8, K9) against a reference's on the
     real columns; pad columns must not be visible. rows_limit: the rows'
-    worst row-relative gap, conic_b_limit conic_b's (hold_chain_gap sets
-    both, hold_cross_route the first, from the staging's own sound
+    worst row-relative gap, conic_b_limit conic_b's (hold_chain_gap and
+    hold_cross_route derive both from the staging's own sound
     references). -> max |d| of the rows compared."""
     from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads
     pr = pallas_heads.PROJ_ROWS
@@ -574,7 +588,7 @@ CHAIN_TAIL = 1e-3   # a chain hold's tail: points beyond this share of a row's s
 CHAIN_GAPS = []     # each chain_gap_limits call's readings, for scripts/decode_hold_spread.py
 
 
-def chain_gap_limits(torch, label, floor, reading, kernel, control):
+def chain_gap_limits(torch, label, floor, reading, kernel, control, record=None):
     """The limits of a bf16 chain's hold, from the gap of two sound
     computations of the same chain (the plain version, f32 sums, and the
     chain with f64 sums), and the check that they can see a bit's loss.
@@ -586,7 +600,7 @@ def chain_gap_limits(torch, label, floor, reading, kernel, control):
     control (the plain chain with its hidden activations rounded to 6
     stored mantissa bits in place of bf16's 7) must fail them; the kernel's
     tail must pass (each reading printed). -> (the worst limit, the
-    kernel's worst)."""
+    kernel's worst). record: more readings for its CHAIN_GAPS entry."""
     limit = max(1e-2, 2.0 * float(floor.max()))
     tail = 2 * int((floor > CHAIN_TAIL).sum()) + 100
     (k_worst, k_tail), (c_worst, c_tail) = reading(kernel), reading(control)
@@ -596,7 +610,7 @@ def chain_gap_limits(torch, label, floor, reading, kernel, control):
           f"6-bit control worst {c_worst:.3e}, tail {c_tail}")
     CHAIN_GAPS.append(dict(label=label, floor=float(floor.max()), limit=limit, tail_limit=tail,
                            kernel=k_worst, kernel_tail=k_tail, control=c_worst,
-                           control_tail=c_tail))
+                           control_tail=c_tail, **(record or {})))
     require(c_worst > limit or c_tail > tail,
             f"{label}: the 6-bit control passes the limits: they cannot see a bit's loss")
     require(k_tail <= tail, f"{label}: {k_tail} points beyond {CHAIN_TAIL:g} of a row's scale "
@@ -610,6 +624,31 @@ def _gap_cols(ph):
     return [r for r in list(range(0, 14)) + list(range(16, 26)) if r != cb]
 
 
+HEAD_COLS = list(range(0, 14))   # the head rows, where a fault of a route's lerp shows first
+
+
+def gap_at(torch, rows_a, rows_b, real, cols):
+    """Where point_gaps' largest gap over the rows cols lies -> (row, index
+    among the real columns: the template point on the brick routes, the
+    slot order's on the slab route)."""
+    b = rows_b[cols][:, real]
+    d = (rows_a[cols][:, real] - b).abs() / b.abs().amax(dim=1, keepdim=True).clamp(min=1e-3)
+    i = int(d.argmax())
+    return cols[i // d.shape[1]], i % d.shape[1]
+
+
+def conic_b_limit(torch, pairs, real, label):
+    """conic_b's limit from sound references: twice the largest conic_b gap
+    of the (plain, reference) pairs, at least the fixed 2e-2 it had
+    (printed) -> the limit."""
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads as ph
+    cb = [ph.PROJ_ROWS["conic_b"]]
+    floor_b = max(float(point_gaps(torch, p, r, real, cb).max()) for p, r in pairs)
+    limit = max(2e-2, 2.0 * floor_b)
+    print(f"{label}: conic_b, the sound references' largest gap {floor_b:.3e}; limit {limit:.3e}")
+    return limit
+
+
 def hold_chain_gap(torch, rows_k, rows_p, staging, real, cw, cam, label):
     """Hold a bf16 decode kernel's rows against its plain version's where
     the staging makes the bf16 chain's rounding flips large (the gap of two
@@ -618,28 +657,37 @@ def hold_chain_gap(torch, rows_k, rows_p, staging, real, cw, cam, label):
     1.43e-2 on EG3D's; scripts/dots_gap.py). staging: the plain version's
     (bf16 values). The limits (chain_gap_limits) come from the plain
     version's gap to chain_rows with f64 sums on it; hold_decode holds the
-    worst row at that limit, and conic_b at twice the plain version's
-    conic_b gap to the same reference (at least 2e-2). -> hold_decode's
-    max |d|."""
+    worst row at that limit and conic_b at conic_b_limit's. Prints where
+    the floor's and the kernel's worst lie (row, real column), the
+    kernel's gap to the f64-sum chain there (near 0 where the plain
+    version's own rounding flip sets the worst: then the kernel is right
+    and the reading is the plain version's) and the head rows' 0:14
+    readings alone. -> hold_decode's max |d|."""
     from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads as ph
     cols = _gap_cols(ph)
     st = staging.float()
     ref = chain_rows(torch, st, cw, cam, torch.float64)
     ctl = chain_rows(torch, st, cw, cam, torch.float32, hidden_bits=6)
 
-    def gaps(a, b):
-        return point_gaps(torch, a, b, real, cols)
+    def gaps(a, b, c=cols):
+        return point_gaps(torch, a, b, real, c)
 
+    b_limit = conic_b_limit(torch, [(rows_p, ref)], real, label)
+    head_floor = float(gaps(rows_p, ref, HEAD_COLS).max())
+    head_kernel = float(gaps(rows_k, rows_p, HEAD_COLS).max())
+    floor_at = gap_at(torch, rows_p, ref, real, cols)
+    r, j = kernel_at = gap_at(torch, rows_k, rows_p, real, cols)
+    k_ref = float((rows_k[r][real][j] - ref[r][real][j]).abs()
+                  / rows_p[r][real].abs().max().clamp(min=1e-3))
     limit, _ = chain_gap_limits(
         torch, label, gaps(rows_p, ref),
-        lambda r: (float(gaps(r, rows_p).max()), int((gaps(r, ref) > CHAIN_TAIL).sum())),
-        rows_k, ctl)
-    # conic_b's limit from the same references: twice the plain version's
-    # conic_b gap to the f64-sum chain, at least the fixed 2e-2 it had
-    floor_b = float(point_gaps(torch, rows_p, ref, real, [ph.PROJ_ROWS["conic_b"]]).max())
-    b_limit = max(2e-2, 2.0 * floor_b)
-    CHAIN_GAPS[-1]["conic_b_limit"] = b_limit
-    print(f"{label}: conic_b, plain vs the f64-sum chain {floor_b:.3e}; limit {b_limit:.3e}")
+        lambda x: (float(gaps(x, rows_p).max()), int((gaps(x, ref) > CHAIN_TAIL).sum())),
+        rows_k, ctl,
+        record=dict(conic_b_limit=b_limit, floor_at=floor_at, kernel_at=kernel_at,
+                    kernel_ref_at=k_ref, head_floor=head_floor, head_kernel=head_kernel))
+    print(f"{label}: the floor's worst at row {floor_at[0]} column {floor_at[1]}, the "
+          f"kernel's at row {r} column {j} (there the kernel is {k_ref:.3e} from the f64-sum "
+          f"chain); head rows 0:14 alone: floor {head_floor:.3e}, kernel {head_kernel:.3e}")
     del ref, ctl
     return hold_decode(torch, rows_k, rows_p, real, cw, cam, label, rows_limit=limit,
                        conic_b_limit=b_limit)
@@ -701,7 +749,8 @@ def hold_cross_route(torch, dec, weights, planes, rows_slab, ctx, pos, cam, labe
     lerp of the same int8 values), so the limits (chain_gap_limits) come
     from both routes' sound references: per point, the larger of the gap
     of the plain chain on the brick staging to the f64-sum chain on the
-    slab staging and the gap the other way round. The control is the
+    slab staging and the gap the other way round; conic_b's limit is
+    twice the larger of those two gaps on conic_b, at least 2e-2. The control is the
     6-bit chain on the brick staging, the tail counted against the
     f64-sum chain on the slab staging. -> (the worst row-relative gap, the
     worst limit)."""
@@ -726,16 +775,20 @@ def hold_cross_route(torch, dec, weights, planes, rows_slab, ctx, pos, cam, labe
         return point_gaps(torch, a, b, real, cols)
 
     ref_s = chain_rows(torch, st_s, cw, cam, torch.float64)
-    floor = gaps(chain_rows(torch, st_b, cw, cam, torch.float32), ref_s)
-    floor = torch.maximum(floor, gaps(chain_rows(torch, st_s, cw, cam, torch.float32),
-                                      chain_rows(torch, st_b, cw, cam, torch.float64)))
+    plain_b = chain_rows(torch, st_b, cw, cam, torch.float32)
+    plain_s = chain_rows(torch, st_s, cw, cam, torch.float32)
+    ref_b = chain_rows(torch, st_b, cw, cam, torch.float64)
+    floor = torch.maximum(gaps(plain_b, ref_s), gaps(plain_s, ref_b))
+    b_limit = conic_b_limit(torch, [(plain_b, ref_s), (plain_s, ref_b)], real, label)
+    del plain_b, plain_s, ref_b
     ctl = chain_rows(torch, st_b, cw, cam, torch.float32, hidden_bits=6)
     limit, worst = chain_gap_limits(
         torch, label, floor,
         lambda r: (float(gaps(r, rows_s).max()), int((gaps(r, ref_s) > CHAIN_TAIL).sum())),
-        rows_b, ctl)
+        rows_b, ctl, record=dict(conic_b_limit=b_limit))
     del ref_s, ctl, st_b, st_s
-    hold_decode(torch, rows_b, rows_s, real, cw, cam, label, rows_limit=limit)
+    hold_decode(torch, rows_b, rows_s, real, cw, cam, label, rows_limit=limit,
+                conic_b_limit=b_limit)
     return worst, limit
 
 
@@ -2039,7 +2092,6 @@ def decoder_options_phase(torch, seed, template, results):
         print(f"{label}: slab context {time.perf_counter() - t0:.2f} s host (staging "
               f"{ctx.aux.dtype}, P {dec.position_dim}); chain {cw.chain}")
         weights_of = (cw.w1, cw.b1, cw.w2, cw.b2, cw.w3, cw.b3, cw.w4, cw.b4, cw.meta)
-        hold = hold_decode if bf16 else hold_decode_f32
         kind = "bf16" if bf16 else "tf32x3"
         per_point = chain_flops(cw) + 150
         with torch.inference_mode():
@@ -2081,11 +2133,21 @@ def decoder_options_phase(torch, seed, template, results):
                           real, M * (per_point + 3 * 8 * 32 * 2),
                           (aux, *rows_in, wts, scale_rows)),
             }
+            # the bf16 holds' limits come from each route's own plain staging
+            # (hold_chain_gap); the fused route's with the lerp K9 runs here
+            stagings = {"slab": lambda: slab_staging(torch, cw, vol, scales, ctx),
+                        "table": lambda: staging,
+                        "fused": lambda: fused_staging(torch, cw, aux, rows_in, wts,
+                                                       scale_rows, "bcast")}
             for route, (kern, plain, real_r, flops, ins) in calls.items():
                 rows_k, rows_p = kern(), plain()
                 torch.cuda.synchronize()
-                err = hold(torch, rows_k, rows_p, real_r, cw, cam,
-                           f"{label} {names[route]} ({'bf16' if bf16 else 'f32'})")
+                hl = f"{label} {names[route]} ({'bf16' if bf16 else 'f32'})"
+                if bf16:
+                    err = hold_chain_gap(torch, rows_k, rows_p, stagings[route](), real_r, cw,
+                                         cam, hl)
+                else:
+                    err = hold_decode_f32(torch, rows_k, rows_p, real_r, cw, cam, hl)
                 ms, plain_ms = paired_ms(torch, kern, plain, 3)
                 b = bound(nbytes(*ins, *weights_of, rows_k), flops, kind)
                 print(f"{label} {names[route]}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -3623,6 +3685,350 @@ def generation_phase(torch, seed, card):
     return launches
 
 
+def device_busy_ms(torch, fn):
+    """fn() under torch.profiler -> the device time of its CUDA kernels (ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+class StepTimer:
+    """CUDA events at each step's end (an on_step hook): the ms of each
+    step after the first, by events."""
+
+    def __init__(self, torch):
+        self.torch, self.events = torch, []
+
+    def __call__(self, step):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+
+
+def gen_metrics_phase(torch, seed, card):
+    """5j: the random noise, PTI inversion and the metrics at full width on
+    seeded random weights: (a) 5g's PanoHead generator (its noise strengths
+    at 0.1) with noise_mode 'random' and superresolution_noise_mode
+    'random' (TorchDraws from a CPU generator, the same numbers on both
+    sides): one apply on the card
+    against the same call on the CPU (image by PSNR, image_raw by max abs),
+    'const' unchanged by the draws, bit for bit; (b) apps/invert.run on a
+    copy of it (PTI fine-tunes its generator; nrr 64, SR to 512^2, random VGG16, w_avg over 10,000 mappings, 20
+    projection + 10 PTI steps): ms a step by CUDA events, busy share, peak
+    memory, finite losses, the PTI loss falling; the smoke size card against
+    CPU; (c) decoder-FID (metrics/metric_main.decoder_image_batches) on
+    5g(c)'s flagship snapshot (pallas_mapping, int8 probe target, 500k
+    points, 512^2, the 'xla' rasterizer): 1 warm-up + 3 timed frames with
+    the counters at 0 first, K1, K6's bf16 form and K10p in every frame;
+    the first frame on its first 200k points against the same frame under
+    plain_kernels() at >= 50 dB; then apps/calc_metrics --checkpoint FID
+    and KID over 16 items against 5i's synthetic zip; (d) InceptionV3
+    features and logits at 299^2, batch 8: ms, card against CPU; (e) FID
+    (scipy, host), KID and PR on 64 fixed 2048-d features: the card against
+    the CPU; (f) calc_mbs at full width, n_sample 8; (g) the equivariance
+    metrics (int, frac, rot) of a Generator3 at the JAX dataclass defaults
+    (channel_base 32768, channel_max 512, 14 layers) at 256^2, batch 4, 8
+    samples: ms a metric, the card against the CPU on its image. ->
+    {kernel: decoder-FID launches}."""
+    import itertools
+    import math
+    import tempfile
+
+    from gaussian_gan_decoder_tpu_torch import flagship, metrics
+    from gaussian_gan_decoder_tpu_torch.apps import calc_mbs, calc_metrics, gen_samples, invert
+    from gaussian_gan_decoder_tpu_torch.decoder import pallas_heads
+    from gaussian_gan_decoder_tpu_torch.decoder.snapshot import (load_decoder, plain_kernels,
+                                                                 render_with_decoder,
+                                                                 save_decoder)
+    from gaussian_gan_decoder_tpu_torch.decoder.target_pipeline import (
+        TargetDraws, TargetSamplerConfig, sample_target)
+    from gaussian_gan_decoder_tpu_torch.metrics import equivariance, metric_main
+    from gaussian_gan_decoder_tpu_torch.models import pallas_mapping
+    from gaussian_gan_decoder_tpu_torch.models.stylegan3 import Generator3
+    from gaussian_gan_decoder_tpu_torch.neuralfield import pallas_expand
+    from gaussian_gan_decoder_tpu_torch.neuralfield.renderer import RenderDraws
+    from gaussian_gan_decoder_tpu_torch.train import inversion
+    from gaussian_gan_decoder_tpu_torch.utils import jax_random
+    from gaussian_gan_decoder_tpu_torch.utils.draws import TorchDraws
+
+    dev = torch.device("cuda:0")
+    gseed = seed + 31
+
+    def generator(device):
+        """5g's generator with every noise_strength at 0.1 (the init's 0
+        would scale the random noise away; a trained generator's are not 0)."""
+        g = flagship.flagship_generator(rng=torch.Generator().manual_seed(gseed), device=device)
+        with torch.no_grad():
+            for name, t in g.named_parameters():
+                if name.endswith("noise_strength"):
+                    t.fill_(0.1)
+        return g.eval()
+    gen = generator(dev)
+    nrr, S = 64, gen.rk["depth_resolution"]
+    rng = torch.Generator().manual_seed(seed + 41)
+    z = torch.randn((1, 512), generator=rng)
+    c = gen_samples.orbit_camera(math.pi / 2 + 0.3, math.pi / 2 - 0.1, 18.837)[0]
+    rd = RenderDraws.make(rng, 1, nrr * nrr, S, gen.rk["depth_resolution_importance"], "cpu")
+
+    # -- (a) noise_mode 'random' in the synthesis and the SR stack ----------
+    def apply(g, device, mode, noise_seed=None):
+        nd = (None if noise_seed is None
+              else TorchDraws(torch.Generator().manual_seed(noise_seed), device))
+        with torch.no_grad():
+            return g.apply(z.to(device), c.to(device), truncation_psi=0.7,
+                           neural_rendering_resolution=nrr, noise_mode=mode,
+                           draws=RenderDraws(rd.stratified.to(device), rd.importance.to(device)),
+                           noise_draws=nd)
+    const = apply(gen, dev, "const")
+    require(torch.equal(apply(gen, dev, "const", seed)["image"], const["image"]),
+            "5j(a) 'const' moved with the noise draws")
+    gen.rk["superresolution_noise_mode"] = "random"
+    out, a_ms, a_host = timed(torch, lambda: apply(gen, dev, "random", seed + 42))
+    require(all(bool(torch.isfinite(out[k]).all()) for k in ("image", "image_raw")),
+            "5j(a) random noise: non-finite image")
+    moved = float((out["image"] - const["image"]).abs().max())
+    cpu = generator("cpu")
+    cpu.rk["superresolution_noise_mode"] = "random"
+    t0 = time.perf_counter()
+    ref = apply(cpu, "cpu", "random", seed + 42)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    img_psnr = psnr((out["image"].cpu() + 1) / 2, (ref["image"] + 1) / 2)
+    raw_err = float((out["image_raw"].cpu() - ref["image_raw"]).abs().max())
+    print(f"5j(a) apply with noise_mode 'random' and SR noise 'random' (batch 1, nrr 64, SR to "
+          f"512^2): {a_ms:.3f} ms device, {a_host:.3f} ms host; the noise moves the image by "
+          f"{moved:.3e} max|d| from 'const' ('const' with the draws given: bit-identical); card "
+          f"vs CPU (the same weights and draws; CPU {cpu_s:.1f} s): image {img_psnr:.2f} dB "
+          f"(limit >= {APPLY_PSNR}), image_raw max|d| {raw_err:.3e} (limit <= {APPLY_RAW_ERR})")
+    require(moved > 1e-3, "5j(a) the random noise does not reach the image")
+    require(img_psnr >= APPLY_PSNR, f"5j(a) card and CPU images disagree: {img_psnr:.2f} dB")
+    require(raw_err <= APPLY_RAW_ERR, f"5j(a) card and CPU raw images disagree: {raw_err:.3e}")
+    gen.rk["superresolution_noise_mode"] = "none"
+    del out, ref, const
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- (b) PTI inversion at full width ---------------------------------
+        vgg = invert.make_vgg("", dev)
+        with torch.no_grad():
+            tz = torch.randn((1, 512), generator=rng).to(dev)
+            timg = gen.apply(tz, c.to(dev), truncation_psi=0.7, neural_rendering_resolution=nrr,
+                             draws=RenderDraws(rd.stratified.to(dev),
+                                               rd.importance.to(dev)))["image"]
+        target = ((timg[0].clamp(-1, 1) + 1) * 127.5).round()
+        cfg = inversion.ProjectConfig(num_steps=20, pti_steps=10, w_avg_samples=10_000,
+                            neural_rendering_resolution=nrr)
+        tp, tq = StepTimer(torch), StepTimer(torch)
+        # PTI fine-tunes the generator it is given: a copy, so that (c) and
+        # (f) run on 5g(c)'s seeded generator
+        pgen = copy.deepcopy(gen)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = invert.run(pgen, target, invert.frontal_label(dev), vgg, cfg,
+                         os.path.join(tmp, "pti"), seed, on_project_step=tp, on_pti_step=tq)
+        inv_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        p_ms, q_ms = tp.ms(), tq.ms()
+        losses, pti = res["losses"], res["pti_losses"]
+        busy = device_busy_ms(torch, lambda: inversion.project_pti(
+            pgen, res["w"], target, res["c"], vgg, jax_random.PRNGKey(seed + 2),
+            dataclasses.replace(cfg, pti_steps=2)))
+        q_med = sorted(q_ms)[len(q_ms) // 2]
+        print(f"5j(b) invert (nrr 64, SR to 512^2, random VGG16, w_avg over 10,000, 20 + 10 "
+              f"steps): {inv_s:.1f} s host wall (the two outputs written); projection step "
+              f"median {sorted(p_ms)[len(p_ms) // 2]:.3f} ms, PTI step median {q_med:.3f} ms "
+              f"(CUDA events between steps); 2 profiled PTI steps: {busy:.3f} ms device, busy "
+              f"{busy / (2 * q_med):.3f}; peak {peak:.2f} GiB; losses {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, PTI {pti[0]:.4f} -> {pti[-1]:.4f} ({card})")
+        require(np.isfinite(losses).all() and np.isfinite(pti).all(), "5j(b) a loss is not finite")
+        require(pti[-1] < pti[0], f"5j(b) the PTI loss did not fall: {pti[0]} -> {pti[-1]}")
+        require(os.path.exists(res["w_path"]) and os.path.exists(res["generator_path"]),
+                "5j(b) invert's outputs")
+        del res, vgg, tp, tq, pgen
+        torch.cuda.empty_cache()
+        # the smoke size, card against CPU: the same weights, target and draws
+        runs = {}
+        for device in ("cpu", dev):
+            sg = invert.smoke_generator(303, device)
+            scfg = inversion.ProjectConfig(num_steps=3, pti_steps=2, w_avg_samples=500,
+                                 neural_rendering_resolution=16)
+            tgt = torch.tensor(np.random.RandomState(seed).rand(3, 16, 16) * 255,
+                               dtype=torch.float32)
+            w, cadj, ls = inversion.project(
+                sg, tgt, invert.frontal_label(device), invert.make_vgg("", device),
+                jax_random.PRNGKey(seed), scfg,
+                draws=TorchDraws(torch.Generator().manual_seed(seed), device))
+            pl = inversion.project_pti(sg, w, tgt, cadj, invert.make_vgg("", device),
+                                       jax_random.PRNGKey(seed + 1), scfg,
+                                       draws=TorchDraws(torch.Generator().manual_seed(seed + 1),
+                                                        device))
+            runs[str(device)] = np.array(ls + pl)
+        inv_err = float(np.abs(runs["cpu"] - runs[str(dev)]).max() / np.abs(runs["cpu"]).max())
+        print(f"5j(b) invert at the smoke size (3 + 2 steps), card vs CPU losses: {inv_err:.3e} "
+              f"of the largest (limit 1e-4)")
+        require(inv_err <= 1e-4, f"5j(b) card and CPU inversion losses disagree: {inv_err:.3e}")
+
+        # -- (c) decoder-FID on 5g(c)'s flagship snapshot ---------------------
+        zd = torch.randn((1, 512), generator=torch.Generator().manual_seed(seed + 32)).to(dev)
+        level, _ = surface_level(torch, gen, zd, 128, 2 ** 20)
+        tcfg = TargetSamplerConfig(mc_level=level, int8_probe=True, pallas_probe_build=True)
+        snap = os.path.join(tmp, "snap")
+        dec = flagship.flagship_decoder(gen, rng=torch.Generator().manual_seed(seed + 33),
+                                        device=dev)
+        dec.config = dataclasses.replace(dec.config, pallas_mapping=True)
+        save_decoder(snap, dec, gen, target_cfg=tcfg)
+        del dec
+        dec, configs = load_decoder(snap, device=dev)
+        dec.eval()
+        frozen = configs["frozen_G"]
+        label = np.asarray([gan_label(0.4, 0.1)], np.float32)
+        key = jax_random.PRNGKey(1)
+        counters = {"mapping": (pallas_mapping.mapping_forward, "launches"),
+                    "heads_fwd_bf16": (pallas_heads.decode_heads, "launches_bf16"),
+                    "brick_table_probe": (pallas_expand.brick_table, "launches")}
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        stream = metric_main.decoder_image_batches(
+            dec, frozen, tcfg, key, itertools.repeat(label),
+            draws=TorchDraws(torch.Generator().manual_seed(seed + 43), dev))
+        seen, frame_ms, first = dict.fromkeys(counters, 0), [], None
+        for i in range(4):
+            img, d_ms, h_ms = timed(torch, lambda: next(stream))
+            for name, (fn, attr) in counters.items():
+                n = getattr(fn, attr)
+                require(n > seen[name], f"5j(c) {name} not launched in frame {i}")
+                seen[name] = n
+            require(tuple(img.shape) == (1, 3, IMAGE, IMAGE) and bool(torch.isfinite(img).all())
+                    and float(img.std()) > 1e-3, f"5j(c) frame {i}: bad image")
+            if i == 0:
+                first = img
+            else:
+                frame_ms.append((d_ms, h_ms))
+        fid_launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+        print(f"5j(c) decoder-FID frame (500k points, 512^2, 'xla' rasterizer; target with "
+              f"K10's int8 probe table, mapping K1, decode K6 bf16): "
+              + ", ".join(f"{d:.3f} ms device / {h:.3f} ms host" for d, h in frame_ms)
+              + f"; launches {fid_launches} in 4 frames ({card})")
+        # the first frame again: its draws, its target; kernels vs plain versions
+        td = TargetDraws.fixed_camera(TorchDraws(torch.Generator().manual_seed(seed + 43), dev)
+                                      .child("frame0"), frozen, tcfg, dev)
+        z0 = torch.from_numpy(jax_random.normal(
+            jax_random.fold_in(jax_random.fold_in(key, 0), 0), (1, frozen.z_dim))).to(dev)
+        cl = torch.tensor(label, device=dev)
+        with torch.no_grad():
+            t = sample_target(td, frozen, z0, camera_params=cl, cfg=tcfg)
+        fov = 2 * math.atan(0.5 / float(label[0, 16]))
+        n = 200_000
+
+        def hold():
+            return render_with_decoder(dec, z0, cl, cl[0, :16].reshape(4, 4), t.vertices[:n],
+                                       fov, backend="xla")[0]
+        full = render_with_decoder(dec, z0, cl, cl[0, :16].reshape(4, 4), t.vertices, fov,
+                                   backend="xla")[0]
+        same = psnr(torch.clamp(full * 255, 0, 255)[None] / 255, first / 255)
+        k_img = hold()
+        with plain_kernels():
+            p_img = hold()
+        torch.cuda.synchronize()
+        held = psnr(k_img, p_img)
+        print(f"5j(c) first frame rebuilt from its draws: {same:.2f} dB from the stream's; on "
+              f"its first {n} points, kernels vs plain versions of K1 and K6: {held:.2f} dB "
+              f"(limit >= 50 dB)")
+        require(same >= 50.0, f"5j(c) the rebuilt first frame differs: {same:.2f} dB")
+        require(held >= 50.0, f"5j(c) the frame disagrees with its plain version: {held:.2f} dB")
+        del dec, frozen, configs, first, full, k_img, p_img, t, stream
+        torch.cuda.empty_cache()
+        imgs, _ = gan_dataset(os.path.join(tmp, "data"), 16, 128, seed)
+        fk, fk_ms, fk_host = timed(torch, lambda: calc_metrics.main(
+            ["--checkpoint", snap, "--data", imgs, "--metrics", "fid50k_full,kid50k_full",
+             "--num_items", "16", "--batch", "4"]))
+        print(f"5j(c) calc_metrics --checkpoint (decoder-FID, 16 items against a synthetic zip, "
+              f"random VGG16 embedder): FID {fk['fid50k_full']:.4f}, KID "
+              f"{fk['kid50k_full']:.6f}; {fk_host / 1e3:.1f} s host")
+        require(all(np.isfinite(v) for v in fk.values()), "5j(c) calc_metrics: not finite")
+
+    # -- (d) InceptionV3 at 299^2, batch 8 ------------------------------------
+    net = metrics.InceptionV3(generator=torch.Generator().manual_seed(seed + 44), device=dev)
+    net.eval()
+    x = torch.rand((8, 3, 299, 299), generator=torch.Generator().manual_seed(seed + 45)) * 255
+    with torch.no_grad():
+        f_k = net.features(x.to(dev))
+        l_k = net.logits(x.to(dev))
+        f_ms = sorted(timed(torch, lambda: net.features(x.to(dev)))[1] for _ in range(3))[1]
+        l_ms = sorted(timed(torch, lambda: net.logits(x.to(dev)))[1] for _ in range(3))[1]
+        net_cpu = metrics.InceptionV3(generator=torch.Generator().manual_seed(seed + 44)).eval()
+        f_c, l_c = net_cpu.features(x), net_cpu.logits(x)
+    f_err = float((f_k.cpu() - f_c).abs().max() / f_c.abs().max())
+    l_err = float((l_k.cpu() - l_c).abs().max() / l_c.abs().max())
+    print(f"5j(d) InceptionV3 (299^2, batch 8, random weights): features {f_ms:.3f} ms, logits "
+          f"{l_ms:.3f} ms (CUDA events, median of 3); card vs CPU: features {f_err:.3e}, logits "
+          f"{l_err:.3e} of the largest (limit 1e-4)")
+    require(f_err <= 1e-4 and l_err <= 1e-4, "5j(d) Inception card and CPU disagree")
+    del net, net_cpu, x
+
+    # -- (e) FID, KID, PR on 64 fixed features --------------------------------
+    frng = np.random.RandomState(seed + 46)
+    real = frng.rand(64, 2048).astype(np.float32)
+    fake = (frng.rand(64, 2048) * 1.02 + 0.005).astype(np.float32)
+    kid_k, kid_c = (metrics.kid_from_features(real, fake, device=d) for d in (dev, "cpu"))
+    pr_k, pr_c = (metrics.precision_recall(real, fake, device=d) for d in (dev, "cpu"))
+    stats = [metrics.FeatureStats(max_items=64) for _ in range(2)]
+    stats[0].append(real)
+    stats[1].append(fake)
+    fid = metrics.fid_from_stats(*stats)
+    # KID sums 2 x 4096 f32 kernel values of ~2 a subset: an f32 ulp of the
+    # sums is ~5e-7 of the result's scale, whatever KID's own size
+    kid_err = abs(kid_k - kid_c)
+    print(f"5j(e) 64 fixed 2048-d features: FID {fid:.4f} (scipy on the host); KID card "
+          f"{kid_k:.8f} vs CPU {kid_c:.8f} (|d| {kid_err:.3e}, limit 1e-5); PR card {pr_k} vs "
+          f"CPU {pr_c}")
+    require(np.isfinite(fid) and kid_err <= 1e-5 and pr_k == pr_c,
+            "5j(e) the card's KID or PR disagrees with the CPU's")
+
+    # -- (f) calc_mbs at full width --------------------------------------------
+    mbs, m_ms, m_host = timed(torch, lambda: calc_mbs.mbs(gen, nrr, 8, 8))
+    print(f"5j(f) calc_mbs (full width, n_sample 8, batch 8, the gan mask): MBS {mbs} "
+          f"({m_ms:.3f} ms device, {m_host:.3f} ms host)")
+    require(np.isfinite(mbs), "5j(f) MBS is not finite")
+    del gen
+    torch.cuda.empty_cache()
+
+    # -- (g) equivariance of a Generator3 at the JAX dataclass defaults ---------
+    def g3(device):
+        return Generator3(512, 0, 512, 256, 3, generator=torch.Generator().manual_seed(seed + 47),
+                          device=device).eval()
+    G3 = g3(dev)
+    key = jax_random.PRNGKey(seed)
+    eq = {}
+    for name, flag in (("int", "compute_eqt_int"), ("frac", "compute_eqt_frac"),
+                       ("rot", "compute_eqr")):
+        (p,), e_ms, e_host = timed(torch, lambda: equivariance.compute_equivariance_metrics(
+            G3, key, num_samples=8, batch_size=4, **{flag: True}))
+        require(np.isfinite(p), f"5j(g) {name}: PSNR not finite")
+        eq[name] = (p, e_ms, e_host)
+    zg = torch.from_numpy(np.random.RandomState(seed).randn(1, 512).astype(np.float32))
+    with torch.no_grad():
+        img_k = G3(zg.to(dev)).cpu()
+        img_c = g3("cpu")(zg)
+    g_err = float((img_k - img_c).abs().max())
+    print("5j(g) equivariance (Generator3 256^2, 14 layers, channel_base 32768, batch 4, 8 "
+          "samples): " + "; ".join(f"{n} {p:.3f} dB in {d:.1f} ms device / {h:.1f} ms host"
+                                   for n, (p, d, h) in eq.items())
+          + f"; the generator's image card vs CPU max|d| {g_err:.3e} (largest "
+          f"{float(img_c.abs().max()):.3e}; limit 1e-3)")
+    require(g_err <= 1e-3, f"5j(g) Generator3 card and CPU disagree: {g_err:.3e}")
+    del G3
+    torch.cuda.empty_cache()
+    return fid_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3935,6 +4341,11 @@ def main(argv=None) -> int:
 
     # -- the 3D-GAN training phase: train_gan at full width, the app, card vs CPU
     gan_phase(torch, args.seed)
+
+    # -- 5j: random noise, PTI inversion, the metrics and decoder-FID, SG3 -----
+    t0 = time.perf_counter()
+    fid_launches = gen_metrics_phase(torch, args.seed, card)
+    print(f"5j: {time.perf_counter() - t0:.1f} s host wall; decoder-FID launches {fid_launches}")
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -127,6 +127,27 @@ class TargetDraws:
             host_camera=host)
 
 
+    @staticmethod
+    def fixed_camera(draws, gen, cfg: TargetSamplerConfig, device) -> "TargetDraws":
+        """The draws of a target at a caller's camera (sample_target's
+        camera_params; the camera draws are zeros, unread) from a draws
+        object (utils/draws.py), at the JAX package's sites: `render`
+        (stratified, then importance) and `surface` (face choice,
+        barycentric weights, thickness jitter)."""
+        rk, res, P = gen.rk, cfg.neural_rendering_resolution, cfg.num_points
+        rd, sd = draws.child("render"), draws.child("surface")
+
+        def mv(t):
+            return t.to(device)
+        return TargetDraws(
+            fov_u=torch.zeros((), device=device), cam_h=torch.zeros((1, 1), device=device),
+            cam_v=torch.zeros((1, 1), device=device),
+            render=RenderDraws(mv(rd.uniform((1, res * res, rk["depth_resolution"], 1))),
+                               mv(rd.uniform((res * res, rk["depth_resolution_importance"])))),
+            face_u=mv(sd.uniform((P,))), weight_u=mv(sd.uniform((P, 3))),
+            thickness_n=mv(sd.normal((P,))))
+
+
 def truncation_at(cfg: TargetSamplerConfig, iteration) -> float:
     """Linear truncation ramp (ref target_dataloader.py:82-86)."""
     mag = 1.0 if cfg.truncation_ramp == 0 else min(max(

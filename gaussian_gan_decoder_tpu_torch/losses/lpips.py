@@ -72,6 +72,13 @@ class VGG16LPIPS(nn.Module):
                           for f in self.tap_features(img)], dim=1)
 
 
+    def pooled_features(self, img: torch.Tensor) -> torch.Tensor:
+        """Resolution-independent (N, 1472) embedding: the global-average-
+        pooled unit-normalised taps, the fixed-width feature the GAN metrics
+        take without Inception weights (metrics/feature_stats.py)."""
+        return torch.cat([f.mean(dim=(2, 3)) for f in self.tap_features(img)], dim=1)
+
+
 def lpips_loss(vgg: VGG16LPIPS, target, image, downsampling: bool = True,
                dtype: Optional[torch.dtype] = None):
     """Area-pool to 256^2, map (img + 1) / 2 * 255 (the reference training

@@ -10,7 +10,12 @@ buffers.
 Compute policy is the JAX package's: blocks at resolution >= fp16_res run
 in bf16 (the reference's fp16 blocks), demodulation statistics and the
 ToRGB skip image stay f32. Initialisation draws from an explicit
-torch.Generator; the frame itself only uses noise_mode='const' or 'none'.
+torch.Generator. noise_mode is 'const', 'none' or 'random'; 'random' takes
+a draws object (utils/draws.py): the network asks `child("b{res}")` for
+each block in resolution order, a block `child("conv0")` / `child("conv1")`
+for each conv layer, and a layer draws its (N, 1, res, res) noise with one
+`normal` call in its dtype, scaled by noise_strength — the sites at which
+the JAX package splits its noise key.
 """
 from __future__ import annotations
 
@@ -163,12 +168,17 @@ class SynthesisLayer(nn.Module):
                                  _randn((resolution, resolution), generator, device))
             self.noise_strength = nn.Parameter(torch.zeros((), device=device))
 
-    def forward(self, x, w, noise_mode="const", gain=1.0):
-        if noise_mode not in ("const", "none"):
-            raise ValueError(f"noise_mode {noise_mode!r}: the port runs 'const' or 'none'")
+    def forward(self, x, w, noise_mode="const", gain=1.0, draws=None):
+        if noise_mode not in ("const", "none", "random"):
+            raise ValueError(f"noise_mode {noise_mode!r}: 'const', 'none' or 'random'")
         styles = self.affine(w)
         noise = None
-        if self.use_noise and noise_mode == "const":
+        if self.use_noise and noise_mode == "random":
+            if draws is None:
+                raise ValueError("noise_mode='random' needs draws")
+            shape = (x.shape[0], 1, self.resolution, self.resolution)
+            noise = draws.normal(shape, x.dtype).to(x.device) * self.noise_strength
+        elif self.use_noise and noise_mode == "const":
             noise = self.noise_const.to(x.dtype) * self.noise_strength
         x = modulated_conv2d(x, self.weight, styles, noise=noise, up=self.up,
                              padding=self.padding, resample_filter=self.resample_filter,
@@ -227,15 +237,19 @@ class SynthesisBlock(nn.Module):
         self.torgb = ToRGBLayer(out_channels, img_channels, w_dim, conv_clamp=conv_clamp,
                                 generator=generator, device=device)
 
-    def forward(self, x, img, ws, noise_mode="const", force_fp32=False):
+    def forward(self, x, img, ws, noise_mode="const", force_fp32=False, draws=None):
         dtype = torch.bfloat16 if (self.use_fp16 and not force_fp32) else torch.float32
+
+        def site(name):
+            return None if draws is None else draws.child(name)
+
         if self.in_channels == 0:
             x = self.const.to(dtype)[None].expand(ws.shape[0], -1, -1, -1)
-            x = self.conv1(x, ws[:, 0], noise_mode=noise_mode)
+            x = self.conv1(x, ws[:, 0], noise_mode=noise_mode, draws=site("conv1"))
             w_rgb = ws[:, 1]
         else:
-            x = self.conv0(x.to(dtype), ws[:, 0], noise_mode=noise_mode)
-            x = self.conv1(x, ws[:, 1], noise_mode=noise_mode)
+            x = self.conv0(x.to(dtype), ws[:, 0], noise_mode=noise_mode, draws=site("conv0"))
+            x = self.conv1(x, ws[:, 1], noise_mode=noise_mode, draws=site("conv1"))
             w_rgb = ws[:, 2]
         if img is not None and self.up == 2:
             img = upsample2d(img, self.resample_filter)
@@ -269,14 +283,15 @@ class SynthesisNetwork(nn.Module):
             setattr(self, f"b{res}", block)
         self.num_ws += 1   # the last block's ToRGB
 
-    def forward(self, ws, noise_mode="const", force_fp32=False):
+    def forward(self, ws, noise_mode="const", force_fp32=False, draws=None):
         ws = ws.float()
         x = img = None
         w_idx = 0
         for res in self.block_resolutions:
             block = getattr(self, f"b{res}")
             cur = ws[:, w_idx:w_idx + block.num_conv + block.num_torgb]
-            x, img = block(x, img, cur, noise_mode=noise_mode, force_fp32=force_fp32)
+            x, img = block(x, img, cur, noise_mode=noise_mode, force_fp32=force_fp32,
+                           draws=None if draws is None else draws.child(f"b{res}"))
             w_idx += block.num_conv
         return img
 

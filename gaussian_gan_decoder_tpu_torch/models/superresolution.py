@@ -47,21 +47,26 @@ class Superresolution(nn.Module):
                                      conv_clamp=clamp, use_fp16=use_fp16,
                                      generator=generator, device=device)
 
-    def forward(self, rgb, x, ws, noise_mode="const"):
+    def forward(self, rgb, x, ws, noise_mode="const", draws=None):
         """rgb (N, 3, h, w), x (N, C, h, w), ws (N, num_ws, 512) -> (image,
         raw_alias): raw_alias is block0's image when block0 neither resizes
         nor upsamples the raw image — the reference adds block0's ToRGB skip
         into the caller's image_raw in place (networks_stylegan2.py:461,
-        triplane.py:392-399) — else None."""
+        triplane.py:392-399) — else None. draws: noise_mode 'random''s
+        draws, at the sites `block0` and `block1` (the JAX package splits
+        its noise key in two)."""
         ws = ws[:, -1:, :].repeat(1, 3, 1)
         aliases = not self.block0_up and x.shape[-1] == self.input_resolution
         if x.shape[-1] != self.input_resolution:
             r = self.input_resolution
             x = resize_bilinear(x, r, r, antialias=self.sr_antialias)
             rgb = resize_bilinear(rgb, r, r, antialias=self.sr_antialias)
-        x, rgb = self.block0(x, rgb, ws, noise_mode=noise_mode)
+        def site(name):
+            return None if draws is None else draws.child(name)
+
+        x, rgb = self.block0(x, rgb, ws, noise_mode=noise_mode, draws=site("block0"))
         raw_alias = rgb if aliases else None
-        x, rgb = self.block1(x, rgb, ws, noise_mode=noise_mode)
+        x, rgb = self.block1(x, rgb, ws, noise_mode=noise_mode, draws=site("block1"))
         return (x if self.returns_features else rgb), raw_alias
 
 

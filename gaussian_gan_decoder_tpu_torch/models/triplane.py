@@ -18,9 +18,11 @@ a probe table, with per-call rk_overrides), `synthesis`, `sample_mixed`,
 Where the JAX package takes a PRNG key for the renderer's stratified and
 importance draws, the port takes them as a RenderDraws, or a
 torch.Generator that makes them (None: a generator seeded 0, as JAX's
-key=None is PRNGKey(0)). noise_mode is 'const' or 'none': per-pixel random
-noise belongs to GAN training, which is not ported, and asking for it
-raises.
+key=None is PRNGKey(0)). noise_mode is 'const', 'none' or 'random'; the
+per-pixel noise of 'random' (and of superresolution_noise_mode 'random')
+comes from `noise_draws`, a draws object (utils/draws.py) that the
+backbone asks at `b{res}` and the SR stack at `block0` / `block1`, where
+the JAX package hands both the same noise key.
 
 Every constructor argument but the weights' seed and device is recorded in
 `config`, a TriPlaneGeneratorConfig, from which from_config rebuilds the
@@ -247,9 +249,9 @@ class TriPlaneGenerator(nn.Module):
         offset[:, [3, 7, 11]] = delta_c.to(c_in.dtype)
         return c_in + offset, delta_c
 
-    def synthesis_planes(self, ws, noise_mode="const"):
+    def synthesis_planes(self, ws, noise_mode="const", noise_draws=None):
         """ws -> (N, 3, 32*D, H, W) f32 feature planes."""
-        planes = self.backbone.synthesis(ws, noise_mode=noise_mode)
+        planes = self.backbone.synthesis(ws, noise_mode=noise_mode, draws=noise_draws)
         N = planes.shape[0]
         return planes.reshape(N, 3, 32 * self.triplane_depth,
                               planes.shape[-2], planes.shape[-1])
@@ -267,13 +269,15 @@ class TriPlaneGenerator(nn.Module):
 
     def render_planes(self, planes, ws, c, draws=None,
                       neural_rendering_resolution: int = 64, plane_table=None,
-                      noise_mode: str = "const", rk_overrides=None) -> Dict[str, torch.Tensor]:
+                      noise_mode: str = "const", rk_overrides=None,
+                      noise_draws=None) -> Dict[str, torch.Tensor]:
         """Volume render + raw ToRGB + SR from precomputed planes (the JAX
         package's render_planes). draws: the renderer's stratified and
         importance draws (a RenderDraws, or a torch.Generator that makes
         them); plane_table (build_sampling_table's output): the table both
         passes probe; rk_overrides: a dict merged over the rendering kwargs
-        for this call (e.g. scaled depth resolutions). -> {image_raw,
+        for this call (e.g. scaled depth resolutions); noise_draws: the SR
+        stack's per-pixel noise under 'random'. -> {image_raw,
         image_depth, feature_planes[, image_mask][, image]}: PanoHead maps a
         sigmoid decoder's features to (-1, 1), blends the background forced
         to -1, runs the raw ToRGB and returns the mask; EG3D takes the first
@@ -311,34 +315,33 @@ class TriPlaneGenerator(nn.Module):
         sr_noise_mode = rk["superresolution_noise_mode"]
         if sr_noise_mode not in ("random", "none"):
             sr_noise_mode = noise_mode
-        if sr_noise_mode == "random":
-            raise ValueError(
-                "superresolution noise 'random' is GAN training's per-pixel noise, which the "
-                "port does not run: set superresolution_noise_mode 'none' or noise_mode 'const'")
         image, raw_alias = self.superresolution(
             rgb_image, feature_image, ws,
-            noise_mode="const" if sr_noise_mode == "none" else sr_noise_mode)
+            noise_mode="const" if sr_noise_mode == "none" else sr_noise_mode,
+            draws=noise_draws)
         out["image"] = image
         if raw_alias is not None:
             out["image_raw"] = raw_alias.float()
         return out
 
     def synthesis(self, ws, c, draws=None, neural_rendering_resolution: int = 64,
-                  noise_mode: str = "const") -> Dict[str, torch.Tensor]:
+                  noise_mode: str = "const", noise_draws=None) -> Dict[str, torch.Tensor]:
         """ws -> the full synthesis dict (ref triplane.py:128-225): the
-        planes, then render_planes."""
-        planes = self.synthesis_planes(ws, noise_mode)
+        planes, then render_planes, both on the same noise_draws."""
+        planes = self.synthesis_planes(ws, noise_mode, noise_draws)
         return self.render_planes(planes, ws, c, draws, neural_rendering_resolution,
-                                  noise_mode=noise_mode)
+                                  noise_mode=noise_mode, noise_draws=noise_draws)
 
     def apply(self, z, c, truncation_psi=1.0, truncation_cutoff=None,
-              neural_rendering_resolution: int = 64, noise_mode: str = "const", draws=None):
+              neural_rendering_resolution: int = 64, noise_mode: str = "const", draws=None,
+              noise_draws=None):
         """The generator's forward (ref triplane.py:265-293): mapping, on
         PanoHead the self-adaptive camera (apply_delta_c), then synthesis."""
         ws = self.mapping(z, c, truncation_psi, truncation_cutoff)
         if self.variant == "panohead":
             c, _ = self.apply_delta_c(z, c, truncation_psi, truncation_cutoff)
-        return self.synthesis(ws, c, draws, neural_rendering_resolution, noise_mode=noise_mode)
+        return self.synthesis(ws, c, draws, neural_rendering_resolution, noise_mode=noise_mode,
+                              noise_draws=noise_draws)
 
     # -- point probes ------------------------------------------------------------
 

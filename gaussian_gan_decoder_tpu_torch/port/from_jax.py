@@ -8,8 +8,10 @@ t_mapping and bcg_synthesis included, so a dict loads with
 load_state_dict(strict=True): any missing or unexpected key raises.
 The JAX package's .pt writer stores a 0-d tensor (noise_strength) with
 shape (1,) (np.ascontiguousarray): such an entry takes the module's 0-d
-shape. The VGG16-LPIPS weights load under torchvision's names. This module
-never imports jax.
+shape. The VGG16-LPIPS weights load under torchvision's names, the metrics'
+InceptionV3 and StyleGAN3 generator from the JAX package's nested param
+trees (load_param_tree: names joined with dots). This module never imports
+jax.
 """
 from __future__ import annotations
 
@@ -67,3 +69,21 @@ def load_vgg16_lpips_state(vgg: torch.nn.Module, state: State) -> None:
     the names VGG16LPIPS.load_torch_state_dict reads on the JAX side; an
     .npz, a .pt or a mapping) into the port's VGG16LPIPS, strictly."""
     vgg.load_state_dict(_tensors(_read(state)), strict=True)
+
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
+    """A nested param tree (dicts of arrays) -> {dotted name: array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def load_param_tree(module: torch.nn.Module, tree: Mapping) -> None:
+    """Load a JAX package param tree whose nesting is the module's names
+    (the metrics' InceptionV3.init, Generator3.init) into the module,
+    strictly."""
+    module.load_state_dict(_tensors(flatten_tree(tree), module=module), strict=True)

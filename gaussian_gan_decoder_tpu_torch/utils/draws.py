@@ -1,4 +1,5 @@
-"""Named random draws for the GAN step and the augment pipe.
+"""Named random draws for the GAN step, the augment pipe, the synthesis'
+random noise and the inversion's steps.
 
 The JAX package threads PRNG keys: each function splits its key into one
 key a draw site. The port's functions take a draws object instead. A site
@@ -31,10 +32,20 @@ class TorchDraws:
         return torch.rand(tuple(shape), generator=self.generator,
                           device=self.generator.device).to(self.device)
 
-    def normal(self, shape: Sequence[int]) -> torch.Tensor:
+    def normal(self, shape: Sequence[int], dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """f32 normal draws, then cast to dtype (the synthesis' noise takes
+        its layer's)."""
         return torch.randn(tuple(shape), generator=self.generator,
-                           device=self.generator.device).to(self.device)
+                           device=self.generator.device).to(self.device, dtype)
 
     def randint(self, shape: Sequence[int], low: int, high: int) -> torch.Tensor:
         return torch.randint(low, high, tuple(shape), generator=self.generator,
                              device=self.generator.device).to(self.device)
+
+
+def draws_or_seeded(draws, key, device):
+    """draws, or (None) a TorchDraws on a CPU generator seeded from the JAX
+    key's low word (utils/jax_random.py), its numbers moved to device."""
+    if draws is not None:
+        return draws
+    return TorchDraws(torch.Generator().manual_seed(int(key[1])), device)

@@ -1,7 +1,8 @@
-"""JAX's default PRNG in numpy: `PRNGKey`, `random_bits`, `uniform` and
-`normal` for float32, so that the port's apps draw the same
-latent for a seed as the JAX package's (`jax.random.normal(PRNGKey(seed),
-shape)`) without importing jax.
+"""JAX's default PRNG in numpy: `PRNGKey`, `split`, `fold_in`,
+`random_bits`, `uniform` and `normal` for float32, so that the port's apps
+draw the same latent for a seed as the JAX package's
+(`jax.random.normal(PRNGKey(seed), shape)`), and the same key stream
+(`fold_in(key, i)`, `split(key, n)`), without importing jax.
 
 The implementation is the one jax 0.9 uses by default: the threefry2x32
 hash (20 rounds, Salmon et al. 2011, as `jax._src.prng`), with
@@ -56,6 +57,22 @@ def PRNGKey(seed: int) -> np.ndarray:
     seed is taken modulo 2**64, as jax's int64 seed is bit-cast."""
     s = int(seed) % (1 << 64)
     return np.array([s >> 32, s & 0xFFFFFFFF], np.uint32)
+
+
+def split(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """jax.random.split(key, num) -> (num, 2) uint32: key i is the hash of
+    the counter i (its high and low words), as jax's partitionable split."""
+    c0, c1 = _counters((int(num),))
+    b0, b1 = threefry2x32(key, c0, c1)
+    return np.stack([b0, b1], axis=1)
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """jax.random.fold_in(key, data): the hash of the counter pair (0,
+    data) under key, for a uint32 data."""
+    b0, b1 = threefry2x32(key, np.zeros(1, np.uint32),
+                          np.array([int(data) & 0xFFFFFFFF], np.uint32))
+    return np.array([b0[0], b1[0]], np.uint32)
 
 
 def _counters(shape: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:

@@ -30,9 +30,13 @@ class JaxDraws:
         with jax.enable_x64(False):
             return torch.tensor(np.asarray(jax.random.uniform(self._next(), tuple(shape))))
 
-    def normal(self, shape):
+    def normal(self, shape, dtype=torch.float32):
+        """f32 normals, or bf16 ones drawn in bf16 as JAX draws a bf16
+        layer's noise."""
         with jax.enable_x64(False):
-            return torch.tensor(np.asarray(jax.random.normal(self._next(), tuple(shape))))
+            jd = jax.numpy.bfloat16 if dtype == torch.bfloat16 else jax.numpy.float32
+            r = jax.random.normal(self._next(), tuple(shape), jd)
+            return torch.tensor(np.asarray(r.astype(jax.numpy.float32))).to(dtype)
 
     def randint(self, shape, low, high):
         with jax.enable_x64(False):
@@ -82,3 +86,24 @@ def gan_step_draws(key, augment: bool = False):
     d = node(G=run_g_draws(kd_g), fake=run_d_draws(k_d1, augment),
              real=run_d_draws(k_d2, augment), r1=run_d_draws(k_r1, augment))
     return node(g=g, d=d)
+
+
+def block_noise_draws(key, num_conv):
+    """models/stylegan2.py SynthesisBlock.apply: the noise key split
+    num_conv ways, conv0 (when the block has one) then conv1."""
+    keys = list(jax.random.split(key, num_conv))
+    names = ("conv1",) if num_conv == 1 else ("conv0", "conv1")
+    return node(**{n: leaf(k) for n, k in zip(names, keys)})
+
+
+def synthesis_noise_draws(key, resolutions, sr=False):
+    """The noise draws of SynthesisNetwork.apply under `key` (split one key
+    a block, in resolution order; the 4^2 block has one conv) and, with
+    sr, of the SR stack under the same key (split in two, two convs a
+    block), as TriPlaneGenerator.synthesis hands both one noise key."""
+    kids = {f"b{r}": block_noise_draws(k, 1 if r == 4 else 2)
+            for r, k in zip(resolutions, jax.random.split(key, len(resolutions)))}
+    if sr:
+        k0, k1 = jax.random.split(key)
+        kids.update(block0=block_noise_draws(k0, 2), block1=block_noise_draws(k1, 2))
+    return node(**kids)

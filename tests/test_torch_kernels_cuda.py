@@ -906,6 +906,79 @@ def test_gen_videos_frame_kernels_match_plain(cuda, tmp_path):
     assert mse == 0 or 10 * math.log10(1 / mse) >= 50.0, mse
 
 
+def test_decoder_fid_frame_kernels_match_plain(cuda, tmp_path):
+    """One decoder-FID frame (metrics/metric_main.decoder_image_batches, the
+    'xla' rasterizer) at the --smoke widths on a decoder snapshot with
+    pallas_mapping and K10's int8 probe target: K10, K1 and K6's bf16 form
+    launch once each (K3 not at all), and the frame rebuilt from the same
+    draws equals, at >= 50 dB (chip_smoke.py's 5j(c) limit), the same frame
+    with the plain versions of K1 and K6 (plain_kernels)."""
+    import itertools
+    import math
+
+    from gaussian_gan_decoder_tpu_torch.apps import gen_samples
+    from gaussian_gan_decoder_tpu_torch.decoder.snapshot import (load_decoder, plain_kernels,
+                                                                 render_with_decoder,
+                                                                 save_decoder)
+    from gaussian_gan_decoder_tpu_torch.decoder.surface import sigma_grid_separable
+    from gaussian_gan_decoder_tpu_torch.decoder.target_pipeline import (
+        TargetDraws, TargetSamplerConfig, sample_target)
+    from gaussian_gan_decoder_tpu_torch.metrics.metric_main import decoder_image_batches
+    from gaussian_gan_decoder_tpu_torch.utils import jax_random
+    from gaussian_gan_decoder_tpu_torch.utils.draws import TorchDraws
+
+    gen = gen_samples.smoke_generator(cuda)
+    with torch.no_grad():
+        z = torch.randn((1, 32), generator=torch.Generator().manual_seed(0)).to(cuda)
+        ws = gen.mapping(z, torch.zeros((1, 25), device=cuda))
+        sig = sigma_grid_separable(gen, gen.synthesis_planes(ws), shape_res=32)
+    tcfg = TargetSamplerConfig(shape_res=32, num_points=20_000, neural_rendering_resolution=32,
+                               mc_level=float(torch.quantile(sig.flatten(), 0.9)),
+                               int8_probe=True, pallas_probe_build=True)
+    dec = GaussianDecoder(gen, gelu="poly", rng=torch.Generator().manual_seed(1), device=cuda,
+                          heads_bf16=True, pallas_heads=True, pallas_mapping=True)
+    snap = str(tmp_path / "snap")
+    save_decoder(snap, dec, gen, target_cfg=tcfg)
+    dec, configs = load_decoder(snap, device=cuda)
+    frozen = configs["frozen_G"]
+    label = flagship.default_camera_params(device="cpu")[0].numpy()
+    key = jax_random.PRNGKey(1)
+    counters = [(pallas_expand.brick_table, "launches"),
+                (pallas_mapping.mapping_forward, "launches"),
+                (pallas_heads.decode_heads, "launches_bf16"),
+                (pallas_blend.blend_tiles, "launches")]
+    before = [getattr(fn, a) for fn, a in counters]
+    img = next(decoder_image_batches(dec, frozen, tcfg, key, itertools.repeat(label),
+                                     image_size=128,
+                                     draws=TorchDraws(torch.Generator().manual_seed(2), cuda)))
+    torch.cuda.synchronize()
+    assert [getattr(fn, a) - b for (fn, a), b in zip(counters, before)] == [1, 1, 1, 0]
+    assert tuple(img.shape) == (1, 3, 128, 128) and bool(torch.isfinite(img).all())
+    assert float(img.std()) > 0
+    td = TargetDraws.fixed_camera(TorchDraws(torch.Generator().manual_seed(2), cuda)
+                                  .child("frame0"), frozen, tcfg, cuda)
+    z0 = torch.from_numpy(jax_random.normal(
+        jax_random.fold_in(jax_random.fold_in(key, 0), 0), (1, 32))).to(cuda)
+    cl = torch.tensor(label, device=cuda)
+    t = sample_target(td, frozen, z0, camera_params=cl, cfg=tcfg)
+
+    def render():
+        return render_with_decoder(dec, z0, cl, cl[0, :16].reshape(4, 4), t.vertices,
+                                   2 * math.atan(0.5 / float(label[0, 16])), image_size=128,
+                                   backend="xla")[0]
+    kernel = render()
+    with plain_kernels():
+        ref = render()
+    torch.cuda.synchronize()
+
+    def db(a, b):
+        mse = float(((a - b) ** 2).mean())
+        return math.inf if mse == 0 else 10 * math.log10(1 / mse)
+    print(f"decoder-FID smoke frame: rebuilt {db(kernel, img[0] / 255):.2f} dB from the "
+          f"stream's; kernels vs plain versions {db(kernel, ref):.2f} dB")
+    assert db(kernel, img[0] / 255) >= 50.0 and db(kernel, ref) >= 50.0
+
+
 def test_gs3d_step_card_vs_cpu(cuda):
     """One classic 3DGS train step (train/gaussian_splatting.py: rasterize at
     SH degree 3 with the screen-space offset, L1 + SSIM, Adam) on the card
